@@ -19,7 +19,13 @@ Phases, each of which exits non-zero when it fails:
      conformance bar, and agrees with the plain lowering on the card, and
      time it beside ``torch.linalg.qr``;
   5. break the main path's time down: the factorization's host time, the
-     device time of each kernel kind's launches, and the time of forming Q.
+     device time of each kernel kind's launches, the device's busy share
+     of one factorization (a ``torch.profiler`` trace), and the time of
+     forming Q.
+
+Each correctness check is shown to reject a control whose answer is only
+TF32-grade: the kernels' written outputs rounded to TF32 (fp64: to fp32),
+and the main path's plain lowering run with TF32 products.
 
 The second-to-last line of output is a JSON object with one record per
 kernel; the last is ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -56,7 +62,7 @@ P = Q = N // NB   # 64 x 64 tile grid
 FLOPS = {"GEQRT": lambda nb: 5 * nb ** 3 / 3, "LARFB": lambda nb: 3 * nb ** 3,
          "TSQRT": lambda nb: 10 * nb ** 3 / 3, "SSRFB": lambda nb: 5 * nb ** 3}
 ELEMS = {"GEQRT": lambda nb: 3 * nb * nb + nb, "LARFB": lambda nb: 4 * nb * nb,
-         "TSQRT": lambda nb: 6 * nb * nb + nb, "SSRFB": lambda nb: 6 * nb * nb}
+         "TSQRT": lambda nb: 5 * nb * nb + nb, "SSRFB": lambda nb: 6 * nb * nb}
 
 REPLACES = {
     "GEQRT": "src/repro/kernels/macro_ops.py:295",
@@ -122,12 +128,35 @@ def largest_batch(engine, kind):
     return best
 
 
+def round_low(torch, x):
+    """``x`` rounded to TF32 (fp32 input: 10 mantissa bits kept, round to
+    nearest) or to fp32 (fp64 input): a result only that accurate."""
+    if x.dtype == torch.float64:
+        return x.float().double()
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def max_err(torch, got, want):
+    """max |got - want| over matching tensors, and max(1, max |want|);
+    raises on a non-finite value on either side."""
+    err, scale = 0.0, 1.0
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all() and torch.isfinite(w).all(), \
+            "non-finite kernel or plain output"
+        err = max(err, float((g - w).abs().max()))
+        scale = max(scale, float(w.abs().max()))
+    return err, scale
+
+
 def check_kernel(torch, engine, macro_ops, kind, idx_np, dtype, seed,
                  zero_pad=None, timing=False):
     """Run kernel and plain version on one seeded state; compare all five
-    state tensors.  Tolerance: the two sum in different orders, so they
-    may differ by rounding that the nb-step column loops can amplify —
-    max |kernel - plain| <= 100 * eps * nb * max(1, max |plain|)."""
+    state tensors.  Tolerance: the two sum nb-term products in different
+    orders, so they may differ by that rounding —
+    max |kernel - plain| <= eps * nb * max(1, max |plain|).  The control
+    (the kernel's written outputs rounded by :func:`round_low`) must
+    fail it."""
     dev = torch.device("cuda")
     base = make_state(torch, engine, dtype, seed, dev)
     if zero_pad is not None:
@@ -142,16 +171,16 @@ def check_kernel(torch, engine, macro_ops, kind, idx_np, dtype, seed,
     macro_ops.run_batch(kind, want, idx, use_kernel=False)
     torch.cuda.synchronize()
     assert macro_ops.LAUNCHES[kind] == before + 1, f"{kind}: plain launched a kernel"
-    err, scale = 0.0, 1.0
-    for g, w in zip(got, want):
-        assert torch.isfinite(g).all(), f"{kind}: non-finite kernel output"
-        err = max(err, float((g - w).abs().max()))
-        scale = max(scale, float(w.abs().max()))
+    err, scale = max_err(torch, got, want)
     eps = float(torch.finfo(dtype).eps)
-    tol = 100 * eps * NB * scale
+    tol = eps * NB * scale
+    control = [torch.where(g != b, round_low(torch, g), g)
+               for g, b in zip(got, base)]
+    control_err = max_err(torch, control, want)[0]
     res = dict(kind=kind, dtype=str(dtype).replace("torch.", ""),
                ntasks=int(idx_np.shape[0]), max_abs_err=err, tol=tol,
-               ok=err <= tol)
+               control_err=control_err,
+               ok=err <= tol and control_err > tol)
     if timing:
         work = engine.FactorState(*(x.clone() for x in base))
 
@@ -169,11 +198,15 @@ def check_kernel(torch, engine, macro_ops, kind, idx_np, dtype, seed,
 
 
 def library_ms(torch, kind, st, idx_np):
-    """One PyTorch call computing the same function, where there is one:
-    ``torch.geqrf`` on the batch of diagonal tiles (GEQRT) and
-    ``torch.ormqr`` applying their Q^T to the trailing tiles (LARFB)."""
-    kk = torch.from_numpy(idx_np[:, 0].astype(np.int64)).cuda()
-    jj = torch.from_numpy(idx_np[:, 2].astype(np.int64)).cuda()
+    """One PyTorch call computing the same function on the batch's tiles,
+    gathered outside the timed region: ``torch.geqrf`` on the diagonal
+    tiles (GEQRT) and on the stacked pairs ``[triu(D); A]`` (TSQRT);
+    ``torch.ormqr`` applying the packed reflectors' Q^T to the trailing
+    tiles (LARFB: V1 from the diagonal tile; SSRFB: the stacked
+    ``[0; V2]`` to ``[C_k; C_i]``).  ormqr forms its block reflector from
+    the taus, where the kernels read the stored T."""
+    kk, ii, jj = (torch.from_numpy(idx_np[:, c].astype(np.int64)).cuda()
+                  for c in range(3))
     if kind == "GEQRT":
         tiles = st.tiles[kk, kk].contiguous()
         return time_ms(torch, lambda: torch.geqrf(tiles))
@@ -183,7 +216,16 @@ def library_ms(torch, kind, st, idx_np):
         c = st.tiles[kk, jj].contiguous()
         return time_ms(torch, lambda: torch.ormqr(diag, taus, c, left=True,
                                                   transpose=True))
-    return None
+    if kind == "TSQRT":
+        pairs = torch.cat([torch.triu(st.tiles[kk, kk]), st.tiles[ii, kk]],
+                          dim=1).contiguous()
+        return time_ms(torch, lambda: torch.geqrf(pairs))
+    v2 = st.tiles[ii, kk]
+    packed = torch.cat([torch.zeros_like(v2), v2], dim=1).contiguous()
+    taus = st.t_taus[ii, kk].contiguous()
+    c = torch.cat([st.tiles[kk, jj], st.tiles[ii, jj]], dim=1).contiguous()
+    return time_ms(torch, lambda: torch.ormqr(packed, taus, c, left=True,
+                                              transpose=True))
 
 
 def phase_kernels(torch, engine, macro_ops):
@@ -263,14 +305,26 @@ def phase_main_path(torch, engine, macro_ops, repro_torch):
     q0, r0 = repro_torch.qr(a, config=repro_torch.QRConfig(use_kernel=False))
     torch.cuda.synchronize()
     plain_launches = dict(macro_ops.LAUNCHES)
-    # The lowerings sum in different orders; they agree to a tenth of the
-    # conformance bar.
-    agree_tol = 10 * eps * N
+    # The lowerings sum in different orders.  Rounding in Householder QR
+    # typically grows like sqrt(N) * eps (a random walk over the N steps);
+    # the tolerance allows 4x that.  The TF32 control — the plain
+    # lowering with TF32 products — must fail it.
+    agree_tol = 4 * N ** 0.5 * eps
+    finite = all(bool(torch.isfinite(x).all()) for x in (q, r, q0, r0))
     dq = float((q - q0).abs().max())
     dr = float((r - r0).abs().max() / r0.abs().max())
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        qc, rc = repro_torch.qr(a, config=repro_torch.QRConfig(use_kernel=False))
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    ctrl_launches = dict(macro_ops.LAUNCHES)
+    dq_ctrl = float((qc - q).abs().max())
+    dr_ctrl = float((rc - r).abs().max() / r.abs().max())
     checks = dict(ortho=ortho, resid=resid, bar=bar, dq=dq, dr_rel=dr,
-                  agree_tol=agree_tol, finite=bool(torch.isfinite(q).all()
-                                                   and torch.isfinite(r).all()),
+                  agree_tol=agree_tol, tf32_control_dq=dq_ctrl,
+                  tf32_control_dr_rel=dr_ctrl, finite=finite,
                   shapes=[list(q.shape), list(r.shape)])
     log("main path checks:", json.dumps(checks))
 
@@ -288,10 +342,51 @@ def phase_main_path(torch, engine, macro_ops, repro_torch):
 
     assert launches == expected, (launches, expected)
     assert plain_launches == launches, "the plain lowering launched kernels"
+    assert ctrl_launches == launches, "the TF32 control launched kernels"
     assert checks["finite"] and q.shape == (N, N) and r.shape == (N, N)
     assert ortho <= bar and resid <= bar, checks
     assert dq <= agree_tol and dr <= agree_tol, checks
+    assert max(dq_ctrl, dr_ctrl) > agree_tol, ("the TF32 control passed", checks)
     return launches, e2e, lib
+
+
+def busy_share(torch, engine, fresh):
+    """The device's busy share of one factorization, from one
+    ``torch.profiler`` trace of a real (not spin-gated) run: the union of
+    the macro-op kernels' device intervals over the run's host wall time
+    (profiling on) and over the device span from the first kernel's start
+    to the last one's end.  None when the trace holds no device events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    names = ("geqrt_kernel", "larfb_kernel", "tsqrt_kernel", "ssrfb_kernel")
+    for _ in range(2):      # the first session pays the tracer's start-up
+        state = fresh()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            engine.run_levels(state, use_kernel=True)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA
+                   and any(n in e.name for n in names))
+    if not spans:
+        return dict(busy_share_of_wall=None, note="no device events traced")
+    busy_us, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
+    for s_, e_ in spans[1:]:
+        if s_ > cur_e:
+            busy_us += cur_e - cur_s
+            cur_s, cur_e = s_, e_
+        else:
+            cur_e = max(cur_e, e_)
+    busy_us += cur_e - cur_s
+    span_ms = (spans[-1][1] - spans[0][0]) / 1e3
+    return dict(traced_kernels=len(spans), busy_ms=busy_us / 1e3,
+                wall_ms_profiled=wall_ms, device_span_ms=span_ms,
+                busy_share_of_wall=busy_us / 1e3 / wall_ms,
+                busy_share_of_span=busy_us / 1e3 / span_ms)
 
 
 def phase_breakdown(torch, engine, macro_ops, tilegraph, a):
@@ -299,7 +394,8 @@ def phase_breakdown(torch, engine, macro_ops, tilegraph, a):
     device time of each kind's launches, from CUDA events around every
     launch of one factorization enqueued behind a spin kernel long enough
     for the host to enqueue all of it (so the events see device time, not
-    host gaps); and the host time of forming Q."""
+    host gaps); the device's busy share of a real run (:func:`busy_share`);
+    and the host time of forming Q."""
     def fresh():
         return engine.init_state(tilegraph._split_tiles(a, P, Q, NB))
 
@@ -334,8 +430,9 @@ def phase_breakdown(torch, engine, macro_ops, tilegraph, a):
     form_q_ms = host_ms(form_q, reps=3)
     total = sum(per_kind.values())
     out = dict(factor_host_ms=factor_ms, kernel_device_ms=per_kind,
-               kernel_device_total_ms=total, factor_device_span_ms=span_ms,
-               device_busy_share=total / factor_ms, form_q_host_ms=form_q_ms)
+               kernel_device_total_ms=total, spun_device_span_ms=span_ms,
+               profiled=busy_share(torch, engine, fresh),
+               form_q_host_ms=form_q_ms)
     log("main path breakdown:", json.dumps(out))
     return out
 

@@ -302,7 +302,7 @@ def schedule_stats(p: int, q: int, nb: int = 32, itemsize: int = 4, *,
         roofline_dma_bytes=dma["roofline"],
         wavefront=dict(
             dispatches=sum(len(b) for b in batches),
-            vmem_bytes=macro_ops.engine_smem_bytes(nb, itemsize),
+            vmem_bytes=macro_ops.engine_vmem_bytes(nb, itemsize),
             modeled_dma_bytes=dma["wavefront"],
         ),
         megakernel=dict(
@@ -415,11 +415,18 @@ def _check_dispatch(dtype: torch.dtype, nb: int, use_kernel: bool,
     if dtype not in macro_ops.KERNEL_DTYPES:
         raise TypeError(f"the macro-op kernels take float32 or float64, "
                         f"got {dtype}")
-    need = macro_ops.engine_smem_bytes(nb, dtype.itemsize)
+    check_smem(nb, dtype.itemsize)
+
+
+def check_smem(nb: int, itemsize: int) -> None:
+    """Raise when the kernels' per-task shared memory at tile ``nb``
+    exceeds :data:`DEFAULT_SMEM_BUDGET`."""
+    need = macro_ops.engine_smem_bytes(nb, itemsize)
     if need > DEFAULT_SMEM_BUDGET:
         raise ValueError(
             f"tile ({nb},{nb}) exceeds the wavefront shared-memory budget "
-            f"({need} > {DEFAULT_SMEM_BUDGET}); shrink the tile")
+            f"({need} > {DEFAULT_SMEM_BUDGET} B at itemsize {itemsize}); "
+            f"shrink the tile")
 
 
 def factor_tiles(tiles: torch.Tensor, *, p: int, q: int, nb: int,

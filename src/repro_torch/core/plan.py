@@ -13,9 +13,11 @@ Deliberate differences from the reference, each recorded in ROADMAP §C:
 
   * the ``tuned`` rule is always rejected: the tuning cache is not ported
     (ROADMAP A13);
-  * ``use_kernel=None`` on ``"cuda"`` resolves to True when the method's
-    per-task working set fits :data:`DEFAULT_SMEM_BUDGET`, one H100
-    block's shared memory;
+  * ``use_kernel=None`` on ``"cuda"`` resolves to True for a method whose
+    kernels are ported, and raises when their per-task working set
+    exceeds :data:`DEFAULT_SMEM_BUDGET`, one H100 block's shared memory:
+    the plain lowering runs only when asked for (``use_kernel=False``) or
+    on the CPU;
   * on the kernel path the engine never runs the megakernel: the resolve
     hook records ``megakernel_not_ported`` (or the reference's
     ``megakernel_over_budget``) and resolves ``"wavefront"``; a forced
@@ -345,14 +347,19 @@ for _name, _item, _meta in (
 # planning
 # ---------------------------------------------------------------------------
 
-def _kernel_fits(spec: MethodSpec, m: int, n: int, cfg: QRConfig,
-                 dtype) -> bool:
-    if spec.smem_bytes is None:
-        return False
+def _require_kernel_fits(spec: MethodSpec, m: int, n: int, cfg: QRConfig,
+                         dtype) -> None:
+    """Raise when ``spec``'s kernels do not fit their shared-memory budget."""
+    dtype = as_torch_dtype(dtype)
     # Estimators are written for fp32; scale to the planned element width.
-    scale = as_torch_dtype(dtype).itemsize / 4.0
-    return spec.smem_bytes(m, n, cfg) * scale <= kernel_smem_budget(
-        spec.kernel_policy)
+    need = int(spec.smem_bytes(m, n, cfg) * dtype.itemsize // 4)
+    budget = kernel_smem_budget(spec.kernel_policy)
+    if need > budget:
+        raise ValueError(
+            f"method {spec.name!r} at block {cfg.block} in {dtype}: the "
+            f"kernels' per-task shared memory ({need} B) exceeds the budget "
+            f"({budget} B); shrink config.block, or pass use_kernel=False "
+            f"for the plain lowering")
 
 
 # Canonical auto-routing rule order (the reference's): an auto plan's
@@ -548,8 +555,12 @@ def plan(shape, dtype=torch.float32, config: Optional[QRConfig] = None, *,
 
     use_kernel = cfg.use_kernel
     if use_kernel is None:
+        # On the card a method whose kernels are ported runs them, or the
+        # plan raises; it never resolves quietly to the plain lowering.
         use_kernel = (backend == "cuda" and spec.kernel_backed
-                      and _kernel_fits(spec, m, n, cfg, dtype))
+                      and spec.smem_bytes is not None)
+        if use_kernel:
+            _require_kernel_fits(spec, m, n, cfg, dtype)
     elif use_kernel and not spec.kernel_backed:
         raise ValueError(f"method {name!r} has no kernel-backed realization")
 

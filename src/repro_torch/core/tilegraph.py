@@ -252,7 +252,7 @@ def _solve_tiled(a: torch.Tensor, cfg: QRConfig):
 
 
 def _smem_tiled(m: int, n: int, cfg: QRConfig) -> int:
-    """Per-task shared-memory working set of the wavefront kernels (fp32
+    """Largest per-task shared memory of the wavefront kernels (fp32
     units; the planner scales by element width)."""
     return macro_ops.engine_smem_bytes(min(cfg.block, m, n))
 

@@ -79,7 +79,9 @@ def library() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build()))
         for name in _ENTRIES:
             fn = getattr(lib, name)
-            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 \
+            # (ws, aux0, aux1, idx, ntasks, p, q, nb, is_double,
+            #  smem_bytes, stream)
+            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 \
                 + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
         lib.repro_error_string.argtypes = [ctypes.c_int]

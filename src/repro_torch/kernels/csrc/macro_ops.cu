@@ -8,7 +8,9 @@
 // the (p, q, nb, nb) tile array, row-major inside a tile; d_t is
 // (r, nb, nb), d_taus (r, nb), t_t (p, r, nb, nb), t_taus (p, r, nb) with
 // r = min(p, q).  Every task copies its tiles into dynamic shared memory,
-// works there, and writes its outputs back in place.  The CTAs of one
+// works there, and writes its outputs back in place.  Each kernel's
+// carve-up of that memory is at its top; its size in elements is the
+// kernel's MacroOp.smem_elems in macro_ops.py, which the launch passes.  The CTAs of one
 // launch run concurrently: the engine only batches tasks of one wavefront
 // level, whose writes are disjoint (asserted when it builds idx) and whose
 // reads never touch another task's writes, save LARFB's read of the
@@ -310,35 +312,30 @@ static cudaError_t prepare(K kernel, size_t bytes) {
 
 template <typename T>
 static int launch(int kind, void* ws, void* aux0, void* aux1, const int* idx,
-                  int ntasks, int p, int q, int nb, cudaStream_t stream) {
-  const size_t nn = (size_t)nb * nb;
+                  int ntasks, int p, int q, int nb, size_t bytes,
+                  cudaStream_t stream) {
   T* w = static_cast<T*>(ws);
   cudaError_t err = cudaSuccess;
-  size_t bytes = 0;
   switch (kind) {
     case 0:
-      bytes = (3 * nn + 3 * nb + 4) * sizeof(T);
       err = prepare(geqrt_kernel<T>, bytes);
       if (err == cudaSuccess)
         geqrt_kernel<T><<<ntasks, kThreads, bytes, stream>>>(
             w, static_cast<T*>(aux0), static_cast<T*>(aux1), idx, q, nb);
       break;
     case 1:
-      bytes = 5 * nn * sizeof(T);
       err = prepare(larfb_kernel<T>, bytes);
       if (err == cudaSuccess)
         larfb_kernel<T><<<ntasks, kThreads, bytes, stream>>>(
             w, static_cast<const T*>(aux0), idx, q, nb);
       break;
     case 2:
-      bytes = (5 * nn + 2 * nb + 4) * sizeof(T);
       err = prepare(tsqrt_kernel<T>, bytes);
       if (err == cudaSuccess)
         tsqrt_kernel<T><<<ntasks, kThreads, bytes, stream>>>(
             w, static_cast<T*>(aux0), static_cast<T*>(aux1), idx, p, q, nb);
       break;
     default:
-      bytes = 6 * nn * sizeof(T);
       err = prepare(ssrfb_kernel<T>, bytes);
       if (err == cudaSuccess)
         ssrfb_kernel<T><<<ntasks, kThreads, bytes, stream>>>(
@@ -351,12 +348,13 @@ static int launch(int kind, void* ws, void* aux0, void* aux1, const int* idx,
 
 static int dispatch(int kind, void* ws, void* aux0, void* aux1, const void* idx,
                     int ntasks, int p, int q, int nb, int is_double,
-                    void* stream) {
+                    int smem_bytes, void* stream) {
   const int* ix = static_cast<const int*>(idx);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t bytes = (size_t)smem_bytes;
   return is_double
-             ? launch<double>(kind, ws, aux0, aux1, ix, ntasks, p, q, nb, s)
-             : launch<float>(kind, ws, aux0, aux1, ix, ntasks, p, q, nb, s);
+             ? launch<double>(kind, ws, aux0, aux1, ix, ntasks, p, q, nb, bytes, s)
+             : launch<float>(kind, ws, aux0, aux1, ix, ntasks, p, q, nb, bytes, s);
 }
 
 }  // namespace repro
@@ -364,26 +362,33 @@ static int dispatch(int kind, void* ws, void* aux0, void* aux1, const void* idx,
 extern "C" {
 
 // Uniform signature: (workspace, aux0, aux1, idx, ntasks, p, q, nb,
-// is_double, stream).  aux0/aux1 are d_t/d_taus (GEQRT), d_t/- (LARFB),
-// t_t/t_taus (TSQRT), t_t/- (SSRFB).
+// is_double, smem_bytes, stream).  aux0/aux1 are d_t/d_taus (GEQRT),
+// d_t/- (LARFB), t_t/t_taus (TSQRT), t_t/- (SSRFB).  smem_bytes is the
+// dynamic shared memory per CTA: the caller computes it from the
+// kernel's layout (MacroOp.smem_elems in macro_ops.py), so the size the
+// budget checks read and the size launched are one number.
 int repro_geqrt(void* ws, void* a0, void* a1, const void* idx, int n, int p,
-                int q, int nb, int is_double, void* stream) {
-  return repro::dispatch(0, ws, a0, a1, idx, n, p, q, nb, is_double, stream);
+                int q, int nb, int is_double, int smem_bytes, void* stream) {
+  return repro::dispatch(0, ws, a0, a1, idx, n, p, q, nb, is_double,
+                         smem_bytes, stream);
 }
 
 int repro_larfb(void* ws, void* a0, void* a1, const void* idx, int n, int p,
-                int q, int nb, int is_double, void* stream) {
-  return repro::dispatch(1, ws, a0, a1, idx, n, p, q, nb, is_double, stream);
+                int q, int nb, int is_double, int smem_bytes, void* stream) {
+  return repro::dispatch(1, ws, a0, a1, idx, n, p, q, nb, is_double,
+                         smem_bytes, stream);
 }
 
 int repro_tsqrt(void* ws, void* a0, void* a1, const void* idx, int n, int p,
-                int q, int nb, int is_double, void* stream) {
-  return repro::dispatch(2, ws, a0, a1, idx, n, p, q, nb, is_double, stream);
+                int q, int nb, int is_double, int smem_bytes, void* stream) {
+  return repro::dispatch(2, ws, a0, a1, idx, n, p, q, nb, is_double,
+                         smem_bytes, stream);
 }
 
 int repro_ssrfb(void* ws, void* a0, void* a1, const void* idx, int n, int p,
-                int q, int nb, int is_double, void* stream) {
-  return repro::dispatch(3, ws, a0, a1, idx, n, p, q, nb, is_double, stream);
+                int q, int nb, int is_double, int smem_bytes, void* stream) {
+  return repro::dispatch(3, ws, a0, a1, idx, n, p, q, nb, is_double,
+                         smem_bytes, stream);
 }
 
 const char* repro_error_string(int code) {

@@ -60,6 +60,7 @@ __all__ = [
     "run_batch",
     "smem_bytes",
     "engine_smem_bytes",
+    "engine_vmem_bytes",
     "megakernel_smem_bytes",
     "MEGAKERNEL_SMEM_TILES",
 ]
@@ -303,7 +304,7 @@ def _launch(kind: str, tiles: Tensor, aux: Tuple[Tensor, ...],
         rc = getattr(lib, f"repro_{kind.lower()}")(
             tiles.data_ptr(), ptrs[0], ptrs[1], idx.data_ptr(),
             int(idx.shape[0]), p, q, nb, int(tiles.dtype == torch.float64),
-            stream)
+            smem_bytes(kind, nb, tiles.element_size()), stream)
     if rc != 0:
         raise RuntimeError(f"{kind} kernel launch failed: CUDA error {rc} "
                            f"({_build.error_string(rc)})")
@@ -355,7 +356,13 @@ class MacroOp:
     state:       the factor-state fields both take after the workspace
     tile_reads:  workspace tiles read per task  (memory traffic model)
     tile_writes: workspace tiles written per task
-    smem_tiles:  nb x nb tiles a task keeps in shared memory
+    vmem_tiles:  the reference's modeled on-chip tile count per task; read
+                 only by ``engine.schedule_stats``, which reports the
+                 reference's numbers
+    smem_elems:  ``nb -> elements`` of dynamic shared memory the kernel
+                 carves up per task (its layout is in ``csrc/macro_ops.cu``);
+                 the launch passes exactly this size, and the budget
+                 checks of the planner and the engine read it too
     """
 
     name: str
@@ -365,20 +372,27 @@ class MacroOp:
     state: Tuple[str, ...]
     tile_reads: int
     tile_writes: int
-    smem_tiles: int
+    vmem_tiles: int
+    smem_elems: Callable[[int], int]
 
 
 MACRO_OPS: Dict[str, MacroOp] = {
+    # A, G, T tiles; v, w, taus vectors; beta, tau, denom (+1 pad).
     "GEQRT": MacroOp("GEQRT", geqrt_body, geqrt, geqrt_plain,
                      ("d_t", "d_taus"), tile_reads=1, tile_writes=1,
-                     smem_tiles=4),
+                     vmem_tiles=4, smem_elems=lambda nb: 3 * nb * nb + 3 * nb + 4),
+    # V, T, C, W1, W2 tiles.
     "LARFB": MacroOp("LARFB", larfb_body, larfb, larfb_plain, ("d_t",),
-                     tile_reads=2, tile_writes=1, smem_tiles=5),
+                     tile_reads=2, tile_writes=1, vmem_tiles=5,
+                     smem_elems=lambda nb: 5 * nb * nb),
+    # D, A, V2, G, T tiles; w, taus vectors; beta, tau, denom (+1 pad).
     "TSQRT": MacroOp("TSQRT", tsqrt_body, tsqrt, tsqrt_plain,
                      ("t_t", "t_taus"), tile_reads=2, tile_writes=2,
-                     smem_tiles=6),
+                     vmem_tiles=6, smem_elems=lambda nb: 5 * nb * nb + 2 * nb + 4),
+    # V2, T, C_k, C_i, W, W2 tiles.
     "SSRFB": MacroOp("SSRFB", ssrfb_body, ssrfb, ssrfb_plain, ("t_t",),
-                     tile_reads=3, tile_writes=2, smem_tiles=7),
+                     tile_reads=3, tile_writes=2, vmem_tiles=7,
+                     smem_elems=lambda nb: 6 * nb * nb),
 }
 
 
@@ -392,13 +406,21 @@ def run_batch(kind: str, state, idx: Tensor, *, use_kernel: bool) -> None:
 
 
 def smem_bytes(kind: str, nb: int, itemsize: int = 4) -> int:
-    """Per-task shared-memory working set of one macro op at tile size nb."""
-    return MACRO_OPS[kind].smem_tiles * nb * nb * itemsize
+    """Dynamic shared memory one macro op's kernel takes per task at tile
+    size nb: the size its launch passes."""
+    return MACRO_OPS[kind].smem_elems(nb) * itemsize
 
 
 def engine_smem_bytes(nb: int, itemsize: int = 4) -> int:
-    """Worst-case per-task working set across the four macro ops."""
+    """Largest per-task shared memory of the four kernels at tile size nb:
+    what the planner and the engine hold against the budget."""
     return max(smem_bytes(k, nb, itemsize) for k in MACRO_OPS)
+
+
+def engine_vmem_bytes(nb: int, itemsize: int = 4) -> int:
+    """The reference's modeled per-task working set (its ``vmem_tiles``),
+    reported by ``engine.schedule_stats`` only."""
+    return max(op.vmem_tiles for op in MACRO_OPS.values()) * nb * nb * itemsize
 
 
 # The megakernel lowering's resident set: two phases of the worst-case

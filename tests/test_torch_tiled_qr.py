@@ -137,6 +137,29 @@ def test_main_path_plan_on_cuda():
     assert s.config.use_kernel is False and s.config.dispatch_mode is None
 
 
+def test_cuda_plan_raises_when_kernels_do_not_fit():
+    """On "cuda" the plan runs the kernels or raises: a tile whose
+    per-task shared memory exceeds the budget is refused, not resolved to
+    the plain lowering.  The plain lowering stays on request or on the
+    CPU; the largest tile that fits is held to the kernels' own sizes."""
+    big = tplan.QRConfig(block=128)
+    with pytest.raises(ValueError, match=r"232448 B"):
+        tplan.plan((2048, 2048), torch.float32, big, backend="cuda")
+    with pytest.raises(ValueError, match="block 80"):
+        tplan.plan((2048, 2048), torch.float64, big.replace(block=80),
+                   backend="cuda")
+    assert tplan.plan((2048, 2048), torch.float64, big.replace(block=64),
+                      backend="cuda").config.use_kernel is True
+    s = tplan.plan((2048, 2048), torch.float32, big.replace(use_kernel=False),
+                   backend="cuda")
+    assert s.config.use_kernel is False
+    assert tplan.plan((2048, 2048), torch.float32, big,
+                      backend="cpu").config.use_kernel is False
+    s = tplan.plan((2048, 2048), torch.float32, tplan.QRConfig(block=96),
+                   backend="cuda")
+    assert s.config.use_kernel is True
+
+
 def test_forced_megakernel_verify_and_backend_raise():
     with pytest.raises(NotImplementedError, match="megakernel"):
         tplan.plan((2048, 2048), torch.float32,

@@ -208,9 +208,9 @@ def test_wrapper_checks_shapes_and_index_dtype():
 def test_kernel_matches_plain_on_hopper(kind, dtype):
     """Each CUDA kernel against its plain version on the card, on a
     (4, 5) grid at nb = 32 with the schedule's largest batch of its kind.
-    Tolerance: eps * nb * max(1, max |plain|), the summation-order
-    rounding of nb-term sums (chip_smoke.py measured about a tenth of
-    it at the main path's shapes); a NaN on either side fails."""
+    Tolerance: 4 * eps * nb * max(1, max |plain|), a few nb-term sums'
+    summation-order rounding (chip_smoke.py measured at most about a
+    ninth of it at the main path's shapes); a NaN on either side fails."""
     if not torch.cuda.is_available() or torch.cuda.get_device_capability() != (9, 0):
         pytest.skip("needs an sm_90 (Hopper) CUDA device")
     p, q, nb = 4, 5, 32
@@ -231,7 +231,7 @@ def test_kernel_matches_plain_on_hopper(kind, dtype):
     torch.cuda.synchronize()
     assert tmo.LAUNCHES[kind] == before + 1
     scale = max(1.0, max(float(y.abs().max()) for y in b))
-    tol = torch.finfo(dt).eps * nb * scale
+    tol = 4 * torch.finfo(dt).eps * nb * scale
     for x, y in zip(a, b):
         assert torch.isfinite(x).all() and torch.isfinite(y).all()
         assert float((x - y).abs().max()) <= tol

@@ -21,11 +21,28 @@ Phases, each of which exits non-zero when it fails:
   5. break the main path's time down: the factorization's host time, the
      device time of each kernel kind's launches, the device's busy share
      of one factorization (a ``torch.profiler`` trace), and the time of
-     forming Q.
+     forming Q;
+  6. hold the megakernel and its batched twin against their plain walks
+     (fp32 and fp64, 8 x 8 and 5 x 3 grids at nb = 32), the megakernel
+     against the wavefront kernels on the same workspace (bitwise), and
+     each batched slice against a single megakernel run of it (bitwise);
+  7. the megakernel path: ``repro_torch.qr`` on a seeded 640 x 640 float32
+     matrix (the largest square the auto rule gives the megakernel) runs
+     one megakernel launch, meets the conformance bar, agrees with the
+     plain lowering, and is timed beside ``torch.linalg.qr`` and the
+     forced wavefront lowering;
+  8. the batched path: ``repro_torch.qr`` on a seeded (60, 576, 576)
+     float32 stack (the shape class of SmolLM-135M's 60 q/o projections)
+     runs one batched megakernel launch, every slice inside the bar,
+     timed beside ``torch.linalg.qr`` on the stack and the slice-by-slice
+     loop of the wavefront lowering;
+  9. time both megakernels at those shapes against their plain walks,
+     their bound and ``torch.geqrf``.
 
 Each correctness check is shown to reject a control whose answer is only
 TF32-grade: the kernels' written outputs rounded to TF32 (fp64: to fp32),
-and the main path's plain lowering run with TF32 products.
+and the main paths' plain lowering run with TF32 products.  Every phase
+prints its seconds.
 
 The second-to-last line of output is a JSON object with one record per
 kernel; the last is ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -69,7 +86,13 @@ REPLACES = {
     "LARFB": "src/repro/kernels/macro_ops.py:309",
     "TSQRT": "src/repro/kernels/macro_ops.py:322",
     "SSRFB": "src/repro/kernels/macro_ops.py:340",
+    "MEGAKERNEL": "src/repro/core/engine.py:803",
+    "MEGAKERNEL_BATCHED": "src/repro/core/engine.py:814",
 }
+
+N_MEGA = 640            # 20 x 20 grid: the largest square the auto rule
+                        # gives the megakernel (24 x 24's table is over budget)
+STACK = (60, 576, 576)  # SmolLM-135M: 30 layers x (q, o) projections, d 576
 SOURCE = "src/repro_torch/kernels/csrc/macro_ops.cu"
 
 
@@ -91,15 +114,16 @@ def bound(kind, ntasks, nb, dtype_name):
 SPIN_CYCLES = 2_000_000
 
 
-def time_ms(torch, fn, reset=None, reps=20, warmup=3):
+def time_ms(torch, fn, reset=None, reps=20, warmup=3, spin=SPIN_CYCLES):
     """Median device time of ``fn`` over ``reps`` runs, each bracketed by
-    CUDA events behind a spin kernel; ``reset`` (untimed) restores its
-    inputs before each run."""
+    CUDA events behind a spin kernel of ``spin`` cycles (longer than the
+    host takes to enqueue ``fn``); ``reset`` (untimed) restores its inputs
+    before each run."""
     times = []
     for n in range(warmup + reps):
         if reset is not None:
             reset()
-        torch.cuda._sleep(SPIN_CYCLES)
+        torch.cuda._sleep(spin)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -274,43 +298,56 @@ def phase_kernels(torch, engine, macro_ops):
     return rows, results
 
 
-def phase_main_path(torch, engine, macro_ops, repro_torch):
-    rng = np.random.default_rng(N)
-    a = torch.from_numpy(rng.standard_normal((N, N)).astype(np.float32)).cuda()
+def launch_counts(macro_ops):
+    """The launch counters that are not zero."""
+    return {k: v for k, v in macro_ops.LAUNCHES.items() if v}
+
+
+def phase_main_path(torch, engine, macro_ops, repro_torch, n, mode, label):
+    """``repro_torch.qr`` with the default config on a seeded n x n float32
+    matrix: the plan resolves ``mode``, the call launches exactly the
+    schedule's kernels, meets the conformance bar, and agrees with the
+    plain lowering (a TF32 control must not); timed beside
+    ``torch.linalg.qr``."""
+    rng = np.random.default_rng(n)
+    a = torch.from_numpy(rng.standard_normal((n, n)).astype(np.float32)).cuda()
     solver = repro_torch.plan(a.shape, a.dtype, backend="cuda", explain=True)
     cfg = solver.config
-    log("plan:", json.dumps(dict(
+    log(f"{label} plan:", json.dumps(dict(
         method=cfg.method, use_kernel=cfg.use_kernel, block=cfg.block,
         dispatch_mode=cfg.dispatch_mode,
         decisions=[[d.rule, d.outcome, d.reason]
                    for d in solver.explain.decisions])))
     assert (cfg.method, cfg.use_kernel, cfg.dispatch_mode) == (
-        "tiled", True, "wavefront"), cfg
+        "tiled", True, mode), cfg
+    decision = ("dispatch_mode_auto" if mode == "megakernel"
+                else "megakernel_over_budget")
+    assert solver.explain.decision(decision) is not None, solver.explain
 
     torch.cuda.synchronize()
     macro_ops.reset_launch_counts()
     q, r = repro_torch.qr(a)
     torch.cuda.synchronize()
-    launches = dict(macro_ops.LAUNCHES)
-    expected = engine.dispatch_counts(P, Q)
-    log("main path launches:", json.dumps(launches), "expected:",
-        json.dumps(expected))
+    launches = launch_counts(macro_ops)
+    expected = engine.dispatch_counts(n // NB, n // NB, mode)
+    log(f"{label} launches:", json.dumps(launches), "expected:",
+        json.dumps(expected), "grid:", json.dumps(macro_ops.MEGAKERNEL_GRID))
 
     eps = float(torch.finfo(torch.float32).eps)
-    bar = 100 * eps * N
+    bar = 100 * eps * n
     q64, r64, a64 = q.double(), r.double(), a.double()
-    ortho = float((q64.T @ q64 - torch.eye(N, dtype=torch.float64,
+    ortho = float((q64.T @ q64 - torch.eye(n, dtype=torch.float64,
                                             device="cuda")).abs().max())
     resid = float(torch.linalg.norm(a64 - q64 @ r64) / torch.linalg.norm(a64))
 
     q0, r0 = repro_torch.qr(a, config=repro_torch.QRConfig(use_kernel=False))
     torch.cuda.synchronize()
-    plain_launches = dict(macro_ops.LAUNCHES)
+    plain_launches = launch_counts(macro_ops)
     # The lowerings sum in different orders.  Rounding in Householder QR
     # typically grows like sqrt(N) * eps (a random walk over the N steps);
     # the tolerance allows 4x that.  The TF32 control — the plain
     # lowering with TF32 products — must fail it.
-    agree_tol = 4 * N ** 0.5 * eps
+    agree_tol = 4 * n ** 0.5 * eps
     finite = all(bool(torch.isfinite(x).all()) for x in (q, r, q0, r0))
     dq = float((q - q0).abs().max())
     dr = float((r - r0).abs().max() / r0.abs().max())
@@ -320,7 +357,7 @@ def phase_main_path(torch, engine, macro_ops, repro_torch):
         torch.cuda.synchronize()
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
-    ctrl_launches = dict(macro_ops.LAUNCHES)
+    ctrl_launches = launch_counts(macro_ops)
     dq_ctrl = float((qc - q).abs().max())
     dr_ctrl = float((rc - r).abs().max() / r.abs().max())
     # The same difference with each Q column signed by its R diagonal, so
@@ -332,7 +369,7 @@ def phase_main_path(torch, engine, macro_ops, repro_torch):
                   tf32_control_dr_rel=dr_ctrl,
                   tf32_control_dq_sign_matched=dq_ctrl_signed, finite=finite,
                   shapes=[list(q.shape), list(r.shape)])
-    log("main path checks:", json.dumps(checks))
+    log(f"{label} checks:", json.dumps(checks))
 
     def run_qr():
         repro_torch.qr(a)
@@ -344,12 +381,27 @@ def phase_main_path(torch, engine, macro_ops, repro_torch):
 
     e2e = host_ms(run_qr, reps=5)
     lib = host_ms(run_lib, reps=5)
-    log("main path timing:", json.dumps(dict(qr_ms=e2e, torch_linalg_qr_ms=lib)))
+    timing = dict(qr_ms=e2e, torch_linalg_qr_ms=lib)
+    if mode == "megakernel":
+        wave = repro_torch.QRConfig(dispatch_mode="wavefront")
+        macro_ops.reset_launch_counts()
+        repro_torch.qr(a, config=wave)
+        torch.cuda.synchronize()
+        wave_launches = launch_counts(macro_ops)
+        wave_expected = engine.dispatch_counts(n // NB, n // NB)
+        assert wave_launches == wave_expected, (wave_launches, wave_expected)
+
+        def run_wave():
+            repro_torch.qr(a, config=wave)
+            torch.cuda.synchronize()
+        timing.update(wavefront_qr_ms=host_ms(run_wave, reps=5),
+                      wavefront_launches=sum(wave_launches.values()))
+    log(f"{label} timing:", json.dumps(timing))
 
     assert launches == expected, (launches, expected)
     assert plain_launches == launches, "the plain lowering launched kernels"
     assert ctrl_launches == launches, "the TF32 control launched kernels"
-    assert checks["finite"] and q.shape == (N, N) and r.shape == (N, N)
+    assert checks["finite"] and q.shape == (n, n) and r.shape == (n, n)
     assert ortho <= bar and resid <= bar, checks
     assert dq <= agree_tol and dr <= agree_tol, checks
     assert max(dq_ctrl, dr_ctrl) > agree_tol, ("the TF32 control passed", checks)
@@ -443,6 +495,278 @@ def phase_breakdown(torch, engine, macro_ops, tilegraph, a):
     return out
 
 
+def stack_tiles(torch, shape, dtype, seed, ragged=False):
+    """Seeded tiles of the given (..., p, q, nb, nb) shape on the card.
+    ``ragged``: odd slices of a stack hold a matrix nb/2 rows and columns
+    short of the grid, zero-padded, as a shape bucket stages them."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal(shape)).to("cuda", dtype)
+    if ragged:
+        h = shape[-1] // 2
+        x[1::2, -1, :, h:, :] = 0
+        x[1::2, :, -1, :, h:] = 0
+    return x
+
+
+def phase_megakernel_checks(torch, engine, macro_ops):
+    """Both megakernels against their plain walks (the table's rows in
+    order, one task at a time) on every state array, under the kernel
+    checks' 4 * eps * nb * max(1, max |plain|) with a TF32-rounded
+    control that must fail it; the megakernel against the wavefront
+    kernels on the same workspace, and each batched slice against a
+    single megakernel run of it: both bitwise, since every lowering runs
+    the same task bodies on the same inputs."""
+    results = []
+    for seed, (p, q) in enumerate(((8, 8), (5, 3))):
+        table = engine.megakernel_table(p, q, torch.device("cuda"))
+        for dtype in (torch.float32, torch.float64):
+            tol = 4 * float(torch.finfo(dtype).eps) * NB
+            res = dict(grid=[p, q], dtype=str(dtype).replace("torch.", ""))
+            for name, batch in (("MEGAKERNEL", None), ("MEGAKERNEL_BATCHED", 3)):
+                lead = () if batch is None else (batch,)
+                base = stack_tiles(torch, lead + (p, q, NB, NB), dtype,
+                                   100 + seed, ragged=batch is not None)
+                kernel, plain = (
+                    (macro_ops.megakernel, macro_ops.megakernel_plain)
+                    if batch is None else
+                    (macro_ops.megakernel_batched,
+                     macro_ops.megakernel_batched_plain))
+                got = engine.init_state(base.clone())
+                before = macro_ops.LAUNCHES[name]
+                kernel(got, *table)
+                torch.cuda.synchronize()
+                assert macro_ops.LAUNCHES[name] == before + 1, name
+                want = engine.init_state(base.clone())
+                plain(want, *table)
+                torch.cuda.synchronize()
+                assert macro_ops.LAUNCHES[name] == before + 1, \
+                    f"{name}: plain launched a kernel"
+                err, scale = max_err(torch, got, want)
+                init = engine.init_state(base)
+                control = [torch.where(g != b, round_low(torch, g), g)
+                           for g, b in zip(got, init)]
+                control_err = max_err(torch, control, want)[0]
+                key = name.lower()
+                res[key] = dict(max_abs_err=err, tol=tol * scale,
+                                control_err=control_err,
+                                grid_ctas=macro_ops.MEGAKERNEL_GRID[name])
+                ok = err <= tol * scale < control_err
+                if batch is None:
+                    wave = engine.init_state(base.clone())
+                    engine.run_levels(wave, use_kernel=True)
+                    torch.cuda.synchronize()
+                    diff = [float((g - w).abs().max()) for g, w in zip(got, wave)]
+                    res[key]["vs_wavefront_max_abs"] = diff
+                    ok = ok and all(torch.equal(g, w) for g, w in zip(got, wave))
+                else:
+                    diff = []
+                    for b in range(batch):
+                        single = engine.init_state(base[b].clone())
+                        macro_ops.megakernel(single, *table)
+                        torch.cuda.synchronize()
+                        diff.append(max(float((g[b] - x).abs().max())
+                                        for g, x in zip(got, single)))
+                        ok = ok and all(torch.equal(g[b], x)
+                                        for g, x in zip(got, single))
+                    res[key]["slice_vs_single_max_abs"] = diff
+                res[key]["ok"] = bool(ok)
+            res["ok"] = res["megakernel"]["ok"] and res["megakernel_batched"]["ok"]
+            log("megakernel check:", json.dumps(res))
+            results.append(res)
+    bad = [r for r in results if not r["ok"]]
+    if bad:
+        raise SystemExit(f"megakernel checks failed: {bad}")
+    return results
+
+
+def phase_batched_path(torch, engine, macro_ops, repro_torch):
+    """``repro_torch.qr`` on a seeded (60, 576, 576) float32 stack: one
+    batched megakernel launch, every slice inside the conformance bar and
+    its R equal to a single call's; timed beside ``torch.linalg.qr`` on
+    the stack and the slice-by-slice loops of the single path (wavefront,
+    as the port ran stacks before, and megakernel)."""
+    b, m, n = STACK
+    rng = np.random.default_rng(m)
+    stack = torch.from_numpy(rng.standard_normal(STACK).astype(np.float32)).cuda()
+    solver = repro_torch.plan(stack.shape, stack.dtype, backend="cuda",
+                              explain=True)
+    cfg = solver.config
+    log("batched path plan:", json.dumps(dict(
+        method=cfg.method, use_kernel=cfg.use_kernel, block=cfg.block,
+        dispatch_mode=cfg.dispatch_mode,
+        decisions=[[d.rule, d.outcome] for d in solver.explain.decisions])))
+    assert (cfg.method, cfg.use_kernel, cfg.dispatch_mode) == (
+        "tiled", True, "megakernel"), cfg
+
+    torch.cuda.synchronize()
+    macro_ops.reset_launch_counts()
+    q, r = repro_torch.qr(stack)
+    torch.cuda.synchronize()
+    launches = launch_counts(macro_ops)
+    expected = engine.dispatch_counts(m // NB, n // NB, "megakernel", b)
+    log("batched path launches:", json.dumps(launches), "expected:",
+        json.dumps(expected), "grid:", json.dumps(macro_ops.MEGAKERNEL_GRID))
+
+    eps = float(torch.finfo(torch.float32).eps)
+    bar = 100 * eps * max(m, n)
+    q64, r64, a64 = q.double(), r.double(), stack.double()
+    eye = torch.eye(n, dtype=torch.float64, device="cuda")
+    ortho = (q64.mT @ q64 - eye).abs().amax(dim=(-2, -1))
+    resid = (torch.linalg.matrix_norm(a64 - q64 @ r64)
+             / torch.linalg.matrix_norm(a64))
+    q1, r1 = repro_torch.qr(stack[0])
+    torch.cuda.synchronize()
+    checks = dict(
+        ortho_max=float(ortho.max()), resid_max=float(resid.max()), bar=bar,
+        slices_in_bar=int(((ortho <= bar) & (resid <= bar)).sum()),
+        finite=bool(torch.isfinite(q).all() and torch.isfinite(r).all()),
+        slice0_r_equal_single=bool(torch.equal(r[0], r1)),
+        slice0_q_vs_single_max_abs=float((q[0] - q1).abs().max()),
+        shapes=[list(q.shape), list(r.shape)])
+    log("batched path checks:", json.dumps(checks))
+
+    def run_qr():
+        repro_torch.qr(stack)
+        torch.cuda.synchronize()
+
+    def run_lib():
+        torch.linalg.qr(stack)
+        torch.cuda.synchronize()
+
+    wave = repro_torch.QRConfig(dispatch_mode="wavefront")
+
+    def run_loop(cfg_):
+        def run():
+            for x in stack:
+                repro_torch.qr(x, config=cfg_)
+            torch.cuda.synchronize()
+        return run
+
+    timing = dict(qr_ms=host_ms(run_qr, reps=3),
+                  torch_linalg_qr_ms=host_ms(run_lib, reps=3),
+                  per_slice_wavefront_ms=host_ms(run_loop(wave), reps=2),
+                  per_slice_megakernel_ms=host_ms(run_loop(None), reps=2))
+    log("batched path timing:", json.dumps(timing))
+
+    assert launches == expected, (launches, expected)
+    assert checks["finite"] and checks["slices_in_bar"] == b, checks
+    assert checks["slice0_r_equal_single"], checks
+    return launches, timing
+
+
+def megakernel_bound(engine, p, q, nb, batch, dtype_name):
+    """Least time of a whole factorization of ``batch`` (p, q) grids:
+    max(FLOPs / peak, bytes / HBM rate), FLOPs summed per kind over the
+    table's tasks, bytes the workspace read once plus the workspace and
+    the four reflector arrays written once.  Also the byte bounds of the
+    per-task traffic (each task's tiles in and out) and of the
+    reference's modeled megakernel traffic."""
+    itemsize = 4 if dtype_name == "float32" else 8
+    table = engine.megakernel_task_table(p, q)[0]
+    kinds = ("GEQRT", "LARFB", "TSQRT", "SSRFB")
+    count = {k: int((table[:, 0] == n).sum()) * batch for n, k in enumerate(kinds)}
+    flops = sum(count[k] * FLOPS[k](nb) for k in kinds)
+    r = min(p, q)
+    elems = batch * (2 * p * q * nb * nb + r * nb * nb + r * nb
+                     + p * r * nb * nb + p * r * nb)
+    t_ops = flops / PEAK_FLOPS[dtype_name]
+    t_bytes = elems * itemsize / PEAK_BYTES
+    task_bytes = sum(count[k] * ELEMS[k](nb) for k in kinds) * itemsize
+    modeled = engine.modeled_dma_bytes(p, q, nb, itemsize)["megakernel"] * batch
+    return dict(bound_ms=max(t_ops, t_bytes) * 1e3,
+                bound_by="operations" if t_ops > t_bytes else "bytes",
+                flops=flops, bytes=elems * itemsize,
+                task_traffic_bound_ms=task_bytes / PEAK_BYTES * 1e3,
+                modeled_dma_bound_ms=modeled / PEAK_BYTES * 1e3)
+
+
+def phase_megakernel_timing(torch, engine, macro_ops, tilegraph):
+    """Both megakernels at the shapes their main paths give them (a
+    640 x 640 matrix; the (60, 576, 576) stack), fp32: held against their
+    plain walks on the same inputs, then timed — kernel, plain walk and
+    ``torch.geqrf`` on the same matrix or stack — each run bracketed by
+    CUDA events behind a spin kernel, the workspace restored untimed.
+
+    Tolerance of the whole factorization: the kernel check's
+    4 * eps * nb * max(1, max |plain|) per step, grown over the min(p, q)
+    panel steps as a random walk, times sqrt(min(p, q)) — every step's
+    trailing update adds its own summation-order rounding to the tiles
+    below and right of it.  The TF32-rounded control must fail it.  Every
+    slice of the batched run must equal a single megakernel run of it."""
+    rows = {}
+    cases = (("MEGAKERNEL", (N_MEGA, N_MEGA), None),
+             ("MEGAKERNEL_BATCHED", STACK[1:], STACK[0]))
+    for seed, (name, (m, n), batch) in enumerate(cases):
+        p, q = m // NB, n // NB
+        lead = () if batch is None else (batch,)
+        rng = np.random.default_rng(200 + seed)
+        a = torch.from_numpy(rng.standard_normal(lead + (m, n)).astype(
+            np.float32)).cuda()
+        base = tilegraph._split_tiles(a, p, q, NB)
+        table = engine.megakernel_table(p, q, a.device)
+        kernel, plain = ((macro_ops.megakernel, macro_ops.megakernel_plain)
+                         if batch is None else
+                         (macro_ops.megakernel_batched,
+                          macro_ops.megakernel_batched_plain))
+        got = engine.init_state(base.clone())
+        kernel(got, *table)
+        want = engine.init_state(base.clone())
+        plain(want, *table)
+        torch.cuda.synchronize()
+        err, scale = max_err(torch, got, want)
+        tol = (4 * float(torch.finfo(torch.float32).eps) * NB * scale
+               * min(p, q) ** 0.5)
+        init = engine.init_state(base)
+        control_err = max_err(torch, [
+            torch.where(g != b, round_low(torch, g), g)
+            for g, b in zip(got, init)], want)[0]
+        by_field = {f: float((g - w).abs().max())
+                    for f, g, w in zip(engine.FactorState._fields, got, want)}
+        slices_equal = None
+        if batch is not None:
+            slices_equal = 0
+            for b in range(batch):
+                single = engine.init_state(base[b].clone())
+                macro_ops.megakernel(single, *table)
+                slices_equal += all(torch.equal(g[b], x)
+                                    for g, x in zip(got, single))
+        work = engine.init_state(base.clone())
+
+        def reset():
+            work.tiles.copy_(base)
+        res = dict(kernel=name, shape=list(lead + (m, n)), grid=[p, q],
+                   max_abs_err=err, tol=tol, control_err=control_err,
+                   err_by_field=by_field, slices_equal_single=slices_equal,
+                   grid_ctas=macro_ops.MEGAKERNEL_GRID[name],
+                   ms=time_ms(torch, lambda: kernel(work, *table), reset),
+                   plain_ms=time_ms(torch, lambda: plain(work, *table), reset,
+                                    reps=2, warmup=1),
+                   library_ms=time_ms(torch, lambda: torch.geqrf(a), reps=5),
+                   **megakernel_bound(engine, p, q, NB, batch or 1, "float32"))
+        if batch is None:
+            # The same factorization by the wavefront kernels (147 launches,
+            # enqueued behind a spin long enough to cover the host), and
+            # both lowerings' factorization on the host clock.
+            res["wavefront_ms"] = time_ms(
+                torch, lambda: engine.run_levels(work, use_kernel=True),
+                reset, reps=10, spin=SPIN_CYCLES * 20)
+
+            def factor(mode):
+                def run():
+                    engine.factor_tiles(base.clone(), p=p, q=q, nb=NB,
+                                        use_kernel=True, dispatch_mode=mode)
+                    torch.cuda.synchronize()
+                return run
+            res["factor_host_ms"] = host_ms(factor("megakernel"), reps=5)
+            res["wavefront_factor_host_ms"] = host_ms(factor("wavefront"),
+                                                      reps=5)
+        log("megakernel timing:", json.dumps(res))
+        if not err <= tol < control_err or slices_equal not in (None, batch):
+            raise SystemExit(f"{name} check failed: {res}")
+        rows[name] = res
+    return rows
+
+
 def host_ms(fn, reps, warmup=1):
     for _ in range(warmup):
         fn()
@@ -478,16 +802,35 @@ def main() -> int:
 
     t0 = time.perf_counter()
     _build.library()
-    log(f"kernel build: {time.perf_counter() - t0:.2f} s")
+    log(f"phase build: {time.perf_counter() - t0:.2f} s")
     for line in _build.BUILD_LOG.splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             log("  ptxas:", line.strip())
 
-    rows, _ = phase_kernels(torch, engine, macro_ops)
-    launches, e2e, lib = phase_main_path(torch, engine, macro_ops, repro_torch)
+    def phase(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        log(f"phase {name}: {time.perf_counter() - t0:.2f} s")
+        return out
+
+    rows, _ = phase("kernel checks", phase_kernels, torch, engine, macro_ops)
+    launches, e2e, lib = phase("main path 2048", phase_main_path, torch,
+                               engine, macro_ops, repro_torch, N, "wavefront",
+                               "main path")
     a = torch.from_numpy(np.random.default_rng(N).standard_normal(
         (N, N)).astype(np.float32)).cuda()
-    phase_breakdown(torch, engine, macro_ops, tilegraph, a)
+    phase("breakdown 2048", phase_breakdown, torch, engine, macro_ops,
+          tilegraph, a)
+    phase("megakernel checks", phase_megakernel_checks, torch, engine,
+          macro_ops)
+    mega_launches, mega_ms, mega_lib = phase(
+        "megakernel path 640", phase_main_path, torch, engine, macro_ops,
+        repro_torch, N_MEGA, "megakernel", "megakernel path")
+    stack_launches, stack_timing = phase(
+        "batched path", phase_batched_path, torch, engine, macro_ops,
+        repro_torch)
+    mega_rows = phase("megakernel timing", phase_megakernel_timing, torch,
+                      engine, macro_ops, tilegraph)
 
     kernels = []
     for kind in ("GEQRT", "LARFB", "TSQRT", "SSRFB"):
@@ -498,7 +841,19 @@ def main() -> int:
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"], ntasks=r["ntasks"]))
-    log("card:", card, "| main path qr_ms", e2e, "| torch.linalg.qr ms", lib)
+    for name, path_launches in (("MEGAKERNEL", mega_launches),
+                                ("MEGAKERNEL_BATCHED", stack_launches)):
+        r = mega_rows[name]
+        kernels.append(dict(
+            name=f"{name.lower()}_kernel", route="cuda", source=SOURCE,
+            replaces=REPLACES[name], launches=path_launches[name],
+            max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            library_ms=r["library_ms"], shape=r["shape"]))
+    log("card:", card, "| main path qr_ms", e2e, "| torch.linalg.qr ms", lib,
+        "| 640 qr_ms", mega_ms, "| torch.linalg.qr ms", mega_lib,
+        "| stack qr_ms", stack_timing["qr_ms"], "| torch.linalg.qr ms",
+        stack_timing["torch_linalg_qr_ms"])
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,24 +8,33 @@ functions (:func:`wavefront_task_arrays`, :func:`task_count`,
 :func:`modeled_dma_bytes`, :func:`schedule_stats`) are numpy only and
 equal the reference's integer for integer.
 
-Two lowerings run the schedule:
+Three lowerings run the schedule:
 
-  * the **kernel lowering** (``use_kernel=True``, ``dispatch_mode=
-    "wavefront"``): every wavefront's same-kind task batch is one launch
-    of a hand-written CUDA kernel (:mod:`repro_torch.kernels.macro_ops`),
-    one CTA per task, in the canonical kind order GEQRT, LARFB, TSQRT,
-    SSRFB on one stream;
-  * the **plain lowering** (``use_kernel=False``): the same batches
+  * the **wavefront kernel lowering** (``use_kernel=True``,
+    ``dispatch_mode="wavefront"``): every wavefront's same-kind task batch
+    is one launch of a hand-written CUDA kernel
+    (:mod:`repro_torch.kernels.macro_ops`), one CTA per task, in the
+    canonical kind order GEQRT, LARFB, TSQRT, SSRFB on one stream;
+  * the **megakernel lowering** (``use_kernel=True``,
+    ``dispatch_mode="megakernel"``): one cooperative launch walks the
+    whole task table (:func:`megakernel_task_table`), a grid barrier
+    between levels; :func:`factor_tiles_batched` runs a whole
+    ``(B, p, q, nb, nb)`` stack through one launch of its batched twin.
+    It calls the wavefront kernels' task bodies, so the two kernel
+    lowerings agree bit for bit;
+  * the **plain lowering** (``use_kernel=False``): the wavefront batches
     through the kernels' plain PyTorch versions.
 
-Both update the workspace **in place** — the caller's tensor is consumed
-and becomes the factored tiles (pass a clone to keep it), the counterpart
-of the reference's buffer donation.  The per-level ``(k, i, j)`` index
-arrays are uploaded to the workspace's device once per ``(p, q)`` and
-cached there, so a factorization makes no host-to-device copies of them.
-
-The reference's persistent ``"megakernel"`` lowering is not ported yet
-(ROADMAP B5): forcing it raises, and the auto rule runs wavefront.
+``dispatch_mode=None`` resolves by the reference's auto rule
+(:func:`resolve_dispatch_mode`): megakernel when the task table fits
+:data:`DEFAULT_TABLE_BUDGET` and the reference's modeled working set fits
+:data:`DEFAULT_SMEM_BUDGET`; a forced megakernel whose table does not fit
+raises.  Every lowering updates the workspace **in place** — the caller's
+tensor is consumed and becomes the factored tiles (pass a clone to keep
+it), the counterpart of the reference's buffer donation.  The per-level
+``(k, i, j)`` index arrays and the task table are uploaded to the
+workspace's device once per ``(p, q)`` and cached there, so a
+factorization makes no host-to-device copies of them.
 """
 
 from __future__ import annotations
@@ -43,11 +52,15 @@ __all__ = [
     "DEFAULT_TABLE_BUDGET",
     "DISPATCH_MODES",
     "FactorState",
+    "check_smem",
+    "check_table",
     "dispatch_counts",
     "explain_dispatch_mode",
     "factor_tiles",
+    "factor_tiles_batched",
     "init_state",
     "level_indices",
+    "megakernel_table",
     "megakernel_task_table",
     "modeled_dma_bytes",
     "resolve_dispatch_mode",
@@ -60,9 +73,10 @@ __all__ = [
     "wavefront_task_arrays",
 ]
 
-_KIND_ORDER = ("GEQRT", "LARFB", "TSQRT", "SSRFB")
+# The canonical kind order; a kind's table id is its index here.
+_KIND_ORDER = tuple(macro_ops.MACRO_OPS)
 
-#: The reference's kernel lowerings of the schedule; only "wavefront" runs here.
+#: The kernel lowerings of the schedule (see the module doc).
 DISPATCH_MODES = ("wavefront", "megakernel")
 
 #: Shared memory one H100 thread block can use (227 KB): the budget of a
@@ -135,7 +149,7 @@ _COL_FETCHED = 10      # operands already streaming (predecessor prefetch)
 _COL_PREFETCH = 11     # this slot prefetches the successor's operands
 _COL_REUSE0 = 12       # per-operand buffer-reuse flags: columns 12..14
 _COL_REUSET = 15       # block-reflector (T) operand reuse flag
-_NCOLS = 16
+_NCOLS = macro_ops.TABLE_COLS
 
 
 def _task_reads(kind: str, k: int, i: int, j: int) -> List[Tuple[int, int]]:
@@ -322,12 +336,18 @@ def schedule_stats(p: int, q: int, nb: int = 32, itemsize: int = 4, *,
     )
 
 
-def dispatch_counts(p: int, q: int) -> Dict[str, int]:
-    """Launches per kind of one wavefront-lowered factorization."""
+def dispatch_counts(p: int, q: int, dispatch_mode: str = "wavefront",
+                    batch: int = 1) -> Dict[str, int]:
+    """Kernel launches of one factor call on ``batch`` stacked ``(p, q)``
+    grids, keyed as ``macro_ops.LAUNCHES``: per kind for the wavefront
+    lowering (``batch`` times one factorization's), one megakernel launch
+    for the megakernel lowering (the batched one when ``batch > 1``)."""
+    if dispatch_mode == "megakernel":
+        return {"MEGAKERNEL_BATCHED" if batch > 1 else "MEGAKERNEL": 1}
     counts = dict.fromkeys(_KIND_ORDER, 0)
     for by_kind in wavefront_task_arrays(p, q):
         for kind in by_kind:
-            counts[kind] += 1
+            counts[kind] += batch
     return counts
 
 
@@ -368,17 +388,49 @@ def level_indices(p: int, q: int, device: torch.device
     return _DEVICE_INDEX[key]
 
 
+_DEVICE_TABLE: Dict[Tuple[int, int, str], Tuple[torch.Tensor, int, int]] = {}
+
+
+def megakernel_table(p: int, q: int, device: torch.device
+                     ) -> Tuple[torch.Tensor, int, int]:
+    """``(table, nlevels, nslots)`` of :func:`megakernel_task_table` with
+    the table on ``device``: one upload per ``(p, q, device)``.  Asserts
+    what the megakernel's concurrent CTAs rely on: each level's tasks
+    precede its NOOP rows, and no task reads a tile that another task of
+    its level writes — save LARFB's read of the V1 below the diagonal of
+    tile (k, k), whose upper triangle a TSQRT of that level rewrites."""
+    key = (p, q, str(device))
+    if key not in _DEVICE_TABLE:
+        table, nlevels, nslots = megakernel_task_table(p, q)
+        for lv in range(nlevels):
+            rows = table[lv * nslots:(lv + 1) * nslots]
+            n = int((rows[:, _COL_KIND] != _NOOP).sum())
+            assert (rows[n:, _COL_KIND] == _NOOP).all(), "NOOP before a task"
+            tasks = [(_KIND_ORDER[kind], k, i, j)
+                     for kind, k, i, j in rows[:n, :4].tolist()]
+            writer = {w: t for t in tasks for w in _task_writes(*t)}
+            for t in tasks:
+                for tile in _task_reads(*t):
+                    other = writer.get(tile, t)
+                    assert other == t or (t[0], other[0]) == ("LARFB", "TSQRT"), \
+                        ("same-level read of a written tile", t, other)
+        _DEVICE_TABLE[key] = (torch.from_numpy(table).to(device), nlevels,
+                              nslots)
+    return _DEVICE_TABLE[key]
+
+
 # ---------------------------------------------------------------------------
 # the factor loop
 # ---------------------------------------------------------------------------
 
 def init_state(tiles: torch.Tensor) -> FactorState:
-    """Fresh state around a ``(p, q, nb, nb)`` workspace (not copied)."""
-    p, q, nb, _ = tiles.shape
+    """Fresh state around a ``(..., p, q, nb, nb)`` workspace (not
+    copied); leading dimensions stack independent factorizations."""
+    *lead, p, q, nb, _ = tiles.shape
     r = min(p, q)
     z = functools.partial(torch.zeros, dtype=tiles.dtype, device=tiles.device)
-    return FactorState(tiles, z((r, nb, nb)), z((r, nb)), z((p, r, nb, nb)),
-                       z((p, r, nb)))
+    return FactorState(tiles, z((*lead, r, nb, nb)), z((*lead, r, nb)),
+                       z((*lead, p, r, nb, nb)), z((*lead, p, r, nb)))
 
 
 def run_levels(state: FactorState, levels: Optional[Iterable[int]] = None, *,
@@ -397,36 +449,66 @@ def run_levels(state: FactorState, levels: Optional[Iterable[int]] = None, *,
     return state
 
 
-def _check_dispatch(dtype: torch.dtype, nb: int, use_kernel: bool,
-                    dispatch_mode: Optional[str]) -> None:
-    """Guards of :func:`factor_tiles`: raises for an unknown or unported
-    dispatch mode, a dtype the kernels do not take, or a working set over
-    the shared-memory budget.  Every accepted mode runs wavefront."""
+def _check_dispatch(dtype: torch.dtype, p: int, q: int, nb: int,
+                    use_kernel: bool, dispatch_mode: Optional[str],
+                    batched: bool = False) -> str:
+    """Guards of the factor entry points; returns the lowering the kernel
+    path runs.  Raises for an unknown dispatch mode, a dtype the kernels
+    do not take, a launch whose shared memory exceeds the budget, or a
+    forced megakernel whose table exceeds :data:`DEFAULT_TABLE_BUDGET`
+    (the auto rule never picks one).  ``batched`` names the stacked entry
+    point in the messages: its CTAs take the single launch's shared
+    memory, and its table is the single schedule's."""
     if dispatch_mode not in (None,) + DISPATCH_MODES:
         raise ValueError(
             f"unknown dispatch_mode {dispatch_mode!r}; expected one of "
             f"{DISPATCH_MODES} or None (auto)")
     if not use_kernel:
-        return
-    if dispatch_mode == "megakernel":
-        raise NotImplementedError(
-            "dispatch_mode='megakernel' is not ported yet (ROADMAP B5); "
-            "use dispatch_mode='wavefront' or None")
+        return "wavefront"
     if dtype not in macro_ops.KERNEL_DTYPES:
         raise TypeError(f"the macro-op kernels take float32 or float64, "
                         f"got {dtype}")
-    check_smem(nb, dtype.itemsize)
+    mode = (resolve_dispatch_mode(p, q, nb, dtype.itemsize)
+            if dispatch_mode is None else dispatch_mode)
+    if mode == "megakernel":
+        check_table(p, q, batched)
+    check_smem(nb, dtype.itemsize, mode, batched)
+    return mode
 
 
-def check_smem(nb: int, itemsize: int) -> None:
-    """Raise when the kernels' per-task shared memory at tile ``nb``
-    exceeds :data:`DEFAULT_SMEM_BUDGET`."""
-    need = macro_ops.engine_smem_bytes(nb, itemsize)
+def check_smem(nb: int, itemsize: int, mode: str = "wavefront",
+               batched: bool = False) -> None:
+    """Raise when the ``mode`` lowering's per-CTA shared memory at tile
+    ``nb`` exceeds :data:`DEFAULT_SMEM_BUDGET`."""
+    need = (macro_ops.megakernel_launch_smem_bytes(nb, itemsize)
+            if mode == "megakernel" else
+            macro_ops.engine_smem_bytes(nb, itemsize))
     if need > DEFAULT_SMEM_BUDGET:
         raise ValueError(
-            f"tile ({nb},{nb}) exceeds the wavefront shared-memory budget "
-            f"({need} > {DEFAULT_SMEM_BUDGET} B at itemsize {itemsize}); "
-            f"shrink the tile")
+            f"tile ({nb},{nb}) exceeds the {'batched ' * batched}{mode} "
+            f"shared-memory budget ({need} > {DEFAULT_SMEM_BUDGET} B at "
+            f"itemsize {itemsize}); shrink the tile")
+
+
+def check_table(p: int, q: int, batched: bool = False) -> None:
+    """Raise when the ``(p, q)`` grid's megakernel task table exceeds
+    :data:`DEFAULT_TABLE_BUDGET`, as the reference does for a forced
+    megakernel."""
+    fits, tbytes = table_fits(p, q, DEFAULT_TABLE_BUDGET)
+    if not fits:
+        raise ValueError(
+            f"({p}, {q}) grid's {'batched ' * batched}megakernel task table "
+            f"(>= {tbytes} bytes) exceeds the table budget "
+            f"({DEFAULT_TABLE_BUDGET}); grow the tile or use "
+            f"dispatch_mode='wavefront'")
+
+
+def _check_workspace(tiles: torch.Tensor, shape: Tuple[int, ...]) -> None:
+    if tuple(tiles.shape) != shape:
+        raise ValueError(f"expected a {shape} tile workspace, "
+                         f"got {tuple(tiles.shape)}")
+    if not tiles.is_contiguous():
+        raise ValueError("the tile workspace must be contiguous")
 
 
 def factor_tiles(tiles: torch.Tensor, *, p: int, q: int, nb: int,
@@ -436,15 +518,45 @@ def factor_tiles(tiles: torch.Tensor, *, p: int, q: int, nb: int,
     the returned state's ``tiles`` is ``tiles`` itself, factored.
 
     ``use_kernel=True`` launches the CUDA kernels (a CUDA workspace;
-    on a CPU workspace the wrappers run their plain versions);
-    ``False`` runs the plain lowering.  ``dispatch_mode`` None or
-    "wavefront" runs per-level launches; "megakernel" raises (not ported).
+    on a CPU workspace the wrappers run their plain versions) by the
+    lowering ``dispatch_mode`` names: "wavefront" (one launch per level
+    and kind), "megakernel" (one launch), or None for the auto rule.
+    ``False`` runs the plain lowering.
     """
-    if tiles.ndim != 4 or tuple(tiles.shape) != (p, q, nb, nb):
-        raise ValueError(
-            f"expected a ({p}, {q}, {nb}, {nb}) tile workspace, "
-            f"got {tuple(tiles.shape)}")
-    if not tiles.is_contiguous():
-        raise ValueError("the tile workspace must be contiguous")
-    _check_dispatch(tiles.dtype, nb, use_kernel, dispatch_mode)
-    return run_levels(init_state(tiles), use_kernel=use_kernel)
+    _check_workspace(tiles, (p, q, nb, nb))
+    mode = _check_dispatch(tiles.dtype, p, q, nb, use_kernel, dispatch_mode)
+    state = init_state(tiles)
+    if use_kernel and mode == "megakernel":
+        macro_ops.megakernel(state, *megakernel_table(p, q, tiles.device))
+        return state
+    return run_levels(state, use_kernel=use_kernel)
+
+
+def factor_tiles_batched(tiles: torch.Tensor, *, p: int, q: int, nb: int,
+                         use_kernel: bool = False,
+                         dispatch_mode: Optional[str] = None) -> FactorState:
+    """Run the schedule over every slice of a stacked ``(B, p, q, nb, nb)``
+    workspace, in place; each slice's state equals :func:`factor_tiles`
+    on that slice.  The megakernel lowering is one launch of the batched
+    megakernel for the whole stack; the wavefront and plain lowerings run
+    the single path slice by slice.  ``B == 1`` runs the single path, as
+    the reference does."""
+    if tiles.ndim != 5 or tiles.shape[0] < 1:
+        raise ValueError(f"expected a (B >= 1, {p}, {q}, {nb}, {nb}) "
+                         f"stacked workspace, got {tuple(tiles.shape)}")
+    _check_workspace(tiles, (tiles.shape[0], p, q, nb, nb))
+    mode = _check_dispatch(tiles.dtype, p, q, nb, use_kernel, dispatch_mode,
+                           batched=True)
+    if tiles.shape[0] == 1:
+        single = factor_tiles(tiles[0], p=p, q=q, nb=nb,
+                              use_kernel=use_kernel, dispatch_mode=mode)
+        return FactorState(tiles, *(x[None] for x in single[1:]))
+    state = init_state(tiles)
+    if use_kernel and mode == "megakernel":
+        macro_ops.megakernel_batched(state,
+                                     *megakernel_table(p, q, tiles.device))
+    else:
+        for b in range(tiles.shape[0]):
+            run_levels(FactorState(*(x[b] for x in state)),
+                       use_kernel=use_kernel)
+    return state

@@ -18,10 +18,12 @@ Deliberate differences from the reference, each recorded in ROADMAP §C:
     exceeds :data:`DEFAULT_SMEM_BUDGET`, one H100 block's shared memory:
     the plain lowering runs only when asked for (``use_kernel=False``) or
     on the CPU;
-  * on the kernel path the engine never runs the megakernel: the resolve
-    hook records ``megakernel_not_ported`` (or the reference's
-    ``megakernel_over_budget``) and resolves ``"wavefront"``; a forced
-    ``dispatch_mode="megakernel"`` raises ``NotImplementedError``;
+  * a forced ``dispatch_mode="megakernel"`` whose task table exceeds
+    :data:`DEFAULT_TABLE_BUDGET` raises when planned (the reference raises
+    when the engine runs);
+  * a ``(..., B, m, n)`` input reaches a method's ``solve_batched`` as one
+    ``(B', m, n)`` stack of all its matrices (the reference vmaps the
+    dimensions before the last three);
   * ``verify=True`` raises ``NotImplementedError`` (ROADMAP A11).
 """
 
@@ -96,7 +98,7 @@ class QRConfig:
     """Hashable description of a QR realization — the reference's fields
     and checks.  ``method="auto"`` / ``use_kernel=None`` / ``nblocks=None``
     are resolved by :func:`plan`; ``dispatch_mode`` is the engine lowering
-    ("wavefront"; "megakernel" is not ported; None = auto);
+    ("wavefront", "megakernel", None = auto);
     ``use_tuning_cache`` is accepted but the cache is not ported;
     ``verify=True`` raises (not ported)."""
 
@@ -144,6 +146,10 @@ class MethodSpec:
     """Capability metadata + entry points of one registered realization.
 
     solve:   ``(a, cfg) -> (q, r) | r`` honoring cfg.mode/sign_fix
+    solve_batched: optional ``(a_bmn, cfg) -> (q, r) | r`` over a leading
+             batch axis; :meth:`QRSolver.solve` hands it every stacked
+             input as one stack (the tiled method factors it in one
+             batched engine call)
     resolve: optional ``(m, n, cfg, *, dtype, explain) -> cfg`` hook
     smem_bytes: optional ``(m, n, cfg) -> bytes`` per-block working set
              (fp32 units) read by the ``use_kernel=None`` rule
@@ -153,6 +159,7 @@ class MethodSpec:
 
     name: str
     solve: Optional[Callable] = None
+    solve_batched: Optional[Callable] = None
     resolve: Optional[Callable] = None
     supports_full_q: bool = True
     min_aspect: float = 0.0
@@ -271,17 +278,20 @@ def _signs(r: Tensor, size: int) -> Tensor:
     d = torch.diagonal(r, dim1=-2, dim2=-1)
     s = torch.where(d >= 0, 1.0, -1.0).to(r.dtype)
     if size > s.shape[-1]:
-        s = torch.cat([s, s.new_ones(size - s.shape[-1])])
+        s = torch.cat([s, s.new_ones(s.shape[:-1] + (size - s.shape[-1],))],
+                      dim=-1)
     return s
 
 
 def sign_fix_qr(q: Tensor, r: Tensor) -> Tuple[Tensor, Tensor]:
-    """Flip Q columns / R rows so diag(R) >= 0 (Q R product unchanged)."""
-    return q * _signs(r, q.shape[1])[None, :], r * _signs(r, r.shape[0])[:, None]
+    """Flip Q columns / R rows so diag(R) >= 0 (Q R product unchanged);
+    leading batch dimensions are element-wise."""
+    return (q * _signs(r, q.shape[-1])[..., None, :],
+            r * _signs(r, r.shape[-2])[..., :, None])
 
 
 def sign_fix_r(r: Tensor) -> Tensor:
-    return r * _signs(r, r.shape[0])[:, None]
+    return r * _signs(r, r.shape[-2])[..., :, None]
 
 
 # ---------------------------------------------------------------------------
@@ -613,23 +623,33 @@ class QRSolver:
             raise ValueError(f"method {self.config.method!r} does not "
                              f"support batched inputs")
 
-    def _solve2d(self, a: Tensor):
+    def _cast(self, a: Tensor) -> Tensor:
         if self.config.precision is not None:
-            a = a.to(as_torch_dtype(self.config.precision))
-        return self.spec.solve(a, self.config)
+            return a.to(as_torch_dtype(self.config.precision))
+        return a
+
+    def _solve2d(self, a: Tensor):
+        return self.spec.solve(self._cast(a), self.config)
 
     def solve(self, a: Tensor):
         """Factorize per ``config.mode``: (Q, R), R only, or full (Q, R).
-        Leading batch dims are solved matrix by matrix."""
+        Leading batch dims go to the method's ``solve_batched`` as one
+        stack of all the matrices, or are solved matrix by matrix when the
+        method has none."""
         self._check(a)
         if a.ndim == 2:
             return self._solve2d(a)
-        outs = [self._solve2d(x) for x in a.reshape((-1,) + self.shape)]
         lead = tuple(a.shape[:-2])
-        if isinstance(outs[0], tuple):
-            return tuple(torch.stack(xs).reshape(lead + xs[0].shape)
-                         for xs in zip(*outs))
-        return torch.stack(outs).reshape(lead + outs[0].shape)
+        stack = a.reshape((-1,) + self.shape)
+        if self.spec.solve_batched is not None:
+            out = self.spec.solve_batched(self._cast(stack), self.config)
+        else:
+            outs = [self._solve2d(x) for x in stack]
+            out = (tuple(torch.stack(xs) for xs in zip(*outs))
+                   if isinstance(outs[0], tuple) else torch.stack(outs))
+        if isinstance(out, tuple):
+            return tuple(x.reshape(lead + x.shape[1:]) for x in out)
+        return out.reshape(lead + out.shape[1:])
 
     def orthogonalize(self, a: Tensor) -> Tensor:
         """Sign-fixed thin Q (the optimizer primitive) of tall input."""

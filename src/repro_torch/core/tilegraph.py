@@ -9,7 +9,8 @@ is a DAG of tile tasks over a (p x q) grid of nb x nb tiles:
     SSRFB(k,i,j)  apply the TSQRT reflectors to the tile pair [A_kj; A_ij]
 
 levelized statically (a task's wavefront is 1 + the max over its
-dependencies) and executed level by level by :mod:`repro_torch.core.engine`.
+dependencies) and executed by :mod:`repro_torch.core.engine`, level by
+level or in one megakernel launch.
 The DAG arithmetic below is plain Python and equals the reference's.
 """
 
@@ -33,6 +34,7 @@ __all__ = [
     "wavefront_count",
     "tile_grid",
     "tiled_qr",
+    "tiled_qr_batched",
 ]
 
 
@@ -134,68 +136,114 @@ def wavefront_count(p: int, q: int) -> int:
 # ---------------------------------------------------------------------------
 # tiled QR
 # ---------------------------------------------------------------------------
+#
+# Every helper takes leading batch dimensions: a (B, m, n) stack splits
+# into a (B, p, q, nb, nb) stacked workspace and its Q forms with one
+# batched product per step across the B slices.
 
 def _split_tiles(a: torch.Tensor, p: int, q: int, nb: int) -> torch.Tensor:
-    return a.reshape(p, nb, q, nb).permute(0, 2, 1, 3).contiguous()
+    lead = tuple(a.shape[:-2])
+    return a.reshape(lead + (p, nb, q, nb)).transpose(-3, -2).contiguous()
 
 
 def _join_tiles(tiles: torch.Tensor) -> torch.Tensor:
-    p, q, nb, _ = tiles.shape
-    return tiles.permute(0, 2, 1, 3).reshape(p * nb, q * nb)
+    *lead, p, q, nb, _ = tiles.shape
+    return tiles.transpose(-3, -2).reshape(*lead, p * nb, q * nb)
 
 
 def _form_q_tiled(f: engine.FactorState, ncols: int) -> torch.Tensor:
     """Q columns from the factored state: the task transforms applied in
     reverse (TSQRT pairs bottom-up, then the GEQRT diagonal block), each
     an in-place update of one or two nb-row blocks of ``e``."""
-    p, q, nb, _ = f.tiles.shape
+    *lead, p, q, nb, _ = f.tiles.shape
     e = torch.eye(p * nb, ncols, dtype=f.tiles.dtype, device=f.tiles.device)
+    e = e.expand(*lead, p * nb, ncols).clone()
     for k in reversed(range(min(p, q))):
-        ek = e[k * nb:(k + 1) * nb]
+        ek = e[..., k * nb:(k + 1) * nb, :]
         for i in reversed(range(k + 1, p)):
-            v2, t = f.tiles[i, k], f.t_t[i, k]
-            ei = e[i * nb:(i + 1) * nb]
-            w = t @ (ek + v2.T @ ei)
+            v2, t = f.tiles[..., i, k, :, :], f.t_t[..., i, k, :, :]
+            ei = e[..., i * nb:(i + 1) * nb, :]
+            w = t @ (ek + v2.mT @ ei)
             ek -= w
             ei -= v2 @ w
-        v1 = unpack_v_panel(f.tiles[k, k], 0)
-        ek -= v1 @ (f.d_t[k] @ (v1.T @ ek))
+        v1 = unpack_v_panel(f.tiles[..., k, k, :, :], 0)
+        ek -= v1 @ (f.d_t[..., k, :, :] @ (v1.mT @ ek))
     return e
 
 
-def tiled_qr(a: torch.Tensor, *, tile: int = 32, mode: str = "reduced",
-             use_kernel: bool = False, dispatch_mode: str = None):
-    """QR of ``a`` via the tiled task graph, on ``a``'s device.
+def _factor_stack_padded(a_pad: torch.Tensor, *, p: int, q: int, nb: int,
+                         mode: str, use_kernel: bool = False,
+                         dispatch_mode: str = None):
+    """Factor a tile-aligned ``(B, p*nb, q*nb)`` stack through one
+    :func:`engine.factor_tiles_batched` call and return the full padded
+    factors: ``(r_full,)`` for mode "r", else ``(q_full, r_full)``, both
+    with the batch leading."""
+    if mode not in ("reduced", "r", "full"):
+        raise ValueError(f"unknown mode {mode!r}")
+    f = engine.factor_tiles_batched(_split_tiles(a_pad, p, q, nb), p=p, q=q,
+                                    nb=nb, use_kernel=use_kernel,
+                                    dispatch_mode=dispatch_mode)
+    r_full = torch.triu(_join_tiles(f.tiles))
+    if mode == "r":
+        return (r_full,)
+    ncols = min(p * nb, q * nb) if mode == "reduced" else p * nb
+    return _form_q_tiled(f, ncols), r_full
 
-    ``use_kernel=True`` runs the engine's kernel lowering (one launch per
-    (wavefront, kind) batch); ``False`` runs the plain lowering of the
-    same schedule.  Shapes that are not multiples of the tile are
-    zero-padded: padded rows and columns factor to exact ``tau = 0``
-    reflectors, so the unpadded slices of Q and R factor ``a`` itself.
+
+def tiled_qr_batched(a: torch.Tensor, *, tile: int = 32,
+                     mode: str = "reduced", use_kernel: bool = False,
+                     dispatch_mode: str = None):
+    """QR of every slice of a ``(B, m, n)`` stack via the tiled task graph,
+    through one batched engine call (:func:`_factor_stack_padded`), on
+    ``a``'s device: :func:`tiled_qr`'s modes and shapes with the batch
+    leading.
+
+    ``use_kernel=True`` runs the engine's kernel lowering — one launch of
+    the batched megakernel for the whole stack, or the wavefront launches
+    slice by slice, as ``dispatch_mode`` (None: the auto rule) says;
+    ``False`` runs the plain lowering of the same schedule.  Shapes that
+    are not multiples of the tile are zero-padded: padded rows and columns
+    factor to exact ``tau = 0`` reflectors, so the unpadded slices of Q
+    and R factor ``a`` itself.
 
     mode: "reduced" -> (Q m x k, R k x n); "r" -> R; "full" -> (Q m x m,
     R m x n), with k = min(m, n).
     """
-    if mode not in ("reduced", "r", "full"):
-        raise ValueError(f"unknown mode {mode!r}")
-    m, n = a.shape
+    if a.ndim != 3:
+        raise ValueError(f"tiled_qr_batched expects a (B, m, n) stack, got "
+                         f"{tuple(a.shape)}")
+    b, m, n = a.shape
     if m == 0 or n == 0:
         raise ValueError(
-            f"tiled_qr needs a nonempty matrix, got {tuple(a.shape)}; "
+            f"tiled_qr needs nonempty matrices, got {tuple(a.shape)}; "
             "zero-dim inputs route to the planner's 'degenerate' method")
     p, q = tile_grid(m, n, tile)
     nb = tile
-    a_pad = torch.zeros(p * nb, q * nb, dtype=a.dtype, device=a.device)
-    a_pad[:m, :n] = a
-    f = engine.factor_tiles(_split_tiles(a_pad, p, q, nb), p=p, q=q, nb=nb,
-                            use_kernel=use_kernel, dispatch_mode=dispatch_mode)
+    a_pad = torch.zeros(b, p * nb, q * nb, dtype=a.dtype, device=a.device)
+    a_pad[:, :m, :n] = a
+    out = _factor_stack_padded(a_pad, p=p, q=q, nb=nb, mode=mode,
+                               use_kernel=use_kernel,
+                               dispatch_mode=dispatch_mode)
     k = min(m, n)
-    r_full = torch.triu(_join_tiles(f.tiles))
     if mode == "r":
-        return r_full[:k, :n]
+        return out[0][:, :k, :n]
+    q_mat, r_full = out
     if mode == "reduced":
-        return _form_q_tiled(f, ncols=min(p * nb, q * nb))[:m, :k], r_full[:k, :n]
-    return _form_q_tiled(f, ncols=p * nb)[:m, :m], r_full[:m, :n]
+        return q_mat[:, :m, :k], r_full[:, :k, :n]
+    return q_mat[:, :m, :m], r_full[:, :m, :n]
+
+
+def tiled_qr(a: torch.Tensor, *, tile: int = 32, mode: str = "reduced",
+             use_kernel: bool = False, dispatch_mode: str = None):
+    """QR of one ``(m, n)`` matrix via the tiled task graph: a stack of
+    one through :func:`tiled_qr_batched`, whose engine call runs the
+    single-matrix path for it (one megakernel launch, or one launch per
+    wavefront level and kind)."""
+    if a.ndim != 2:
+        raise ValueError(f"tiled_qr expects a matrix, got {tuple(a.shape)}")
+    out = tiled_qr_batched(a[None], tile=tile, mode=mode,
+                           use_kernel=use_kernel, dispatch_mode=dispatch_mode)
+    return out[0] if mode == "r" else tuple(x[0] for x in out)
 
 
 # -- registry -----------------------------------------------------------------
@@ -215,56 +263,70 @@ def _resolve_tiled(m: int, n: int, cfg: QRConfig, *, dtype=None,
                    explain=None) -> QRConfig:
     # cfg.block doubles as the tile size; never exceed the matrix itself.
     cfg = cfg.replace(block=min(cfg.block, m, n))
-    if cfg.use_kernel and cfg.dispatch_mode == "megakernel":
-        raise NotImplementedError(
-            "dispatch_mode='megakernel' is not ported yet (ROADMAP B5); "
-            "use dispatch_mode='wavefront' or None")
-    if cfg.dispatch_mode is None and cfg.use_kernel:
-        p, q = tile_grid(m, n, cfg.block)
+    if not cfg.use_kernel:
+        return cfg
+    p, q = tile_grid(m, n, cfg.block)
+    if cfg.dispatch_mode == "megakernel":
+        engine.check_table(p, q)
+    elif cfg.dispatch_mode is None:
+        # Record the lowering the kernel path will run, as the reference
+        # does (megakernel iff its task table and working set fit).
         mode, why = engine.explain_dispatch_mode(
             p, q, cfg.block, _planned_itemsize(cfg, dtype))
         if explain is not None:
             explain.append(
                 RouteDecision("megakernel_over_budget", "fallback", why)
                 if mode == "wavefront" else
-                RouteDecision("megakernel_not_ported", "fallback",
-                              f"{why}; the megakernel lowering is not "
-                              f"ported yet (ROADMAP B5) — running wavefront"))
-        cfg = cfg.replace(dispatch_mode="wavefront")
+                RouteDecision("dispatch_mode_auto", "resolved", why))
+        cfg = cfg.replace(dispatch_mode=mode)
     return cfg
 
 
-def _solve_tiled(a: torch.Tensor, cfg: QRConfig):
-    m, n = a.shape
+def _solve_tiled_batched(a: torch.Tensor, cfg: QRConfig):
+    """A ``(B, m, n)`` stack through one batched engine call; the modes,
+    ``q_method`` and ``sign_fix`` of a single solve, slice by slice."""
+    _, m, n = a.shape
     kw = dict(tile=cfg.block, use_kernel=bool(cfg.use_kernel),
               dispatch_mode=cfg.dispatch_mode)
     if cfg.mode == "r":
-        r = tiled_qr(a, mode="r", **kw)
+        r = tiled_qr_batched(a, mode="r", **kw)
         return sign_fix_r(r) if cfg.sign_fix else r
     if cfg.mode == "reduced" and cfg.q_method == "solve" and m >= n:
         from repro_torch.core.tsqr import triangular_inverse_apply
 
-        r = tiled_qr(a, mode="r", **kw)
-        q = triangular_inverse_apply(a, r[:n, :n])
+        r = tiled_qr_batched(a, mode="r", **kw)
+        q = triangular_inverse_apply(a, r[:, :n, :n])
     else:
-        q, r = tiled_qr(a, mode=cfg.mode, **kw)
+        q, r = tiled_qr_batched(a, mode=cfg.mode, **kw)
     return sign_fix_qr(q, r) if cfg.sign_fix else (q, r)
 
 
+def _solve_tiled(a: torch.Tensor, cfg: QRConfig):
+    out = _solve_tiled_batched(a[None], cfg)
+    return out[0] if cfg.mode == "r" else tuple(x[0] for x in out)
+
+
 def _smem_tiled(m: int, n: int, cfg: QRConfig) -> int:
-    """Largest per-task shared memory of the wavefront kernels (fp32
-    units; the planner scales by element width)."""
-    return macro_ops.engine_smem_bytes(min(cfg.block, m, n))
+    """Per-CTA shared memory of the lowering the kernel path runs (fp32
+    units; the planner scales by element width): a forced megakernel's
+    own launch size, else the largest wavefront kernel's.  The auto rule
+    picks the megakernel only where it fits too."""
+    nb = min(cfg.block, m, n)
+    if cfg.dispatch_mode == "megakernel":
+        return macro_ops.megakernel_launch_smem_bytes(nb)
+    return macro_ops.engine_smem_bytes(nb)
 
 
 register_method(MethodSpec(
     name="tiled",
     solve=_solve_tiled,
+    solve_batched=_solve_tiled_batched,
     resolve=_resolve_tiled,
     kernel_backed=True,
     smem_bytes=_smem_tiled,
     kernel_policy="macro_ops",
-    description="tiled task-graph QR via the wavefront macro-op engine "
-                "(GEQRT/TSQRT/LARFB/SSRFB, one kernel launch per level "
-                "and kind)",
+    description="tiled task-graph QR via the macro-op engine "
+                "(GEQRT/TSQRT/LARFB/SSRFB: one persistent megakernel "
+                "launch where its task table fits, else one kernel launch "
+                "per level and kind; a stack through one batched launch)",
 ))

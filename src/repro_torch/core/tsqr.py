@@ -17,14 +17,14 @@ __all__ = ["triangular_inverse_apply", "default_nblocks"]
 def triangular_inverse_apply(a: torch.Tensor, r: torch.Tensor, *,
                              rcond: float = 1e-7) -> torch.Tensor:
     """``a @ r^{-1}`` by triangular solve, with a sign-preserving diagonal
-    clamp for near-singular R."""
-    d = torch.diagonal(r)
-    dmax = torch.clamp(d.abs().max(), min=1e-30)
+    clamp for near-singular R; leading batch dimensions are independent."""
+    d = torch.diagonal(r, dim1=-2, dim2=-1)
+    dmax = torch.clamp(d.abs().amax(-1, keepdim=True), min=1e-30)
     floor = rcond * dmax
     clamp = torch.where(d.abs() < floor, torch.where(d >= 0, floor, -floor), d)
-    r_safe = r + torch.diag(clamp - d)
+    r_safe = r + torch.diag_embed(clamp - d)
     # a r^{-1}  <=>  solve r^T x^T = a^T with lower-triangular r^T
-    return torch.linalg.solve_triangular(r_safe.T, a.T, upper=False).T
+    return torch.linalg.solve_triangular(r_safe.mT, a.mT, upper=False).mT
 
 
 def default_nblocks(m: int, n: int) -> int:

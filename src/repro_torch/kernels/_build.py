@@ -1,4 +1,5 @@
-"""Build and load the macro-op kernels (``csrc/macro_ops.cu``).
+"""Build and load the macro-op kernels and the megakernel
+(``csrc/macro_ops.cu``).
 
 ``nvcc`` compiles the sources into a shared library with a plain C
 interface, loaded with ``ctypes``; no PyTorch headers are involved, so a
@@ -26,7 +27,20 @@ _BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kerne
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_ENTRIES = ("repro_geqrt", "repro_larfb", "repro_tsqrt", "repro_ssrfb")
+# (ws, aux0, aux1, idx, ntasks, p, q, nb, is_double, smem_bytes, stream)
+_MACRO_OP_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+# (ws, d_t, d_taus, t_t, t_taus, table, nlevels, nslots, batch, p, q, nb,
+#  is_double, smem_bytes, barrier, stream, grid_out)
+_MEGAKERNEL_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 \
+    + [ctypes.c_void_p] * 2 + [ctypes.POINTER(ctypes.c_int)]
+_ENTRIES = {
+    "repro_geqrt": _MACRO_OP_ARGS,
+    "repro_larfb": _MACRO_OP_ARGS,
+    "repro_tsqrt": _MACRO_OP_ARGS,
+    "repro_ssrfb": _MACRO_OP_ARGS,
+    "repro_megakernel": _MEGAKERNEL_ARGS,
+    "repro_megakernel_batched": _MEGAKERNEL_ARGS,
+}
 _LIB = None
 #: The compiler's output of the build that produced the loaded library
 #: (``-Xptxas -v``: registers, shared memory and spills per kernel).
@@ -77,12 +91,9 @@ def library() -> ctypes.CDLL:
     global _LIB
     if _LIB is None:
         lib = ctypes.CDLL(str(build()))
-        for name in _ENTRIES:
+        for name, argtypes in _ENTRIES.items():
             fn = getattr(lib, name)
-            # (ws, aux0, aux1, idx, ntasks, p, q, nb, is_double,
-            #  smem_bytes, stream)
-            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 \
-                + [ctypes.c_void_p]
+            fn.argtypes = argtypes
             fn.restype = ctypes.c_int
         lib.repro_error_string.argtypes = [ctypes.c_int]
         lib.repro_error_string.restype = ctypes.c_char_p

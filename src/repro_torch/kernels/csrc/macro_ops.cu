@@ -1,28 +1,48 @@
-// The four tile-DAG macro ops of tiled QR (GEQRT, LARFB, TSQRT, SSRFB) as
+// The four tile-DAG macro ops of tiled QR (GEQRT, LARFB, TSQRT, SSRFB) and
+// the persistent megakernel that runs a whole schedule of them, as
 // hand-written CUDA kernels for Hopper (sm_90a), with a plain C interface
 // loaded through ctypes by repro_torch/kernels/macro_ops.py.
 //
-// Launch shape (all four): one CTA of kThreads threads per task of the
-// launch's batch.  Task b reads its (k, i, j) from idx[3 b .. 3 b + 2],
-// an int32 array the engine uploads once per tile grid.  The workspace is
-// the (p, q, nb, nb) tile array, row-major inside a tile; d_t is
-// (r, nb, nb), d_taus (r, nb), t_t (p, r, nb, nb), t_taus (p, r, nb) with
-// r = min(p, q).  Every task copies its tiles into dynamic shared memory,
-// works there, and writes its outputs back in place.  Each kernel's
-// carve-up of that memory is at its top; its size in elements is the
-// kernel's MacroOp.smem_elems in macro_ops.py, which the launch passes.  The CTAs of one
-// launch run concurrently: the engine only batches tasks of one wavefront
-// level, whose writes are disjoint (asserted when it builds idx) and whose
-// reads never touch another task's writes, save LARFB's read of the
-// strictly-lower V1 of a diagonal tile whose upper triangle a TSQRT of the
-// same level rewrites — the engine launches LARFB first on one stream.
+// Each macro op is one __device__ __noinline__ task body (geqrt_task, ...):
+// a CTA of kThreads threads copies the task's tiles into dynamic shared
+// memory, works there, and writes its outputs back in place.  Each body's
+// carve-up of that memory is at its top; its size in elements is the op's
+// MacroOp.smem_elems in macro_ops.py, which the launch passes.  The
+// workspace is the (p, q, nb, nb) tile array, row-major inside a tile;
+// d_t is (r, nb, nb), d_taus (r, nb), t_t (p, r, nb, nb), t_taus
+// (p, r, nb) with r = min(p, q).  Two lowerings call the same bodies, so
+// the same machine code computes every task and the two agree bitwise:
+//
+//  * wavefront kernels (geqrt_kernel, ...): one launch per (level, kind),
+//    one CTA per task; task b reads its (k, i, j) from idx[3 b .. 3 b + 2],
+//    an int32 array the engine uploads once per tile grid;
+//  * the megakernel (megakernel_kernel, megakernel_batched_kernel): one
+//    cooperative launch per factorization (or per stack of them) walks the
+//    engine's task table level by level.  Its CTAs stride over the level's
+//    tasks — of every slice of the stack, in the batched kernel — and a
+//    grid-wide barrier separates the levels.  It takes the largest body's
+//    shared memory.
+//
+// The tasks of one level run concurrently in both lowerings.  Their writes
+// are disjoint (asserted when the engine builds its index arrays and
+// table), and no task reads what another task of its level writes, with
+// one exception: LARFB(k, j) reads the strictly-lower V1 of the diagonal
+// tile (k, k) while TSQRT(k, i) of the same level rewrites that tile.
+// TSQRT therefore writes back only the diagonal tile's upper triangle
+// (diagonal included) and never touches V1; no second barrier per level
+// is needed.  Global loads go through L2 only (__ldcg) so that a tile
+// written on another SM at an earlier level is never read stale from L1.
+//
+// The megakernel raises rather than degrades: a grid that cannot be
+// resident at once (cudaLaunchCooperativeKernel refuses it) returns the
+// CUDA error, and the wrapper raises.
 //
 // No tensor cores: an fp32 product there is TF32, which would miss the
 // conformance bar.  Every product is an FMA loop on the CUDA cores, so the
 // compute bound is the FP32 (or FP64) SIMT rate.
 //
-// Each C entry returns cudaGetLastError() after its launch; the Python
-// wrapper raises when it is not 0.
+// Each C entry returns the CUDA error of its launch; the Python wrapper
+// raises when it is not 0.
 
 #include "macro_ops.cuh"
 
@@ -40,8 +60,8 @@ namespace repro {
 // the T recurrence, so global memory is touched once in and once out.
 // ---------------------------------------------------------------------------
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-geqrt_kernel(T* ws, T* d_t, T* d_taus, const int* idx, int q, int nb) {
+__device__ __noinline__ void geqrt_task(T* ws, T* d_t, T* d_taus, int k,
+                                        int q, int nb) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int nn = nb * nb;
   T* A = reinterpret_cast<T*>(smem_raw);
@@ -52,7 +72,6 @@ geqrt_kernel(T* ws, T* d_t, T* d_taus, const int* idx, int q, int nb) {
   T* taus = w + nb;
   T* coef = taus + nb;  // beta, tau, denom
 
-  const int k = idx[3 * blockIdx.x];
   T* tile = ws + ((size_t)k * q + k) * nn;
   load_tile(A, tile, nn);
   __syncthreads();
@@ -101,6 +120,12 @@ geqrt_kernel(T* ws, T* d_t, T* d_taus, const int* idx, int q, int nb) {
   store_tile(d_taus + (size_t)k * nb, taus, nb);
 }
 
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+geqrt_kernel(T* ws, T* d_t, T* d_taus, const int* idx, int q, int nb) {
+  geqrt_task(ws, d_t, d_taus, idx[3 * blockIdx.x], q, nb);
+}
+
 // ---------------------------------------------------------------------------
 // LARFB — replaces src/repro/kernels/macro_ops.py: larfb_wavefront_kernel
 // (launched by src/repro/core/engine.py: _dispatch_larfb).
@@ -115,8 +140,8 @@ geqrt_kernel(T* ws, T* d_t, T* d_taus, const int* idx, int q, int nb) {
 // computes it, so any T gives the reference's result.
 // ---------------------------------------------------------------------------
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-larfb_kernel(T* ws, const T* d_t, const int* idx, int q, int nb) {
+__device__ __noinline__ void larfb_task(T* ws, const T* d_t, int k, int j,
+                                        int q, int nb) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int nn = nb * nb;
   T* V = reinterpret_cast<T*>(smem_raw);
@@ -125,13 +150,11 @@ larfb_kernel(T* ws, const T* d_t, const int* idx, int q, int nb) {
   T* W1 = C + nn;
   T* W2 = W1 + nn;
 
-  const int k = idx[3 * blockIdx.x];
-  const int j = idx[3 * blockIdx.x + 2];
   const T* diag = ws + ((size_t)k * q + k) * nn;
   T* tile = ws + ((size_t)k * q + j) * nn;
   for (int e = threadIdx.x; e < nn; e += blockDim.x) {
     const int r = e / nb, c = e % nb;
-    V[e] = r > c ? diag[e] : (r == c ? T(1) : T(0));
+    V[e] = r > c ? __ldcg(diag + e) : (r == c ? T(1) : T(0));
   }
   load_tile(Tm, d_t + (size_t)k * nn, nn);
   load_tile(C, tile, nn);
@@ -159,6 +182,12 @@ larfb_kernel(T* ws, const T* d_t, const int* idx, int q, int nb) {
   }
 }
 
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+larfb_kernel(T* ws, const T* d_t, const int* idx, int q, int nb) {
+  larfb_task(ws, d_t, idx[3 * blockIdx.x], idx[3 * blockIdx.x + 2], q, nb);
+}
+
 // ---------------------------------------------------------------------------
 // TSQRT — replaces src/repro/kernels/macro_ops.py: tsqrt_wavefront_kernel
 // (launched by src/repro/core/engine.py: _dispatch_tsqrt).
@@ -168,13 +197,14 @@ larfb_kernel(T* ws, const T* d_t, const int* idx, int q, int nb) {
 // latency-bound per task; the 64 x 64 grid launches at most 21 at once.
 // Design: the reflectors are [e_j; v2_j], so a step touches only row j of
 // the triangle and the whole sub tile.  The triangle is factored in place
-// in the upper part of the diagonal tile's shared copy, which leaves the
-// GEQRT V1 below the diagonal untouched for the merged write-back (LARFB
-// and Q formation read it later).
+// in the upper part of the diagonal tile's shared copy, and only that
+// upper triangle is written back: the GEQRT V1 below the diagonal stays
+// as it is in global memory, where a LARFB of the same level may be
+// reading it (and LARFB and Q formation read it later).
 // ---------------------------------------------------------------------------
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-tsqrt_kernel(T* ws, T* t_t, T* t_taus, const int* idx, int p, int q, int nb) {
+__device__ __noinline__ void tsqrt_task(T* ws, T* t_t, T* t_taus, int k,
+                                        int i, int p, int q, int nb) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int nn = nb * nb;
   const int r_steps = p < q ? p : q;
@@ -187,8 +217,6 @@ tsqrt_kernel(T* ws, T* t_t, T* t_taus, const int* idx, int p, int q, int nb) {
   T* taus = w + nb;
   T* coef = taus + nb;
 
-  const int k = idx[3 * blockIdx.x];
-  const int i = idx[3 * blockIdx.x + 1];
   T* diag = ws + ((size_t)k * q + k) * nn;
   T* sub = ws + ((size_t)i * q + k) * nn;
   load_tile(D, diag, nn);
@@ -235,10 +263,18 @@ tsqrt_kernel(T* ws, T* t_t, T* t_taus, const int* idx, int p, int q, int nb) {
   form_t(G, taus, Tm, nb);
 
   const size_t slot = (size_t)i * r_steps + k;
-  store_tile(diag, D, nn);
+  for (int e = threadIdx.x; e < nn; e += blockDim.x)
+    if (e / nb <= e % nb) diag[e] = D[e];
   store_tile(sub, V2, nn);
   store_tile(t_t + slot * nn, Tm, nn);
   store_tile(t_taus + slot * nb, taus, nb);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+tsqrt_kernel(T* ws, T* t_t, T* t_taus, const int* idx, int p, int q, int nb) {
+  tsqrt_task(ws, t_t, t_taus, idx[3 * blockIdx.x], idx[3 * blockIdx.x + 1],
+             p, q, nb);
 }
 
 // ---------------------------------------------------------------------------
@@ -253,8 +289,8 @@ tsqrt_kernel(T* ws, T* t_t, T* t_taus, const int* idx, int p, int q, int nb) {
 // shared memory, each tile read from and written to global memory once.
 // ---------------------------------------------------------------------------
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-ssrfb_kernel(T* ws, const T* t_t, const int* idx, int p, int q, int nb) {
+__device__ __noinline__ void ssrfb_task(T* ws, const T* t_t, int k, int i,
+                                        int j, int p, int q, int nb) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int nn = nb * nb;
   const int r_steps = p < q ? p : q;
@@ -265,9 +301,6 @@ ssrfb_kernel(T* ws, const T* t_t, const int* idx, int p, int q, int nb) {
   T* W = Ci + nn;
   T* W2 = W + nn;
 
-  const int k = idx[3 * blockIdx.x];
-  const int i = idx[3 * blockIdx.x + 1];
-  const int j = idx[3 * blockIdx.x + 2];
   T* tile_k = ws + ((size_t)k * q + j) * nn;
   T* tile_i = ws + ((size_t)i * q + j) * nn;
   load_tile(V2, ws + ((size_t)i * q + k) * nn, nn);
@@ -297,6 +330,105 @@ ssrfb_kernel(T* ws, const T* t_t, const int* idx, int p, int q, int nb) {
     tile_k[e] = Ck[e] - W2[e];
     tile_i[e] = Ci[e] - s;
   }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+ssrfb_kernel(T* ws, const T* t_t, const int* idx, int p, int q, int nb) {
+  ssrfb_task(ws, t_t, idx[3 * blockIdx.x], idx[3 * blockIdx.x + 1],
+             idx[3 * blockIdx.x + 2], p, q, nb);
+}
+
+// ---------------------------------------------------------------------------
+// Megakernel — replaces src/repro/core/engine.py: megakernel_kernel (with
+// _megakernel_step and _op_copies; launched by _dispatch_megakernel) and
+// megakernel_batched_kernel (launched by _dispatch_megakernel_batched).
+//
+// The task table is the engine's megakernel_task_table: int32 rows of
+// kTableCols columns, nslots rows per level, (kind, k, i, j) in columns
+// 0..3, the level's tasks first and kNoop rows after them.  The reference
+// walks it as a sequential grid on one TPU core; here every level's tasks
+// run on concurrent CTAs — in the batched kernel the tasks of all `batch`
+// slices of the stacked state, work item w = (slice w / n, slot w % n) —
+// and a grid barrier follows each level.  Every slice replays the same
+// table, so a slice's result is the single run's, bit for bit.  The
+// reference's one-ahead prefetch and REUSE columns are not read: each
+// task loads its tiles itself.
+//
+// Bound: the whole factorization is ~5 nb^3 FLOP per SSRFB and the
+// workspace read and written once; but each level is a barrier, and the
+// GEQRT/TSQRT column loops of the critical path are sequential, so a call
+// is latency-bound by levels x the slowest task of each.  Design: one
+// launch instead of ~3 per level removes the launch gaps; the batched
+// kernel fills the card with the tasks of many slices per level.
+// ---------------------------------------------------------------------------
+constexpr int kTableCols = 16;
+constexpr int kNoop = 4;
+
+template <typename T>
+__device__ __forceinline__ void megakernel_walk(
+    T* ws, T* d_t, T* d_taus, T* t_t, T* t_taus, const int* tab,
+    int nlevels, int nslots, int batch, int p, int q, int nb,
+    unsigned int* barrier) {
+  const int nn = nb * nb;
+  const int r = p < q ? p : q;
+  const size_t s_ws = (size_t)p * q * nn, s_dt = (size_t)r * nn,
+               s_dtaus = (size_t)r * nb, s_tt = (size_t)p * r * nn,
+               s_ttaus = (size_t)p * r * nb;
+  for (int lv = 0; lv < nlevels; ++lv) {
+    const int* rows = tab + (size_t)lv * nslots * kTableCols;
+    int ntasks = 0;  // the level's tasks precede its kNoop rows
+    for (int s0 = 0; s0 < nslots; s0 += blockDim.x) {
+      const int s = s0 + threadIdx.x;
+      ntasks += __syncthreads_count(s < nslots &&
+                                    __ldg(rows + s * kTableCols) != kNoop);
+    }
+    // The kind is uniform across the CTA, so the bodies' __syncthreads
+    // are reached by every thread.
+    for (int w = blockIdx.x; w < batch * ntasks; w += gridDim.x) {
+      const int b = w / ntasks;
+      const int* row = rows + (w - b * ntasks) * kTableCols;
+      const int kind = __ldg(row), k = __ldg(row + 1), i = __ldg(row + 2),
+                j = __ldg(row + 3);
+      T* wsb = ws + b * s_ws;
+      switch (kind) {
+        case 0:
+          geqrt_task(wsb, d_t + b * s_dt, d_taus + b * s_dtaus, k, q, nb);
+          break;
+        case 1:
+          larfb_task(wsb, d_t + b * s_dt, k, j, q, nb);
+          break;
+        case 2:
+          tsqrt_task(wsb, t_t + b * s_tt, t_taus + b * s_ttaus, k, i, p, q, nb);
+          break;
+        case 3:
+          ssrfb_task(wsb, t_t + b * s_tt, k, i, j, p, q, nb);
+          break;
+        default:
+          break;
+      }
+      __syncthreads();  // the next task reuses this CTA's shared memory
+    }
+    if (lv + 1 < nlevels) grid_barrier(barrier, gridDim.x);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+megakernel_kernel(T* ws, T* d_t, T* d_taus, T* t_t, T* t_taus,
+                  const int* tab, int nlevels, int nslots, int batch, int p,
+                  int q, int nb, unsigned int* barrier) {
+  megakernel_walk(ws, d_t, d_taus, t_t, t_taus, tab, nlevels, nslots, 1, p,
+                  q, nb, barrier);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+megakernel_batched_kernel(T* ws, T* d_t, T* d_taus, T* t_t, T* t_taus,
+                          const int* tab, int nlevels, int nslots, int batch,
+                          int p, int q, int nb, unsigned int* barrier) {
+  megakernel_walk(ws, d_t, d_taus, t_t, t_taus, tab, nlevels, nslots, batch,
+                  p, q, nb, barrier);
 }
 
 // ---------------------------------------------------------------------------
@@ -346,6 +478,75 @@ static int launch(int kind, void* ws, void* aux0, void* aux1, const int* idx,
   return (int)cudaGetLastError();
 }
 
+// Grid of a megakernel launch: as many CTAs as can be resident at once at
+// this shared-memory size (a cooperative launch needs all of them resident
+// for the grid barrier), capped at the largest level's work.  0 when not
+// one CTA fits, or the device cannot launch cooperatively.
+template <typename K>
+static cudaError_t megakernel_grid(K kernel, size_t bytes, long work,
+                                   int* grid) {
+  *grid = 0;
+  int dev = 0, sms = 0, coop = 0, per_sm = 0;
+  cudaError_t err = prepare(kernel, bytes);
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kThreads, bytes);
+  if (err != cudaSuccess) return err;
+  if (!coop) return cudaErrorNotSupported;
+  const long resident = (long)per_sm * sms;
+  *grid = (int)(work < resident ? work : resident);
+  return cudaSuccess;
+}
+
+template <typename T>
+static int launch_megakernel(bool batched, void* ws, void* d_t, void* d_taus,
+                             void* t_t, void* t_taus, const int* tab,
+                             int nlevels, int nslots, int batch, int p, int q,
+                             int nb, unsigned int* barrier, size_t bytes,
+                             cudaStream_t stream, int* grid_out) {
+  auto kernel = batched ? megakernel_batched_kernel<T> : megakernel_kernel<T>;
+  int grid = 0;
+  cudaError_t err = megakernel_grid(kernel, bytes, (long)batch * nslots, &grid);
+  if (grid_out != nullptr) *grid_out = grid;
+  if (err != cudaSuccess) return (int)err;
+  if (grid < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  T* a0 = static_cast<T*>(ws);
+  T* a1 = static_cast<T*>(d_t);
+  T* a2 = static_cast<T*>(d_taus);
+  T* a3 = static_cast<T*>(t_t);
+  T* a4 = static_cast<T*>(t_taus);
+  void* args[] = {&a0, &a1, &a2, &a3, &a4, &tab, &nlevels, &nslots, &batch,
+                  &p, &q, &nb, &barrier};
+  err = cudaLaunchCooperativeKernel((const void*)kernel, dim3(grid),
+                                    dim3(kThreads), args, bytes, stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+static int dispatch_megakernel(bool batched, void* ws, void* d_t,
+                               void* d_taus, void* t_t, void* t_taus,
+                               const void* tab, int nlevels, int nslots,
+                               int batch, int p, int q, int nb, int is_double,
+                               int smem_bytes, void* barrier, void* stream,
+                               int* grid_out) {
+  const int* tb = static_cast<const int*>(tab);
+  unsigned int* bar = static_cast<unsigned int*>(barrier);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t bytes = (size_t)smem_bytes;
+  return is_double
+             ? launch_megakernel<double>(batched, ws, d_t, d_taus, t_t, t_taus,
+                                         tb, nlevels, nslots, batch, p, q, nb,
+                                         bar, bytes, s, grid_out)
+             : launch_megakernel<float>(batched, ws, d_t, d_taus, t_t, t_taus,
+                                        tb, nlevels, nslots, batch, p, q, nb,
+                                        bar, bytes, s, grid_out);
+}
+
 static int dispatch(int kind, void* ws, void* aux0, void* aux1, const void* idx,
                     int ntasks, int p, int q, int nb, int is_double,
                     int smem_bytes, void* stream) {
@@ -389,6 +590,36 @@ int repro_ssrfb(void* ws, void* a0, void* a1, const void* idx, int n, int p,
                 int q, int nb, int is_double, int smem_bytes, void* stream) {
   return repro::dispatch(3, ws, a0, a1, idx, n, p, q, nb, is_double,
                          smem_bytes, stream);
+}
+
+// Megakernel entries: (ws, d_t, d_taus, t_t, t_taus, table, nlevels,
+// nslots, batch, p, q, nb, is_double, smem_bytes, barrier, stream,
+// grid_out).  The state pointers are a single (p, q, ...) state for
+// repro_megakernel (batch must be 1) and a stacked (batch, p, q, ...)
+// state for repro_megakernel_batched; table is the engine's int32
+// (nlevels * nslots, 16) task table on the device; barrier is one
+// zeroed uint32 on the device, the grid barrier's counter; *grid_out
+// receives the number of CTAs launched (0 if none could be).
+int repro_megakernel(void* ws, void* d_t, void* d_taus, void* t_t,
+                     void* t_taus, const void* tab, int nlevels, int nslots,
+                     int batch, int p, int q, int nb, int is_double,
+                     int smem_bytes, void* barrier, void* stream,
+                     int* grid_out) {
+  if (batch != 1) return (int)cudaErrorInvalidValue;
+  return repro::dispatch_megakernel(false, ws, d_t, d_taus, t_t, t_taus, tab,
+                                    nlevels, nslots, 1, p, q, nb, is_double,
+                                    smem_bytes, barrier, stream, grid_out);
+}
+
+int repro_megakernel_batched(void* ws, void* d_t, void* d_taus, void* t_t,
+                             void* t_taus, const void* tab, int nlevels,
+                             int nslots, int batch, int p, int q, int nb,
+                             int is_double, int smem_bytes, void* barrier,
+                             void* stream, int* grid_out) {
+  return repro::dispatch_megakernel(true, ws, d_t, d_taus, t_t, t_taus, tab,
+                                    nlevels, nslots, batch, p, q, nb,
+                                    is_double, smem_bytes, barrier, stream,
+                                    grid_out);
 }
 
 const char* repro_error_string(int code) {

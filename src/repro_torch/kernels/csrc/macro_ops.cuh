@@ -1,11 +1,12 @@
-// Device helpers shared by the four tile-DAG macro-op kernels of
-// macro_ops.cu: the LAPACK reflector coefficients, warp reductions,
-// tile copies between global and shared memory, and the DLARFT
-// recurrence that forms a block reflector T from a Gram matrix.
+// Device helpers shared by the tile-DAG macro-op kernels of macro_ops.cu:
+// the LAPACK reflector coefficients, warp reductions, tile copies between
+// global and shared memory, the DLARFT recurrence that forms a block
+// reflector T from a Gram matrix, and the grid-wide barrier of the
+// persistent megakernel.
 //
-// Every kernel runs one CTA of kThreads threads per task, holds its
-// nb x nb tiles in dynamic shared memory, and accumulates in its element
-// type (float or double), which is the reference's promote(dtype, fp32).
+// Every task runs on one CTA of kThreads threads, holds its nb x nb tiles
+// in dynamic shared memory, and accumulates in its element type (float or
+// double), which is the reference's promote(dtype, fp32).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -56,9 +57,12 @@ __device__ __forceinline__ void column_reflector(const T* src, int nb, int col,
   }
 }
 
+// Global loads go through L2 only (ld.global.cg): in the megakernel a
+// tile one SM wrote at level L is read by another SM at level L + 1, and
+// an L1 line from an earlier read would be stale.
 template <typename T>
 __device__ __forceinline__ void load_tile(T* dst, const T* src, int n) {
-  for (int e = threadIdx.x; e < n; e += blockDim.x) dst[e] = src[e];
+  for (int e = threadIdx.x; e < n; e += blockDim.x) dst[e] = __ldcg(src + e);
 }
 
 template <typename T>
@@ -84,6 +88,39 @@ __device__ void form_t(const T* G, const T* taus, T* Tm, int nb) {
     if (threadIdx.x == 0) Tm[i * nb + i] = tau;
     __syncthreads();
   }
+}
+
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// Grid-wide barrier for a cooperative launch (every CTA resident).  One
+// 32-bit counter, zero before the launch: CTA 0 adds 2^31 - (n - 1) and
+// every other CTA adds 1, so the top bit flips exactly when all n CTAs
+// have arrived and the low 31 bits are zero again afterwards.  The fences
+// publish the CTA's global writes before its arrival and order the reads
+// after the barrier behind the other CTAs' writes.  A wait of more than
+// kBarrierTimeoutNs (a level takes milliseconds) traps, so a broken
+// barrier fails the launch instead of hanging the card.
+constexpr unsigned long long kBarrierTimeoutNs = 10000000000ull;
+
+__device__ __forceinline__ void grid_barrier(unsigned int* arrived,
+                                             unsigned int nblocks) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const unsigned int add = blockIdx.x == 0 ? 0x80000000u - (nblocks - 1) : 1u;
+    __threadfence();
+    const unsigned int old = atomicAdd(arrived, add);
+    const unsigned long long start = global_ns();
+    while (((old ^ *(volatile unsigned int*)arrived) & 0x80000000u) == 0) {
+      __nanosleep(32);
+      if (global_ns() - start > kBarrierTimeoutNs) __trap();
+    }
+    __threadfence();
+  }
+  __syncthreads();
 }
 
 }  // namespace repro

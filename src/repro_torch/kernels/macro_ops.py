@@ -1,6 +1,8 @@
-"""The four tile-DAG macro ops of tiled QR: plain bodies and Hopper kernels.
+"""The four tile-DAG macro ops of tiled QR and the megakernel that runs a
+whole schedule of them: plain bodies and Hopper kernels.
 
-Counterpart of the reference's ``repro.kernels.macro_ops``.  Two layers:
+Counterpart of the reference's ``repro.kernels.macro_ops`` and of the
+megakernels of its ``repro.core.engine``.  Three layers:
 
   * **value-level bodies** — :func:`reflector_coeffs`, :func:`panel_body`,
     :func:`wy_body`, :func:`stacked_larft`, :func:`tsqrt_factor` and the
@@ -19,13 +21,21 @@ Counterpart of the reference's ``repro.kernels.macro_ops``.  Two layers:
     (``csrc/macro_ops.cu``, built on first use by :mod:`._build`) and adds
     one to :data:`LAUNCHES`; on a CPU tensor it runs the ``*_plain``
     gather -> body -> scatter version instead.  There is no fallback from
-    a CUDA tensor: a failed build or launch raises.
+    a CUDA tensor: a failed build or launch raises;
+  * **megakernel wrappers** — :func:`megakernel` and
+    :func:`megakernel_batched`: one cooperative launch walks the engine's
+    whole task table (``engine.megakernel_task_table``) over a factor
+    state, or over a stacked ``(B, ...)`` state, in place.  Their plain
+    versions :func:`megakernel_plain` / :func:`megakernel_batched_plain`
+    walk the table row by row, one task at a time, the reference's
+    sequential semantics.
 
 All bodies accumulate in ``promote_types(dtype, float32)``.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 from typing import Callable, Dict, Tuple
 
@@ -56,12 +66,17 @@ __all__ = [
     "larfb_plain",
     "tsqrt_plain",
     "ssrfb_plain",
+    "megakernel",
+    "megakernel_batched",
+    "megakernel_plain",
+    "megakernel_batched_plain",
     "reset_launch_counts",
     "run_batch",
     "smem_bytes",
     "engine_smem_bytes",
     "engine_vmem_bytes",
     "megakernel_smem_bytes",
+    "megakernel_launch_smem_bytes",
     "MEGAKERNEL_SMEM_TILES",
 ]
 
@@ -250,8 +265,11 @@ def ssrfb_plain(tiles: Tensor, t_t: Tensor, idx: Tensor) -> None:
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
-#: Kernel launches per macro op since the last :func:`reset_launch_counts`.
-LAUNCHES: Dict[str, int] = {"GEQRT": 0, "LARFB": 0, "TSQRT": 0, "SSRFB": 0}
+#: Kernel launches per kernel since the last :func:`reset_launch_counts`.
+LAUNCHES: Dict[str, int] = {"GEQRT": 0, "LARFB": 0, "TSQRT": 0, "SSRFB": 0,
+                            "MEGAKERNEL": 0, "MEGAKERNEL_BATCHED": 0}
+#: CTAs of the last launch of each megakernel (the resident grid).
+MEGAKERNEL_GRID: Dict[str, int] = {"MEGAKERNEL": 0, "MEGAKERNEL_BATCHED": 0}
 
 
 def reset_launch_counts() -> None:
@@ -340,6 +358,139 @@ def tsqrt(tiles: Tensor, t_t: Tensor, t_taus: Tensor, idx: Tensor) -> None:
 def ssrfb(tiles: Tensor, t_t: Tensor, idx: Tensor) -> None:
     """SSRFB of pairs ``(k, j)`` / ``(i, j)`` in place, V2 from ``(i, k)``."""
     _run("SSRFB", ssrfb_plain, tiles, (t_t,), idx)
+
+
+# ---------------------------------------------------------------------------
+# the megakernel: one launch walks the whole task table
+# ---------------------------------------------------------------------------
+#
+# The table is the engine's ``megakernel_task_table``: int32 rows of
+# TABLE_COLS columns, ``nslots`` rows per level, (kind, k, i, j) first,
+# kind an index into MACRO_OPS's order and NOOP past it.
+
+TABLE_COLS = 16
+
+
+def _task_plain(st, kind: str, k: int, i: int, j: int) -> None:
+    """One task on every slice of a stacked state (fields with a leading
+    slice dimension), in place, through the value-level bodies."""
+    tl = st.tiles
+    if kind == "GEQRT":
+        tl[:, k, k], st.d_t[:, k], st.d_taus[:, k] = geqrt_body(tl[:, k, k])
+    elif kind == "LARFB":
+        tl[:, k, j] = larfb_body(tl[:, k, k], st.d_t[:, k], tl[:, k, j])
+    elif kind == "TSQRT":
+        (tl[:, k, k], tl[:, i, k], st.t_t[:, i, k],
+         st.t_taus[:, i, k]) = tsqrt_body(tl[:, k, k], tl[:, i, k])
+    else:
+        tl[:, k, j], tl[:, i, j] = ssrfb_body(tl[:, i, k], st.t_t[:, i, k],
+                                              tl[:, k, j], tl[:, i, j])
+
+
+def megakernel_batched_plain(state, table: Tensor, nlevels: int,
+                             nslots: int) -> None:
+    """Plain version of :func:`megakernel_batched`: the table's rows in
+    order, one task at a time, each applied to every slice of the stacked
+    state (every slice replays the same table)."""
+    del nlevels, nslots  # the rows carry the whole schedule
+    kinds = tuple(MACRO_OPS)
+    for kind, k, i, j in table[:, :4].tolist():
+        if kind < len(kinds):
+            _task_plain(state, kinds[kind], k, i, j)
+
+
+def megakernel_plain(state, table: Tensor, nlevels: int, nslots: int
+                     ) -> None:
+    """Plain version of :func:`megakernel`: the table's rows in order, one
+    task at a time — the reference's sequential walk."""
+    megakernel_batched_plain(type(state)(*(x[None] for x in state)), table,
+                             nlevels, nslots)
+
+
+def _check_megakernel(name: str, state, table: Tensor, nlevels: int,
+                      nslots: int, batched: bool) -> None:
+    tiles = state.tiles
+    lead = 1 if batched else 0
+    if tiles.ndim != 4 + lead or tiles.shape[-1] != tiles.shape[-2]:
+        raise ValueError(f"{name}: expected a {'(B, ' if batched else '('}"
+                         f"p, q, nb, nb) workspace, got {tuple(tiles.shape)}")
+    p, q, nb = tiles.shape[lead], tiles.shape[lead + 1], tiles.shape[-1]
+    r = min(p, q)
+    b = tuple(tiles.shape[:lead])
+    want = (b + (r, nb, nb), b + (r, nb), b + (p, r, nb, nb), b + (p, r, nb))
+    for name_, x, shape in zip(state._fields[1:], state[1:], want):
+        if tuple(x.shape) != shape:
+            raise ValueError(f"{name}: {name_} must be {shape}, "
+                             f"got {tuple(x.shape)}")
+    for x in state:
+        if x.device != tiles.device or x.dtype != tiles.dtype:
+            raise ValueError(f"{name}: state tensors must share the "
+                             f"workspace's device and dtype")
+    if tuple(table.shape) != (nlevels * nslots, TABLE_COLS) \
+            or table.dtype != torch.int32 or table.device != tiles.device:
+        raise ValueError(f"{name}: table must be an ({nlevels * nslots}, "
+                         f"{TABLE_COLS}) int32 tensor on {tiles.device}, got "
+                         f"{tuple(table.shape)} {table.dtype} on {table.device}")
+
+
+def _launch_megakernel(name: str, state, table: Tensor, nlevels: int,
+                       nslots: int, batch: int) -> None:
+    tiles = state.tiles
+    if tiles.dtype not in KERNEL_DTYPES:
+        raise TypeError(f"{name} kernel takes float32 or float64, "
+                        f"got {tiles.dtype}")
+    for x in tuple(state) + (table,):
+        if not x.is_contiguous():
+            raise ValueError(f"{name} kernel needs contiguous tensors")
+    from repro_torch.kernels import _build
+
+    lib = _build.library()
+    p, q, nb = tiles.shape[-4], tiles.shape[-3], tiles.shape[-1]
+    barrier = torch.zeros(1, dtype=torch.int32, device=tiles.device)
+    grid = ctypes.c_int(0)
+    with torch.cuda.device(tiles.device):
+        stream = torch.cuda.current_stream(tiles.device).cuda_stream
+        rc = getattr(lib, f"repro_{name.lower()}")(
+            *(x.data_ptr() for x in state), table.data_ptr(), nlevels, nslots,
+            batch, p, q, nb, int(tiles.dtype == torch.float64),
+            megakernel_launch_smem_bytes(nb, tiles.element_size()),
+            barrier.data_ptr(), stream, ctypes.byref(grid))
+    MEGAKERNEL_GRID[name] = grid.value
+    if rc != 0:
+        raise RuntimeError(f"{name} cooperative launch failed ({grid.value} "
+                           f"CTAs): CUDA error {rc} "
+                           f"({_build.error_string(rc)})")
+    LAUNCHES[name] += 1
+
+
+def _run_megakernel(name: str, plain: Callable, state, table: Tensor,
+                    nlevels: int, nslots: int, batched: bool) -> None:
+    _check_megakernel(name, state, table, nlevels, nslots, batched)
+    device = state.tiles.device
+    if device.type == "cpu":
+        plain(state, table, nlevels, nslots)
+    elif device.type == "cuda":
+        batch = state.tiles.shape[0] if batched else 1
+        _launch_megakernel(name, state, table, nlevels, nslots, batch)
+    else:
+        raise ValueError(f"{name}: no kernel for device {device}")
+
+
+def megakernel(state, table: Tensor, nlevels: int, nslots: int) -> None:
+    """The whole schedule of ``table`` over a ``(p, q, nb, nb)`` factor
+    state, in place: one cooperative launch on a CUDA state, the plain
+    walk on a CPU state."""
+    _run_megakernel("MEGAKERNEL", megakernel_plain, state, table, nlevels,
+                    nslots, batched=False)
+
+
+def megakernel_batched(state, table: Tensor, nlevels: int, nslots: int
+                       ) -> None:
+    """The schedule of ``table`` over every slice of a stacked
+    ``(B, p, q, nb, nb)`` factor state, in place: one cooperative launch
+    on a CUDA state, the plain walk on a CPU state."""
+    _run_megakernel("MEGAKERNEL_BATCHED", megakernel_batched_plain, state,
+                    table, nlevels, nslots, batched=True)
 
 
 # ---------------------------------------------------------------------------
@@ -432,3 +583,10 @@ MEGAKERNEL_SMEM_TILES = 2 * (3 + 1) + 3 + 4
 
 def megakernel_smem_bytes(nb: int, itemsize: int = 4) -> int:
     return MEGAKERNEL_SMEM_TILES * nb * nb * itemsize
+
+
+def megakernel_launch_smem_bytes(nb: int, itemsize: int = 4) -> int:
+    """Dynamic shared memory of one megakernel CTA, the size its launch
+    passes and the engine's guard reads: a CTA runs every kind of task out
+    of one region, so it is the largest body's carve-up."""
+    return engine_smem_bytes(nb, itemsize)

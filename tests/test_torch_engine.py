@@ -142,10 +142,20 @@ def test_state_carried_across_mid_schedule(stop):
 
 
 def test_dispatch_guards():
+    """A forced megakernel runs (on a CPU workspace: its plain walk, one
+    task at a time) and agrees with the wavefront plain lowering; one
+    whose task table exceeds the 512 KiB budget raises ValueError, as the
+    reference does."""
+    ws = torch.from_numpy(_workspace(2, 2, 8, seed=11))
+    mega = teng.factor_tiles(ws.clone(), p=2, q=2, nb=8, use_kernel=True,
+                             dispatch_mode="megakernel")
+    wave = teng.factor_tiles(ws.clone(), p=2, q=2, nb=8)
+    _assert_state_close(mega, teng.state_to_numpy(wave), 2, 2, 8, "float32")
+    assert not teng.table_fits(24, 24, teng.DEFAULT_TABLE_BUDGET)[0]
+    with pytest.raises(ValueError, match="task table"):
+        teng.factor_tiles(torch.zeros(24, 24, 1, 1), p=24, q=24, nb=1,
+                          use_kernel=True, dispatch_mode="megakernel")
     ws = torch.zeros(2, 2, 8, 8)
-    with pytest.raises(NotImplementedError, match="megakernel"):
-        teng.factor_tiles(ws, p=2, q=2, nb=8, use_kernel=True,
-                          dispatch_mode="megakernel")
     with pytest.raises(ValueError, match="dispatch_mode"):
         teng.factor_tiles(ws, p=2, q=2, nb=8, dispatch_mode="bogus")
     with pytest.raises(TypeError, match="float32 or float64"):

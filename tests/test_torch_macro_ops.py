@@ -1,6 +1,6 @@
 """The port's macro-op bodies (``repro_torch.kernels.macro_ops``) against
-the JAX package's (``repro.kernels.macro_ops``), and each CUDA kernel
-against its plain version on a Hopper card.
+the JAX package's (``repro.kernels.macro_ops``); each CUDA kernel against
+its plain version on a Hopper card is in tests/test_torch_cuda.py.
 
 Inputs are made with numpy from fixed seeds and handed to both packages.
 Every batch holds a random tile, one with an exactly zero column, and one
@@ -200,38 +200,3 @@ def test_wrapper_checks_shapes_and_index_dtype():
                   torch.zeros(1, 3, dtype=torch.int64))
     with pytest.raises(ValueError):
         tmo.larfb(tiles, torch.zeros(3, 4, 4), torch.zeros(1, 3, dtype=torch.int32))
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "float64"])
-@pytest.mark.parametrize("kind", ["GEQRT", "LARFB", "TSQRT", "SSRFB"])
-def test_kernel_matches_plain_on_hopper(kind, dtype):
-    """Each CUDA kernel against its plain version on the card, on a
-    (4, 5) grid at nb = 32 with the schedule's largest batch of its kind.
-    Tolerance: 4 * eps * nb * max(1, max |plain|), a few nb-term sums'
-    summation-order rounding (chip_smoke.py measured at most about a
-    ninth of it at the main path's shapes); a NaN on either side fails."""
-    if not torch.cuda.is_available() or torch.cuda.get_device_capability() != (9, 0):
-        pytest.skip("needs an sm_90 (Hopper) CUDA device")
-    p, q, nb = 4, 5, 32
-    r = min(p, q)
-    rng = np.random.default_rng(50)
-    dt = getattr(torch, dtype)
-    state = engine.FactorState(*(
-        torch.from_numpy(rng.standard_normal(s)).to("cuda", dt)
-        for s in [(p, q, nb, nb), (r, nb, nb), (r, nb), (p, r, nb, nb), (p, r, nb)]))
-    idx_np = max((lv[kind] for lv in engine.wavefront_task_arrays(p, q)
-                  if kind in lv), key=len)
-    idx = torch.from_numpy(idx_np).cuda()
-    a = engine.FactorState(*(x.clone() for x in state))
-    b = engine.FactorState(*(x.clone() for x in state))
-    before = tmo.LAUNCHES[kind]
-    tmo.run_batch(kind, a, idx, use_kernel=True)
-    tmo.run_batch(kind, b, idx, use_kernel=False)
-    torch.cuda.synchronize()
-    assert tmo.LAUNCHES[kind] == before + 1
-    scale = max(1.0, max(float(y.abs().max()) for y in b))
-    tol = 4 * torch.finfo(dt).eps * nb * scale
-    for x, y in zip(a, b):
-        assert torch.isfinite(x).all() and torch.isfinite(y).all()
-        assert float((x - y).abs().max()) <= tol

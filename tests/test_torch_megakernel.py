@@ -1,0 +1,237 @@
+"""The port's megakernel, batched engine and batched ``qr`` against the JAX
+package.
+
+Inputs are numpy arrays from fixed seeds; fp64 runs under the scoped
+``jax.enable_x64(True)``.  The factorization state is held to the
+tolerance tests/test_torch_engine.py states: ``|port - jax| <= 100 * eps
+* max(p, q) * nb * max(1, max |jax|)``.  On the CPU the megakernel
+wrappers run their plain walks (the table's rows in order, one task at a
+time); tests/test_torch_cuda.py holds the kernels against those walks
+on a Hopper card.
+"""
+
+import contextlib
+import importlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import repro_torch
+from repro.core import engine as jeng
+from repro.core import tilegraph as jtg
+from repro_torch.core import engine as teng
+from repro_torch.core import tilegraph as ttg
+from repro_torch.kernels import macro_ops as tmo
+
+tplan = importlib.import_module("repro_torch.core.plan")
+
+NB = 8
+
+
+def _x64(dtype):
+    return jax.enable_x64(True) if dtype == "float64" else contextlib.nullcontext()
+
+
+def _workspace(shape, seed, dtype):
+    return np.random.default_rng(seed).standard_normal(shape).astype(dtype)
+
+
+def _ragged(ws):
+    """Odd slices of a stack hold a matrix nb/2 rows and columns short of
+    the grid, zero-padded (tests/test_conformance.py's bucket padding)."""
+    h = ws.shape[-1] // 2
+    ws[1::2, -1, :, h:, :] = 0
+    ws[1::2, :, -1, :, h:] = 0
+    return ws
+
+
+def _assert_close(mine, ref, p, q, nb, dtype):
+    eps = np.finfo(dtype).eps
+    for name, a, b in zip(teng.FactorState._fields, mine, ref):
+        a, b = np.asarray(a), np.asarray(b)
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        tol = 100 * eps * max(p, q) * nb * max(1.0, float(np.abs(b).max()))
+        err = float(np.abs(a.astype(np.float64) - b).max()) if a.size else 0.0
+        assert err <= tol, (name, err, tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("p,q", [(1, 1), (2, 4), (4, 4), (5, 2)])
+def test_megakernel_plain_matches_reference(p, q, dtype):
+    """The plain walk, directly and through ``factor_tiles``'s forced
+    megakernel on a CPU workspace, against the reference's interpret-mode
+    megakernel, on all five state arrays.  In fp64 the reference's
+    megakernel does not trace on this jax (its ``lax.rem`` of an int32
+    table index by an int64 step), so fp64 is held against its jnp oracle,
+    which the reference asserts equal to its megakernel bit for bit."""
+    ws = _workspace((p, q, NB, NB), seed=10 * p + q, dtype=dtype)
+    with _x64(dtype):
+        ref = jeng.factor_tiles(jnp.asarray(ws), p=p, q=q, nb=NB,
+                                use_kernel=dtype == "float32",
+                                dispatch_mode="megakernel", interpret=True)
+        ref = [np.asarray(x) for x in ref]
+    walked = teng.init_state(torch.from_numpy(ws.copy()))
+    tmo.megakernel_plain(walked, *teng.megakernel_table(p, q, "cpu"))
+    _assert_close(teng.state_to_numpy(walked), ref, p, q, NB, dtype)
+    tiles = torch.from_numpy(ws.copy())
+    st = teng.factor_tiles(tiles, p=p, q=q, nb=NB, use_kernel=True,
+                           dispatch_mode="megakernel")
+    assert st.tiles is tiles  # in place
+    _assert_close(teng.state_to_numpy(st), ref, p, q, NB, dtype)
+
+
+@pytest.mark.parametrize("use_kernel", [False, True], ids=["plain", "kernel"])
+@pytest.mark.parametrize("batch", [1, 3])
+@pytest.mark.parametrize("p,q", [(3, 3), (3, 2), (2, 3)],
+                         ids=["square", "tall", "wide"])
+def test_factor_tiles_batched_matches_reference(p, q, batch, use_kernel):
+    """``factor_tiles_batched`` (the batched megakernel's plain walk with
+    ``use_kernel``, else the plain lowering slice by slice) against the
+    reference's batched megakernel in interpret mode, with ragged slices;
+    each slice equals the port's single factorization of it exactly."""
+    ws = _ragged(_workspace((batch, p, q, NB, NB), seed=p * 7 + q,
+                            dtype="float32"))
+    ref = jeng.factor_tiles_batched(jnp.asarray(ws), p=p, q=q, nb=NB,
+                                    use_kernel=True,
+                                    dispatch_mode="megakernel",
+                                    interpret=True)
+    ref = [np.asarray(x) for x in ref]
+    mode = "megakernel" if use_kernel else None
+    tiles = torch.from_numpy(ws.copy())
+    st = teng.factor_tiles_batched(tiles, p=p, q=q, nb=NB,
+                                   use_kernel=use_kernel, dispatch_mode=mode)
+    assert st.tiles is tiles  # in place
+    _assert_close(teng.state_to_numpy(st), ref, p, q, NB, "float32")
+    for b in range(batch):
+        single = teng.factor_tiles(torch.from_numpy(ws[b].copy()), p=p, q=q,
+                                   nb=NB, use_kernel=use_kernel,
+                                   dispatch_mode=mode)
+        for x, y in zip(st, single):
+            assert torch.equal(x[b], y)
+    if batch > 1:
+        walked = teng.init_state(torch.from_numpy(ws.copy()))
+        tmo.megakernel_batched_plain(walked, *teng.megakernel_table(p, q, "cpu"))
+        _assert_close(teng.state_to_numpy(walked), ref, p, q, NB, "float32")
+
+
+@pytest.mark.parametrize("mode", ["reduced", "r", "full"])
+@pytest.mark.parametrize("ref_kernel", [False, True], ids=["jnp", "megakernel"])
+def test_tiled_qr_batched_matches_reference(mode, ref_kernel):
+    """``tiled_qr_batched`` on a (3, 70, 50) stack at tile 16 (padded to
+    a 5 x 4 grid) against the reference's, with its jnp oracle and with
+    its interpret-mode batched megakernel; the port runs its plain
+    lowering and its megakernel's plain walk.  Tolerance: a tenth of the
+    conformance bar, 10 * eps * max(m, n) * max(1, max |jax|)."""
+    a = _workspace((3, 70, 50), seed=12, dtype="float32")
+    kw = dict(use_kernel=True, dispatch_mode="megakernel") if ref_kernel \
+        else {}
+    ref = jtg.tiled_qr_batched(jnp.asarray(a), tile=16, mode=mode, **kw)
+    ref = [np.asarray(ref)] if mode == "r" else [np.asarray(x) for x in ref]
+    mine = ttg.tiled_qr_batched(torch.from_numpy(a), tile=16, mode=mode, **kw)
+    mine = [mine] if mode == "r" else list(mine)
+    assert len(mine) == len(ref)
+    tol = 10 * float(np.finfo(np.float32).eps) * 70
+    for x, y in zip(mine, ref):
+        assert tuple(x.shape) == y.shape
+        assert float(np.abs(x.numpy() - y).max()) <= tol * max(1.0, np.abs(y).max())
+
+
+def test_qr_on_a_stack_is_one_batched_engine_call(monkeypatch):
+    """``repro_torch.qr`` and ``orthogonalize`` on a (2, 3, 40, 24) input
+    hand all six matrices to one ``factor_tiles_batched`` call; every
+    slice equals ``qr`` of that matrix alone."""
+    calls = []
+    real = teng.factor_tiles_batched
+
+    def counting(tiles, **kw):
+        calls.append(tuple(tiles.shape))
+        return real(tiles, **kw)
+
+    monkeypatch.setattr(teng, "factor_tiles_batched", counting)
+    a = _workspace((2, 3, 40, 24), seed=4, dtype="float32")
+    cfg = tplan.QRConfig(method="tiled", block=8)
+    q, r = repro_torch.qr(a, config=cfg, device="cpu")
+    assert calls == [(6, 5, 3, 8, 8)]
+    assert q.shape == (2, 3, 40, 24) and r.shape == (2, 3, 24, 24)
+    for i in range(2):
+        for j in range(3):
+            q1, r1 = repro_torch.qr(a[i, j], config=cfg, device="cpu")
+            assert torch.equal(q[i, j], q1) and torch.equal(r[i, j], r1)
+    calls.clear()
+    wide = np.swapaxes(a, -1, -2)
+    o = repro_torch.orthogonalize(wide, config=cfg, device="cpu")
+    assert len(calls) == 1 and o.shape == wide.shape
+    eye = np.eye(24)
+    for x in o.numpy().reshape(6, 24, 40):
+        assert np.abs(x @ x.T - eye).max() <= 100 * np.finfo(np.float32).eps * 40
+
+
+@pytest.mark.parametrize("q_method,sign_fix", [("formq", True), ("solve", False)])
+def test_solve_batched_modes_match_single(q_method, sign_fix):
+    """``sign_fix`` and ``q_method="solve"`` on a stack: each slice equals
+    the single solve of it."""
+    a = _workspace((3, 48, 32), seed=9, dtype="float32")
+    cfg = tplan.QRConfig(method="tiled", block=8, q_method=q_method,
+                         sign_fix=sign_fix)
+    q, r = repro_torch.qr(a, config=cfg, device="cpu")
+    for b in range(3):
+        q1, r1 = repro_torch.qr(a[b], config=cfg, device="cpu")
+        assert torch.allclose(q[b], q1, atol=1e-6) and torch.equal(r[b], r1)
+    if sign_fix:
+        assert bool((torch.diagonal(r, dim1=-2, dim2=-1) >= 0).all())
+
+
+def test_dispatch_counts_and_batched_guards():
+    """One launch per megakernel call, B times the per-kind wavefront
+    launches on a stack; the batched entry point's shape checks."""
+    assert teng.dispatch_counts(20, 20, "megakernel") == {"MEGAKERNEL": 1}
+    assert teng.dispatch_counts(18, 18, "megakernel", 60) == {
+        "MEGAKERNEL_BATCHED": 1}
+    assert sum(teng.dispatch_counts(20, 20).values()) == 147
+    assert teng.dispatch_counts(18, 18, batch=60) == {
+        k: 60 * v for k, v in teng.dispatch_counts(18, 18).items()}
+    assert teng.schedule_stats(20, 20)["megakernel"]["dispatches"] == 1
+    with pytest.raises(ValueError, match="stacked workspace"):
+        teng.factor_tiles_batched(torch.zeros(0, 2, 2, 4, 4), p=2, q=2, nb=4)
+    with pytest.raises(ValueError, match="workspace"):
+        teng.factor_tiles_batched(torch.zeros(2, 2, 2, 4, 4), p=2, q=3, nb=4)
+    with pytest.raises(ValueError, match="task table"):
+        teng.factor_tiles_batched(torch.zeros(2, 24, 24, 1, 1), p=24, q=24,
+                                  nb=1, use_kernel=True,
+                                  dispatch_mode="megakernel")
+
+
+def test_megakernel_table_upload_and_wrapper_checks():
+    """The device table is the reference's table; the wrappers refuse a
+    table of the wrong shape or dtype, and on a CPU state run the plain
+    walk without counting a launch."""
+    table, nlevels, nslots = teng.megakernel_table(3, 2, "cpu")
+    np.testing.assert_array_equal(table.numpy(),
+                                  jeng.megakernel_task_table(3, 2)[0])
+    assert (nlevels, nslots) == jeng.megakernel_task_table(3, 2)[1:]
+    st = teng.init_state(torch.zeros(3, 2, 4, 4))
+    with pytest.raises(ValueError, match="table"):
+        tmo.megakernel(st, table.long(), nlevels, nslots)
+    with pytest.raises(ValueError, match="table"):
+        tmo.megakernel(st, table[:-1], nlevels, nslots)
+    stacked = teng.init_state(torch.zeros(2, 3, 2, 4, 4))
+    with pytest.raises(ValueError, match="workspace"):
+        tmo.megakernel_batched(st, table, nlevels, nslots)
+    tmo.reset_launch_counts()
+    tmo.megakernel_batched(stacked, table, nlevels, nslots)
+    tmo.megakernel(st, table, nlevels, nslots)
+    assert tmo.LAUNCHES["MEGAKERNEL"] == tmo.LAUNCHES["MEGAKERNEL_BATCHED"] == 0
+
+
+def test_launch_shared_memory_is_the_largest_body():
+    """The megakernel's launch takes the largest body's carve-up; the
+    auto rule keeps the reference's 15-tile model."""
+    for nb, itemsize in ((8, 4), (32, 4), (32, 8), (64, 8)):
+        assert tmo.megakernel_launch_smem_bytes(nb, itemsize) == max(
+            tmo.smem_bytes(k, nb, itemsize) for k in tmo.MACRO_OPS)
+    assert tmo.megakernel_smem_bytes(32) == 15 * 32 * 32 * 4
+    cfg = tplan.QRConfig(method="tiled", dispatch_mode="megakernel")
+    assert ttg._smem_tiled(640, 640, cfg) == tmo.megakernel_launch_smem_bytes(32)

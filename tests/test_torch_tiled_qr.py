@@ -113,8 +113,7 @@ def test_routing_matches_reference(shape, backend, ndevices, expected):
         ref_ex = jplan.plan(shape, jnp.float32, jplan.QRConfig(
             use_tuning_cache=False), backend=ref_backend, ndevices=ndevices,
             explain=True).explain
-        drop = ("megakernel_not_ported", "megakernel_over_budget",
-                "dispatch_mode_auto")
+        drop = ("megakernel_over_budget", "dispatch_mode_auto")
         assert [r for r in _route_trail(ex.decisions) if r[0] not in drop] == \
             [r for r in _route_trail(ref_ex.decisions) if r[0] not in drop]
         assert ex.method == ref_ex.method == expected
@@ -122,17 +121,21 @@ def test_routing_matches_reference(shape, backend, ndevices, expected):
 
 def test_main_path_plan_on_cuda():
     """2048^2 fp32 on "cuda": tiled, kernel path, wavefront lowering, with
-    the megakernel's rejection recorded as a fallback."""
+    the megakernel's rejection recorded as a fallback.  512^2, whose task
+    table fits: the megakernel, resolved with a ``dispatch_mode_auto``
+    decision, as the reference resolves it on its kernel path."""
     s = tplan.plan((2048, 2048), torch.float32, backend="cuda", explain=True)
     assert (s.config.method, s.config.use_kernel, s.config.dispatch_mode,
             s.config.block) == ("tiled", True, "wavefront", 32)
     assert s.explain.fallback_reasons == ("megakernel_over_budget",)
-    # A grid whose table fits: the reference would pick the megakernel.
     s = tplan.plan((512, 512), torch.float32, backend="cuda", explain=True)
-    assert s.config.dispatch_mode == "wavefront"
-    assert s.explain.fallback_reasons == ("megakernel_not_ported",)
-    assert jplan.plan((512, 512), jnp.float32, backend="tpu",
-                      explain=True).config.dispatch_mode == "megakernel"
+    ref = jplan.plan((512, 512), jnp.float32, backend="tpu", explain=True)
+    assert s.config.dispatch_mode == ref.config.dispatch_mode == "megakernel"
+    assert s.explain.fallback_reasons == ref.explain.fallback_reasons == ()
+    mine, theirs = (x.explain.decision("dispatch_mode_auto")
+                    for x in (s, ref))
+    assert (mine.rule, mine.outcome) == (theirs.rule, theirs.outcome) == (
+        "dispatch_mode_auto", "resolved")
     s = tplan.plan((512, 512), torch.float32, backend="cpu")
     assert s.config.use_kernel is False and s.config.dispatch_mode is None
 
@@ -161,7 +164,7 @@ def test_cuda_plan_raises_when_kernels_do_not_fit():
 
 
 def test_forced_megakernel_verify_and_backend_raise():
-    with pytest.raises(NotImplementedError, match="megakernel"):
+    with pytest.raises(ValueError, match="task table"):
         tplan.plan((2048, 2048), torch.float32,
                    tplan.QRConfig(dispatch_mode="megakernel"), backend="cuda")
     with pytest.raises(NotImplementedError, match="A11"):

@@ -37,7 +37,18 @@ Phases, each of which exits non-zero when it fails:
      timed beside ``torch.linalg.qr`` on the stack and the slice-by-slice
      loop of the wavefront lowering;
   9. time both megakernels at those shapes against their plain walks,
-     their bound and ``torch.geqrf``.
+     their bound and ``torch.geqrf``;
+ 10. hold the panel path's kernels against their plain versions (fp32
+     and fp64): ``mht_panel`` and ``wy_trailing`` at the shapes its main
+     paths give them, and the single-tile ``tsqrt`` / ``ssrfb`` entry
+     points; time each beside its bound, its plain version and one
+     PyTorch call (``torch.geqrf``, ``torch.ormqr``);
+ 11. the panel path: ``repro_torch.qr`` through the auto route on a
+     (60, 576, 192) stack, 4096^2, 49152 x 576 (TSQR), 200^2 and 16 x 1000
+     (one wide panel): route, launch counts, conformance, agreement with
+     the plain lowering, timed beside ``torch.linalg.qr``;
+ 12. break the panel path's time down (panel kernel, trailing kernel,
+     other device work, Q formation, host) with ``torch.profiler``.
 
 Each correctness check is shown to reject a control whose answer is only
 TF32-grade: the kernels' written outputs rounded to TF32 (fp64: to fp32),
@@ -88,12 +99,28 @@ REPLACES = {
     "SSRFB": "src/repro/kernels/macro_ops.py:340",
     "MEGAKERNEL": "src/repro/core/engine.py:803",
     "MEGAKERNEL_BATCHED": "src/repro/core/engine.py:814",
+    "MHT_PANEL": "src/repro/kernels/mht_panel.py:48",
+    "WY_TRAILING": "src/repro/kernels/wy_trailing.py:36",
+    "TSQRT_TILE": "src/repro/kernels/tile_ops.py:83",
+    "SSRFB_TILE": "src/repro/kernels/tile_ops.py:126",
 }
 
 N_MEGA = 640            # 20 x 20 grid: the largest square the auto rule
                         # gives the megakernel (24 x 24's table is over budget)
 STACK = (60, 576, 576)  # SmolLM-135M: 30 layers x (q, o) projections, d 576
 SOURCE = "src/repro_torch/kernels/csrc/macro_ops.cu"
+SOURCES = {"MHT_PANEL": "src/repro_torch/kernels/csrc/mht_panel.cu",
+           "WY_TRAILING": "src/repro_torch/kernels/csrc/wy_trailing.cu",
+           "TSQRT_TILE": SOURCE, "SSRFB_TILE": SOURCE}
+
+# The panel path's configurations (phase 10): (label, shape, route slug).
+PANEL_PATHS = (
+    ("stack", (60, 576, 192), "blocked_default"),   # SmolLM-135M k/v momenta
+    ("4096", (4096, 4096), "blocked_default"),      # past the tiled ceiling
+    ("tsqr", (49152, 576), "tsqr_tall_skinny"),     # 8 leaves of (6144, 576)
+    ("200", (200, 200), "blocked_default"),         # under the tiled floor
+    ("wide", (16, 1000), "single_panel"),           # one wide panel
+)
 
 
 def log(*args):
@@ -767,6 +794,401 @@ def phase_megakernel_timing(torch, engine, macro_ops, tilegraph):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# the panel path: mht_panel, wy_trailing and the single-tile entry points
+# ---------------------------------------------------------------------------
+
+def panel_flops(m, b):
+    """FLOPs of the MHT factorization of an (m, b) panel: per pivot column j
+    the tail norm and v (~3 (m - j)), w = tau v^T A and the rank-1 update
+    (4 (m - j) per later column); 2 m b^2 - 2/3 b^3 for a tall panel."""
+    return sum(4 * (m - j) * (b - j - 1) + 3 * (m - j) for j in range(min(m, b)))
+
+
+def bound_ms(flops, elems, dtype_name):
+    """max(FLOPs / peak, bytes / HBM rate) in ms, and what bounds it."""
+    itemsize = 4 if dtype_name == "float32" else 8
+    t_ops = flops / PEAK_FLOPS[dtype_name]
+    t_bytes = elems * itemsize / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
+
+
+def seeded(torch, shape, seed, dtype):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.standard_normal(shape)).to("cuda", dtype)
+
+
+def compare(torch, got, want, base, width, dtype):
+    """max |kernel - plain| against 4 * eps * width * max(1, max |plain|)
+    (the kernel checks' bound, width the number of terms the column loop or
+    the products carry), and the TF32-rounded control (the kernel's written
+    outputs rounded by :func:`round_low`), which must fail it."""
+    err, scale = max_err(torch, got, want)
+    tol = 4 * float(torch.finfo(dtype).eps) * width * scale
+    control = [torch.where(g != b, round_low(torch, g), g) if b is not None
+               else round_low(torch, g) for g, b in zip(got, base)]
+    control_err = max_err(torch, control, want)[0]
+    return dict(max_abs_err=err, tol=tol, control_err=control_err,
+                ok=err <= tol < control_err)
+
+
+def phase_panel_kernels(torch, macro_ops, ops, tile_ops, blocked):
+    """The panel path's kernels against their plain versions on the card,
+    fp32 and fp64, at the shapes its main paths give them: ``mht_panel``
+    on the (60, 576, 32) stack's panels at row0 0 and 160, a (4096, 32)
+    panel at row0 0 and 4064, the (8, 6144, 32) TSQR leaves and the wide
+    (16, 1000) panel; ``wy_trailing`` on those paths' first trailing
+    updates; the single-tile ``tsqrt`` / ``ssrfb`` entry points.  Then the
+    fp32 times of each (CUDA events behind a spin kernel), its plain
+    version's and one PyTorch call's (``torch.geqrf`` on the panel,
+    ``torch.ormqr`` applying the panel's Q^T, ``torch.geqrf`` on the
+    stacked pair, ``torch.ormqr`` on the stacked pair)."""
+    results, rows = [], {}
+    panels = (((60, 576, 32), 0), ((60, 576, 32), 160), ((4096, 32), 0),
+              ((4096, 32), 4064), ((8, 6144, 32), 0), ((16, 1000), 0))
+    for seed, (shape, row0) in enumerate(panels):
+        for dtype in (torch.float32, torch.float64):
+            a = seeded(torch, shape, 300 + seed, dtype)
+            before = macro_ops.LAUNCHES["MHT_PANEL"]
+            got = ops.mht_panel(a, row0=row0)
+            torch.cuda.synchronize()
+            assert macro_ops.LAUNCHES["MHT_PANEL"] == before + 1, "mht_panel"
+            packed, taus = macro_ops.panel_body(a, row0)
+            want = (packed, taus[..., :got[1].shape[-1]])  # b taus, 0 past m
+            torch.cuda.synchronize()
+            assert macro_ops.LAUNCHES["MHT_PANEL"] == before + 1
+            kf = got[1].shape[-1]   # pivot columns: the loop's length
+            res = dict(kernel="MHT_PANEL", shape=list(shape), row0=row0,
+                       dtype=str(dtype).replace("torch.", ""), taus=kf,
+                       **compare(torch, got, want, (a, None), kf, dtype))
+            log("panel kernel check:", json.dumps(res))
+            results.append(res)
+    traces = ((60, 576, 32, 160), (1, 4096, 32, 4064), (8, 6144, 32, 544),
+              (1, 16, 16, 984))
+    for seed, (bsz, m, k, n) in enumerate(traces):
+        for dtype in (torch.float32, torch.float64):
+            packed, taus = macro_ops.panel_body(
+                seeded(torch, (bsz, m, k), 400 + seed, dtype), 0)
+            v = blocked.unpack_v_panel(packed, 0)
+            t = blocked.larft(v, taus)
+            c = seeded(torch, (bsz, m, n), 500 + seed, dtype)
+            before = macro_ops.LAUNCHES["WY_TRAILING"]
+            got = ops.wy_trailing(v, t, c)
+            torch.cuda.synchronize()
+            assert macro_ops.LAUNCHES["WY_TRAILING"] == before + 1, "wy_trailing"
+            want = macro_ops.wy_body(v, t, c)
+            res = dict(kernel="WY_TRAILING", shape=[bsz, m, k, n],
+                       dtype=str(dtype).replace("torch.", ""),
+                       **compare(torch, (got,), (want,), (c,), k, dtype))
+            log("panel kernel check:", json.dumps(res))
+            results.append(res)
+    for dtype in (torch.float32, torch.float64):
+        r_t = torch.triu(seeded(torch, (NB, NB), 600, dtype))
+        a_t = seeded(torch, (NB, NB), 601, dtype)
+        got = tile_ops.tsqrt(r_t, a_t)
+        want = macro_ops.tsqrt_factor(r_t[None], a_t[None])
+        res = dict(kernel="TSQRT_TILE", dtype=str(dtype).replace("torch.", ""),
+                   **compare(torch, got, [w[0] for w in want],
+                             (r_t, a_t, None), NB, dtype))
+        log("panel kernel check:", json.dumps(res))
+        results.append(res)
+        _, v2, t2, _ = macro_ops.tsqrt_body(r_t[None], a_t[None])
+        ck, ci = (seeded(torch, (NB, NB), s_, dtype) for s_ in (602, 603))
+        got = tile_ops.ssrfb(v2[0], t2[0], ck, ci)
+        want = macro_ops.ssrfb_body(v2, t2, ck[None], ci[None])
+        res = dict(kernel="SSRFB_TILE", dtype=str(dtype).replace("torch.", ""),
+                   **compare(torch, got, [w[0] for w in want], (ck, ci), NB,
+                             dtype))
+        log("panel kernel check:", json.dumps(res))
+        results.append(res)
+    bad = [r for r in results if not r["ok"]]
+    if bad:
+        raise SystemExit(f"panel kernel checks failed: {bad}")
+    for r in results:
+        if r["dtype"] == "float32":
+            rows.setdefault(r["kernel"], r)
+    rows["MHT_PANEL"] = [r for r in results if r["kernel"] == "MHT_PANEL"
+                         and r["shape"] == [4096, 32] and r["row0"] == 0][0]
+    rows["WY_TRAILING"] = [r for r in results if r["kernel"] == "WY_TRAILING"
+                           and r["shape"] == [1, 4096, 32, 4064]][0]
+
+    # The single-tile entry points' own path: each called once.
+    r_t = torch.triu(seeded(torch, (NB, NB), 600, torch.float32))
+    a_t = seeded(torch, (NB, NB), 601, torch.float32)
+    _, v2, t2, taus2 = macro_ops.tsqrt_body(r_t[None], a_t[None])
+    ck, ci = (seeded(torch, (NB, NB), s_, torch.float32) for s_ in (602, 603))
+    torch.cuda.synchronize()
+    macro_ops.reset_launch_counts()
+    tile_ops.tsqrt(r_t, a_t)
+    tile_ops.ssrfb(v2[0], t2[0], ck, ci)
+    torch.cuda.synchronize()
+    tile_launches = launch_counts(macro_ops)
+    log("single-tile entry launches:", json.dumps(tile_launches))
+    assert tile_launches == {"TSQRT_TILE": 1, "SSRFB_TILE": 1}, tile_launches
+
+    from repro_torch.kernels import mht_panel as kpanel
+    from repro_torch.kernels import wy_trailing as ktrail
+
+    timing = {}
+    for shape in ((4096, 32), (60, 576, 32), (8, 6144, 32)):
+        base = seeded(torch, shape, 700, torch.float32)
+        work = base.clone()
+        m, b = shape[-2:]
+        bsz = shape[0] if len(shape) == 3 else 1
+        flops = bsz * panel_flops(m, b)
+        elems = bsz * (2 * m * b + min(m, b))
+        timing[str(list(shape))] = dict(
+            ms=time_ms(torch, lambda: ops.mht_panel_(work),
+                       lambda: work.copy_(base)),
+            plain_ms=time_ms(torch, lambda: macro_ops.panel_body(base, 0),
+                             reps=3, warmup=1),
+            library_ms=time_ms(torch, lambda: torch.geqrf(base)),
+            grid=dict(kpanel.LAST_GRID),
+            **dict(zip(("bound_ms", "bound_by"),
+                       bound_ms(flops, elems, "float32"))))
+    rows["MHT_PANEL"].update(timing["[4096, 32]"], timing_by_shape=timing)
+    timing = {}
+    for bsz, m, k, n in ((1, 4096, 32, 4064), (60, 576, 32, 160),
+                         (8, 6144, 32, 544)):
+        packed, taus = macro_ops.panel_body(
+            seeded(torch, (bsz, m, k), 701, torch.float32), 0)
+        v = blocked.unpack_v_panel(packed, 0)
+        t = blocked.larft(v, taus)
+        base = seeded(torch, (bsz, m, n), 702, torch.float32)
+        work = base.clone()
+        flops = bsz * (4 * m * k * n + 2 * k * k * n)
+        elems = bsz * (m * k + k * k + 2 * m * n)
+        timing[str([bsz, m, k, n])] = dict(
+            ms=time_ms(torch, lambda: ops.wy_trailing_(v, t, work),
+                       lambda: work.copy_(base)),
+            grid=dict(ktrail.LAST_GRID),
+            plain_ms=time_ms(torch, lambda: macro_ops.wy_body(v, t, base),
+                             reps=5, warmup=1),
+            library_ms=time_ms(torch, lambda: torch.ormqr(
+                packed, taus, base, left=True, transpose=True)),
+            **dict(zip(("bound_ms", "bound_by"),
+                       bound_ms(flops, elems, "float32"))))
+    rows["WY_TRAILING"].update(timing["[1, 4096, 32, 4064]"],
+                               timing_by_shape=timing)
+    pair = torch.cat([r_t, a_t]).contiguous()
+    rows["TSQRT_TILE"].update(
+        ms=time_ms(torch, lambda: tile_ops.tsqrt(r_t, a_t)),
+        plain_ms=time_ms(torch, lambda: macro_ops.tsqrt_factor(
+            r_t[None], a_t[None]), reps=5, warmup=1),
+        library_ms=time_ms(torch, lambda: torch.geqrf(pair)),
+        **dict(zip(("bound_ms", "bound_by"), bound_ms(
+            2 * NB ** 3, 4 * NB * NB + NB, "float32"))))
+    packed2 = torch.cat([torch.zeros_like(v2[0]), v2[0]]).contiguous()
+    cpair = torch.cat([ck, ci]).contiguous()
+    rows["SSRFB_TILE"].update(
+        ms=time_ms(torch, lambda: tile_ops.ssrfb(v2[0], t2[0], ck, ci)),
+        plain_ms=time_ms(torch, lambda: macro_ops.ssrfb_body(
+            v2, t2, ck[None], ci[None]), reps=5, warmup=1),
+        library_ms=time_ms(torch, lambda: torch.ormqr(
+            packed2, taus2[0], cpair, left=True, transpose=True)),
+        **dict(zip(("bound_ms", "bound_by"), bound_ms(
+            FLOPS["SSRFB"](NB), ELEMS["SSRFB"](NB), "float32"))))
+    for kind in ("MHT_PANEL", "WY_TRAILING", "TSQRT_TILE", "SSRFB_TILE"):
+        log("panel kernel timing:", json.dumps(rows[kind]))
+    return rows, tile_launches
+
+
+def expected_panel_launches(cfg, shape):
+    """Launches of the panel path's kernels for one ``qr`` call: a panel
+    step is one ``mht_panel`` launch and, where columns trail it, one
+    ``wy_trailing`` launch, for the whole stack; Q forms with one
+    ``wy_trailing`` launch per panel (``WY_TRAILING_Q``); TSQR runs one
+    blocked factorization per tree level, twice with refinement, and
+    forms Q by a triangular solve."""
+    m, n = shape[-2:]
+    k, nb = min(m, n), cfg.block
+
+    def geqrf(rows, cols):
+        kk = min(rows, cols)
+        steps = range(0, kk, nb)
+        return len(steps), sum(j0 + min(nb, kk - j0) < cols for j0 in steps)
+
+    q_panels = -(-k // nb)
+    if cfg.method == "geqrf_ht":
+        panels, trailing = geqrf(m, n)
+        out = dict(MHT_PANEL=panels, WY_TRAILING=trailing,
+                   WY_TRAILING_Q=q_panels)
+    elif cfg.method == "geqr2_ht":
+        out = dict(MHT_PANEL=1, WY_TRAILING=int(n > m), WY_TRAILING_Q=q_panels)
+    else:   # tsqr
+        levels, p = 1, cfg.nblocks
+        while p > 1:
+            p = p // 2 + p % 2
+            levels += 1
+        panels, trailing = geqrf(2 * n, n)
+        passes = 2 if cfg.refine else 1
+        out = dict(MHT_PANEL=panels * levels * passes,
+                   WY_TRAILING=trailing * levels * passes)
+    return {key: val for key, val in out.items() if val}
+
+
+def phase_panel_paths(torch, macro_ops, repro_torch):
+    """``repro_torch.qr`` with the default config on the panel path's
+    configurations (:data:`PANEL_PATHS`, seeded fp32): the plan takes the
+    named route with the kernels, the call launches exactly the expected
+    panel and trailing kernels and nothing else, every matrix meets the
+    conformance bar, and the result agrees with the plain lowering on the
+    card within 4 * sqrt(N) * eps, N = max(m, n) (the lowerings sum in
+    different orders: panel kernel vs scaled-norm reflectors, Q by WY
+    panels vs one reflector at a time); the plain lowering run with TF32
+    products must not.  Timed (median of 5 after a warm-up) beside
+    ``torch.linalg.qr``."""
+    out = {}
+    eps = float(torch.finfo(torch.float32).eps)
+    for seed, (label, shape, slug) in enumerate(PANEL_PATHS):
+        a = seeded(torch, shape, 800 + seed, torch.float32)
+        m, n = shape[-2:]
+        solver = repro_torch.plan(a.shape, a.dtype, backend="cuda",
+                                  explain=True)
+        cfg = solver.config
+        log(f"panel path {label} plan:", json.dumps(dict(
+            method=cfg.method, use_kernel=cfg.use_kernel, block=cfg.block,
+            nblocks=cfg.nblocks,
+            decisions=[[d.rule, d.outcome] for d in solver.explain.decisions])))
+        assert solver.explain.selected.rule == slug and cfg.use_kernel, cfg
+        expected = expected_panel_launches(cfg, shape)
+
+        torch.cuda.synchronize()
+        macro_ops.reset_launch_counts()
+        q, r = repro_torch.qr(a)
+        torch.cuda.synchronize()
+        launches = launch_counts(macro_ops)
+        log(f"panel path {label} launches:", json.dumps(launches),
+            "expected:", json.dumps(expected))
+
+        bar = 100 * eps * max(m, n)
+        q64, r64, a64 = q.double(), r.double(), a.double()
+        eye = torch.eye(q.shape[-1], dtype=torch.float64, device="cuda")
+        ortho = (q64.mT @ q64 - eye).abs().amax(dim=(-2, -1))
+        resid = (torch.linalg.matrix_norm(a64 - q64 @ r64)
+                 / torch.linalg.matrix_norm(a64))
+        plain_cfg = repro_torch.QRConfig(use_kernel=False)
+        q0, r0 = repro_torch.qr(a, config=plain_cfg)
+        torch.cuda.synchronize()
+        plain_launches = launch_counts(macro_ops)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            qc, rc = repro_torch.qr(a, config=plain_cfg)
+            torch.cuda.synchronize()
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        # Not every product of a lowering is a GEMM that TF32 reaches, so
+        # the control's outputs are rounded to TF32 too.
+        qc, rc = round_low(torch, qc), round_low(torch, rc)
+        agree_tol = 4 * max(m, n) ** 0.5 * eps
+        dq = float((q - q0).abs().max())
+        dr = float((r - r0).abs().max() / r0.abs().max())
+        dq_ctrl = float((qc - q).abs().max())
+        dr_ctrl = float((rc - r).abs().max() / r.abs().max())
+        finite = all(bool(torch.isfinite(x).all()) for x in (q, r, q0, r0))
+        checks = dict(ortho_max=float(ortho.max()), resid_max=float(resid.max()),
+                      bar=bar, matrices_in_bar=int(((ortho <= bar)
+                                                     & (resid <= bar)).sum()),
+                      dq=dq, dr_rel=dr, agree_tol=agree_tol,
+                      tf32_control_dq=dq_ctrl, tf32_control_dr_rel=dr_ctrl,
+                      finite=finite, shapes=[list(q.shape), list(r.shape)])
+        log(f"panel path {label} checks:", json.dumps(checks))
+
+        def run_qr():
+            repro_torch.qr(a)
+            torch.cuda.synchronize()
+
+        def run_lib():
+            torch.linalg.qr(a)
+            torch.cuda.synchronize()
+
+        timing = dict(qr_ms=host_ms(run_qr, reps=5),
+                      torch_linalg_qr_ms=host_ms(run_lib, reps=5))
+        log(f"panel path {label} timing:", json.dumps(timing))
+
+        nmat = shape[0] if len(shape) == 3 else 1
+        assert launches == expected, (label, launches, expected)
+        assert plain_launches == launches, "the plain lowering launched kernels"
+        assert finite and checks["matrices_in_bar"] == nmat, checks
+        assert dq <= agree_tol and dr <= agree_tol, checks
+        assert max(dq_ctrl, dr_ctrl) > agree_tol, ("the TF32 control passed",
+                                                    checks)
+        out[label] = dict(launches=launches, checks=checks, **timing)
+    return out
+
+
+def profile_window(torch, fn):
+    """One ``torch.profiler`` trace of ``fn`` (after one untraced session,
+    which pays the tracer's start-up): device time of the panel kernel, of
+    the trailing kernel and of every other device op, and the union of all
+    device intervals over the host wall time (profiling on)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    if not spans:
+        return dict(wall_ms_profiled=wall_ms, note="no device events traced")
+    by = dict(mht_panel_kernel=0.0, wy_trailing_kernel=0.0, other=0.0)
+    for s_, e_, name in spans:
+        key = next((k_ for k_ in by if k_ in name), "other")
+        by[key] += (e_ - s_) / 1e3
+    busy_us, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
+    for s_, e_, _ in spans[1:]:
+        if s_ > cur_e:
+            busy_us += cur_e - cur_s
+            cur_s, cur_e = s_, e_
+        else:
+            cur_e = max(cur_e, e_)
+    busy_us += cur_e - cur_s
+    return dict(device_ms=by, device_ops=len(spans), busy_ms=busy_us / 1e3,
+                wall_ms_profiled=wall_ms, busy_share_of_wall=busy_us / 1e3 / wall_ms)
+
+
+def phase_panel_breakdown(torch, repro_torch, blocked):
+    """Where the panel path's time goes, at 4096^2 and on the (60, 576,
+    192) stack: the factorization and Q formation apart, each on the host
+    clock (median of 3) and in one profiled run (panel kernel, trailing
+    kernel, other device ops, the device's busy share); and one profiled
+    TSQR ``qr`` of 49152 x 576."""
+    out = {}
+    for label, shape, _ in PANEL_PATHS[:3]:
+        a = seeded(torch, shape, 900, torch.float32)
+        solver = repro_torch.plan(a.shape, a.dtype, backend="cuda")
+        if solver.config.method == "tsqr":
+            def run():
+                repro_torch.qr(a)
+            out[label] = dict(qr_host_ms=host_ms(
+                lambda: (run(), torch.cuda.synchronize()), reps=3),
+                qr=profile_window(torch, run))
+            continue
+        packed, taus = solver.factor(a)
+
+        def factor():
+            solver.factor(a)
+
+        def form_q():
+            blocked.form_q_blocked(packed, taus, block=solver.config.block,
+                                   use_kernel=True)
+        out[label] = dict(
+            factor_host_ms=host_ms(lambda: (factor(), torch.cuda.synchronize()),
+                                   reps=3),
+            form_q_host_ms=host_ms(lambda: (form_q(), torch.cuda.synchronize()),
+                                   reps=3),
+            factor=profile_window(torch, factor),
+            form_q=profile_window(torch, form_q))
+    log("panel path breakdown:", json.dumps(out))
+    return out
+
+
 def host_ms(fn, reps, warmup=1):
     for _ in range(warmup):
         fn()
@@ -787,7 +1209,8 @@ def main() -> int:
     sys.path.insert(0, os.path.join(ROOT, "src"))
     import repro_torch
     from repro_torch.core import engine, tilegraph
-    from repro_torch.kernels import _build, macro_ops
+    from repro_torch.core import blocked
+    from repro_torch.kernels import _build, macro_ops, ops, tile_ops
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -831,6 +1254,12 @@ def main() -> int:
         repro_torch)
     mega_rows = phase("megakernel timing", phase_megakernel_timing, torch,
                       engine, macro_ops, tilegraph)
+    panel_rows, tile_launches = phase(
+        "panel kernel checks", phase_panel_kernels, torch, macro_ops, ops,
+        tile_ops, blocked)
+    paths = phase("panel paths", phase_panel_paths, torch, macro_ops,
+                  repro_torch)
+    phase("panel breakdown", phase_panel_breakdown, torch, repro_torch, blocked)
 
     kernels = []
     for kind in ("GEQRT", "LARFB", "TSQRT", "SSRFB"):
@@ -850,10 +1279,32 @@ def main() -> int:
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"], shape=r["shape"]))
+    path_launches = {
+        "MHT_PANEL": {k: p["launches"].get("MHT_PANEL", 0)
+                      for k, p in paths.items()},
+        "WY_TRAILING": {k: p["launches"].get("WY_TRAILING", 0)
+                        + p["launches"].get("WY_TRAILING_Q", 0)
+                        for k, p in paths.items()},
+    }
+    for kind in ("MHT_PANEL", "WY_TRAILING", "TSQRT_TILE", "SSRFB_TILE"):
+        r = panel_rows[kind]
+        launched = (path_launches[kind]["4096"] if kind in path_launches
+                    else tile_launches[kind])
+        kernels.append(dict(
+            name=f"{kind.lower()}_kernel", route="cuda", source=SOURCES[kind],
+            replaces=REPLACES[kind], launches=launched,
+            max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            library_ms=r["library_ms"],
+            **({"launches_by_path": path_launches[kind]}
+               if kind in path_launches else {})))
     log("card:", card, "| main path qr_ms", e2e, "| torch.linalg.qr ms", lib,
         "| 640 qr_ms", mega_ms, "| torch.linalg.qr ms", mega_lib,
         "| stack qr_ms", stack_timing["qr_ms"], "| torch.linalg.qr ms",
         stack_timing["torch_linalg_qr_ms"])
+    log("card:", card, "| panel paths qr_ms / torch.linalg.qr ms:",
+        json.dumps({k: [p["qr_ms"], p["torch_linalg_qr_ms"]]
+                    for k, p in paths.items()}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

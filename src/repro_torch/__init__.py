@@ -6,8 +6,10 @@ standard library only.  Entry points run on ``"cuda"`` unless the caller
 passes ``device="cpu"``.
 """
 
-from repro_torch.core import (QRConfig, QRSolver, lstsq, orthogonalize, plan,
-                              qr, select_method)
+from repro_torch.core import (QRConfig, QRSolver, geqr2, geqr2_ht, geqrf,
+                              lstsq, orthogonalize, plan, qr, select_method,
+                              tsqr_qr, tsqr_r)
 
 __all__ = ["qr", "orthogonalize", "lstsq", "QRConfig", "QRSolver", "plan",
-           "select_method"]
+           "select_method", "geqr2", "geqr2_ht", "geqrf", "tsqr_r",
+           "tsqr_qr"]

@@ -7,7 +7,9 @@ the solve runs on.  Routing follows the reference rule for rule
 tiled floor of 256 on ``"cuda"`` as on the reference's TPU.  Methods not
 ported yet are registered as **capability cards** with the reference's
 metadata, so routing decides exactly as the reference does; their
-``solve`` raises ``NotImplementedError`` naming the ROADMAP item.
+``solve`` raises ``NotImplementedError`` naming the ROADMAP item (only
+``sharded_tiled`` is left).  A method that registers a packed ``factor``
+solves every mode through :func:`_default_solve`, the reference's.
 
 Deliberate differences from the reference, each recorded in ROADMAP §C:
 
@@ -24,7 +26,11 @@ Deliberate differences from the reference, each recorded in ROADMAP §C:
   * a ``(..., B, m, n)`` input reaches a method's ``solve_batched`` as one
     ``(B', m, n)`` stack of all its matrices (the reference vmaps the
     dimensions before the last three);
-  * ``verify=True`` raises ``NotImplementedError`` (ROADMAP A11).
+  * ``verify=True`` raises ``NotImplementedError`` (ROADMAP A11);
+  * on the kernel path the panel kernel factors a wide panel's ``min(m,
+    n)`` pivot columns and returns that many taus (the reference's
+    returns n), and Q (and ``lstsq``'s Q^T b) is applied panel by panel
+    through the trailing kernel instead of one reflector at a time.
 """
 
 from __future__ import annotations
@@ -145,19 +151,26 @@ class QRConfig:
 class MethodSpec:
     """Capability metadata + entry points of one registered realization.
 
+    factor:  ``(a_bmn, cfg) -> (packed, taus)`` in the LAPACK packed
+             layout, on a ``(B, m, n)`` stack; a method with ``solve``
+             None is solved from it by :func:`_default_solve`, a whole
+             stack at once
     solve:   ``(a, cfg) -> (q, r) | r`` honoring cfg.mode/sign_fix
     solve_batched: optional ``(a_bmn, cfg) -> (q, r) | r`` over a leading
              batch axis; :meth:`QRSolver.solve` hands it every stacked
              input as one stack (the tiled method factors it in one
              batched engine call)
     resolve: optional ``(m, n, cfg, *, dtype, explain) -> cfg`` hook
-    smem_bytes: optional ``(m, n, cfg) -> bytes`` per-block working set
-             (fp32 units) read by the ``use_kernel=None`` rule
+    smem_bytes: optional ``(m, n, cfg, itemsize) -> bytes``, the largest
+             dynamic shared memory per CTA that the kernel path launches
+             with at that element width, read by the ``use_kernel=None``
+             rule (it may raise, naming a cap of the kernels)
     kernel_policy: the :class:`KernelPolicy` whose budget gates it
     min_aspect: required m/n ratio (TSQR needs tall-skinny input)
     """
 
     name: str
+    factor: Optional[Callable] = None
     solve: Optional[Callable] = None
     solve_batched: Optional[Callable] = None
     resolve: Optional[Callable] = None
@@ -232,8 +245,12 @@ def _ensure_builtins() -> None:
     if _BUILTINS_LOADED:
         return
     _BUILTINS_LOADED = True
+    import repro_torch.core.blocked  # noqa: F401
+    import repro_torch.core.householder  # noqa: F401
+    import repro_torch.core.mht  # noqa: F401
     import repro_torch.core.tilegraph  # noqa: F401
     import repro_torch.core.tsqr  # noqa: F401
+    import repro_torch.kernels.ops  # noqa: F401
 
 
 def register_method(spec: MethodSpec) -> MethodSpec:
@@ -329,19 +346,6 @@ def _not_ported(name: str, item: str) -> Callable:
 
 # (name, ROADMAP item, metadata copied from the reference's registration)
 for _name, _item, _meta in (
-        ("geqr2", "A7", dict(
-            description="classical HT, two-pass updates (LAPACK DGEQR2)")),
-        ("geqr2_ht", "A7", dict(
-            kernel_backed=True,
-            description="MHT, fused macro-op updates (LAPACK DGEQR2HT)")),
-        ("geqrf", "A7", dict(
-            description="blocked WY, classical HT panels (LAPACK DGEQRF)")),
-        ("geqrf_ht", "A7", dict(
-            kernel_backed=True,
-            description="blocked WY, MHT panels (LAPACK DGEQRFHT) [default]")),
-        ("geqrf_fori", "A7", dict(
-            description="blocked MHT with fori_loop panels — O(1)-HLO "
-                        "optimizer path")),
         ("sharded_tiled", "A14", dict(
             supports_full_q=False, batched=False, kernel_backed=True,
             kernel_policy="macro_ops",
@@ -360,9 +364,8 @@ for _name, _item, _meta in (
 def _require_kernel_fits(spec: MethodSpec, m: int, n: int, cfg: QRConfig,
                          dtype) -> None:
     """Raise when ``spec``'s kernels do not fit their shared-memory budget."""
-    dtype = as_torch_dtype(dtype)
-    # Estimators are written for fp32; scale to the planned element width.
-    need = int(spec.smem_bytes(m, n, cfg) * dtype.itemsize // 4)
+    dtype = as_torch_dtype(cfg.precision or dtype)
+    need = spec.smem_bytes(m, n, cfg, dtype.itemsize)
     budget = kernel_smem_budget(spec.kernel_policy)
     if need > budget:
         raise ValueError(
@@ -598,6 +601,57 @@ def plan(shape, dtype=torch.float32, config: Optional[QRConfig] = None, *,
 # solver
 # ---------------------------------------------------------------------------
 
+def _apply_q(packed: Tensor, taus: Tensor, c: Tensor, cfg: QRConfig, *,
+             transpose: bool = False) -> Tensor:
+    """Q (or Q^T) of a packed factorization applied to ``c``: panel by
+    panel through the trailing kernel on the kernel path, one reflector at
+    a time (the reference's ``apply_q``) on the plain lowering."""
+    from repro_torch.core import blocked, householder
+
+    if cfg.use_kernel:
+        return blocked.apply_q_blocked(packed, taus, c, block=cfg.block,
+                                       transpose=transpose, use_kernel=True)
+    return householder.apply_q(packed, taus, c, transpose=transpose)
+
+
+def _form_q(packed: Tensor, taus: Tensor, cfg: QRConfig, *,
+            full: bool = False) -> Tensor:
+    from repro_torch.core import blocked, householder
+
+    if cfg.use_kernel:
+        return blocked.form_q_blocked(packed, taus, block=cfg.block,
+                                      full=full, use_kernel=True)
+    return householder.form_q(packed, taus, full=full)
+
+
+def _default_solve(spec: MethodSpec, a: Tensor, cfg: QRConfig):
+    """Per-mode output of a ``(B, m, n)`` stack from the method's packed
+    ``factor`` — the reference's ``_default_solve``, a stack at a time:
+    R from the packed upper triangle; Q formed from the reflectors, or
+    ``A R^{-1}`` for ``q_method="solve"``; ``mode="full"`` pads R with
+    zero rows."""
+    from repro_torch.core import householder
+
+    m, n = a.shape[-2:]
+    k = min(m, n)
+    packed, taus = spec.factor(a, cfg)
+    r = householder.unpack_r(packed, n)
+    if cfg.mode == "r":
+        return sign_fix_r(r) if cfg.sign_fix else r
+    if cfg.mode == "reduced":
+        if cfg.q_method == "solve" and m >= n:
+            from repro_torch.core.tsqr import triangular_inverse_apply
+
+            q = triangular_inverse_apply(a, r[..., :n, :n])
+        else:
+            q = _form_q(packed, taus, cfg)
+        return sign_fix_qr(q, r) if cfg.sign_fix else (q, r)
+    q = _form_q(packed, taus, cfg, full=True)
+    if m > k:
+        r = torch.cat([r, r.new_zeros(r.shape[:-2] + (m - k, n))], dim=-2)
+    return sign_fix_qr(q, r) if cfg.sign_fix else (q, r)
+
+
 @dataclasses.dataclass(frozen=True)
 class QRSolver:
     """A planned QR factorization for one matrix shape.  It runs on the
@@ -629,13 +683,16 @@ class QRSolver:
         return a
 
     def _solve2d(self, a: Tensor):
+        if self.spec.solve is None:
+            out = _default_solve(self.spec, self._cast(a)[None], self.config)
+            return out[0] if self.config.mode == "r" else tuple(x[0] for x in out)
         return self.spec.solve(self._cast(a), self.config)
 
     def solve(self, a: Tensor):
         """Factorize per ``config.mode``: (Q, R), R only, or full (Q, R).
-        Leading batch dims go to the method's ``solve_batched`` as one
-        stack of all the matrices, or are solved matrix by matrix when the
-        method has none."""
+        Leading batch dims go to the method as one stack of all the
+        matrices — to its ``solve_batched``, or through its packed
+        ``factor`` — or are solved matrix by matrix when it has neither."""
         self._check(a)
         if a.ndim == 2:
             return self._solve2d(a)
@@ -643,6 +700,8 @@ class QRSolver:
         stack = a.reshape((-1,) + self.shape)
         if self.spec.solve_batched is not None:
             out = self.spec.solve_batched(self._cast(stack), self.config)
+        elif self.spec.solve is None:
+            out = _default_solve(self.spec, self._cast(stack), self.config)
         else:
             outs = [self._solve2d(x) for x in stack]
             out = (tuple(torch.stack(xs) for xs in zip(*outs))
@@ -650,6 +709,19 @@ class QRSolver:
         if isinstance(out, tuple):
             return tuple(x.reshape(lead + x.shape[1:]) for x in out)
         return out.reshape(lead + out.shape[1:])
+
+    def factor(self, a: Tensor) -> Tuple[Tensor, Tensor]:
+        """LAPACK packed form ``(packed, taus)`` of ``a`` (methods that
+        have one); leading batch dims are factored as one stack."""
+        if self.spec.factor is None:
+            raise ValueError(
+                f"method {self.config.method!r} has no packed factored form")
+        self._check(a)
+        lead = tuple(a.shape[:-2])
+        packed, taus = self.spec.factor(
+            self._cast(a.reshape((-1,) + self.shape)), self.config)
+        return (packed.reshape(lead + packed.shape[1:]),
+                taus.reshape(lead + taus.shape[1:]))
 
     def orthogonalize(self, a: Tensor) -> Tensor:
         """Sign-fixed thin Q (the optimizer primitive) of tall input."""
@@ -667,8 +739,17 @@ class QRSolver:
         if a.ndim != 2:
             raise ValueError("lstsq expects a single matrix")
         b2 = b if b.ndim == 2 else b[:, None]
-        cfg = self.config.replace(mode="reduced", sign_fix=False)
-        q, r = dataclasses.replace(self, config=cfg).solve(a)
-        x = torch.linalg.solve_triangular(r[:n, :n], q.T @ b2.to(q.dtype),
-                                          upper=True)
+        if self.spec.factor is not None:
+            from repro_torch.core import householder
+
+            packed, taus = self.factor(a)
+            qtb = _apply_q(packed, taus, b2.to(packed.dtype), self.config,
+                           transpose=True)
+            r = householder.unpack_r(packed, n)[:n, :n]
+            x = torch.linalg.solve_triangular(r, qtb[:n], upper=True)
+        else:
+            cfg = self.config.replace(mode="reduced", sign_fix=False)
+            q, r = dataclasses.replace(self, config=cfg).solve(a)
+            x = torch.linalg.solve_triangular(r[:n, :n], q.T @ b2.to(q.dtype),
+                                              upper=True)
         return x[:, 0] if b.ndim == 1 else x

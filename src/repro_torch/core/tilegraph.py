@@ -306,15 +306,15 @@ def _solve_tiled(a: torch.Tensor, cfg: QRConfig):
     return out[0] if cfg.mode == "r" else tuple(x[0] for x in out)
 
 
-def _smem_tiled(m: int, n: int, cfg: QRConfig) -> int:
-    """Per-CTA shared memory of the lowering the kernel path runs (fp32
-    units; the planner scales by element width): a forced megakernel's
-    own launch size, else the largest wavefront kernel's.  The auto rule
-    picks the megakernel only where it fits too."""
+def _smem_tiled(m: int, n: int, cfg: QRConfig, itemsize: int = 4) -> int:
+    """Per-CTA shared memory of the lowering the kernel path runs: a
+    forced megakernel's own launch size, else the largest wavefront
+    kernel's.  The auto rule picks the megakernel only where it fits
+    too."""
     nb = min(cfg.block, m, n)
     if cfg.dispatch_mode == "megakernel":
-        return macro_ops.megakernel_launch_smem_bytes(nb)
-    return macro_ops.engine_smem_bytes(nb)
+        return macro_ops.megakernel_launch_smem_bytes(nb, itemsize)
+    return macro_ops.engine_smem_bytes(nb, itemsize)
 
 
 register_method(MethodSpec(

@@ -1,17 +1,63 @@
-"""TSQR pieces ported so far: ``Q = A R^{-1}`` for ``q_method="solve"``,
-and the ``tsqr`` capability card with its ``nblocks`` resolve hook.
+"""TSQR — tall-skinny QR through a reduction tree of small stacked-R
+factorizations (paper §5.2's parallel QR, on one device).
 
-Counterpart of parts of the reference's ``repro.core.tsqr``; the tree
-factorization itself is ROADMAP A8.
+Counterpart of the reference's ``repro.core.tsqr`` single-device layer:
+:func:`tsqr_r` / :func:`tsqr_qr` and the ``tsqr`` method.  The row blocks
+(leaves) and each merge level are one batched :func:`geqrf` call, so on
+the card a panel step of a whole level is one ``mht_panel`` launch and
+one ``wy_trailing`` launch; a ``(B, m, n)`` stack of matrices runs its
+levels together too.  ``Q = A R^{-1}`` is a triangular solve
+(``torch.linalg.solve_triangular``), as the reference computes it
+outside its kernels.  The collective layer (``butterfly_merge_r``,
+``tsqr_tree_sharded``, ``distributed_qr``) is ROADMAP A14.
 """
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
 
-from repro_torch.core.plan import MethodSpec, QRConfig, RouteDecision, register_method
+from repro_torch.core.blocked import geqrf
+from repro_torch.core.householder import unpack_r
+from repro_torch.core.plan import (MethodSpec, QRConfig, RouteDecision,
+                                   register_method, sign_fix_qr, sign_fix_r)
 
-__all__ = ["triangular_inverse_apply", "default_nblocks"]
+__all__ = ["tsqr_r", "tsqr_qr", "triangular_inverse_apply", "default_nblocks"]
+
+Tensor = torch.Tensor
+
+
+def _local_r(blocks: Tensor, *, qr_block: int = 32,
+             use_kernel: bool = False) -> Tensor:
+    """R factors ``(..., n, n)`` of ``(..., mb, n)`` blocks via blocked MHT
+    QR, all in one :func:`geqrf` call."""
+    n = blocks.shape[-1]
+    packed, _ = geqrf(blocks, block=min(qr_block, n), panel_method="mht",
+                      use_kernel=use_kernel)
+    return unpack_r(packed)[..., :n, :n]
+
+
+def tsqr_r(a: Tensor, *, nblocks: int = 4, qr_block: int = 32,
+           use_kernel: bool = False) -> Tensor:
+    """R factor of tall-skinny ``(..., m, n)`` matrices (m a multiple of
+    ``nblocks``): R of each of the ``nblocks`` row blocks, then a binary
+    tree of QRs of stacked R pairs (an odd one is carried up a level)."""
+    m, n = a.shape[-2:]
+    if m % nblocks != 0:
+        raise ValueError(f"m={m} not divisible by nblocks={nblocks}")
+    lead = a.shape[:-2]
+    rs = _local_r(a.reshape((-1, nblocks, m // nblocks, n)),
+                  qr_block=qr_block, use_kernel=use_kernel)
+    while rs.shape[1] > 1:
+        carry = None
+        if rs.shape[1] % 2:
+            carry, rs = rs[:, -1:], rs[:, :-1]
+        stacked = torch.cat([rs[:, 0::2], rs[:, 1::2]], dim=-2)
+        rs = _local_r(stacked, qr_block=qr_block, use_kernel=use_kernel)
+        if carry is not None:
+            rs = torch.cat([rs, carry], dim=1)
+    return rs[:, 0].reshape(lead + (n, n))
 
 
 def triangular_inverse_apply(a: torch.Tensor, r: torch.Tensor, *,
@@ -48,17 +94,55 @@ def _resolve_tsqr(m: int, n: int, cfg: QRConfig, *, dtype=None,
     return cfg.replace(nblocks=nb)
 
 
-def _solve_tsqr(a, cfg):
-    raise NotImplementedError(
-        "method 'tsqr' is not ported to repro_torch yet (ROADMAP A8)")
+def tsqr_qr(a: Tensor, *, nblocks: int = 4, refine: bool = True,
+            qr_block: int = 32, use_kernel: bool = False
+            ) -> Tuple[Tensor, Tensor]:
+    """Thin QR of tall-skinny ``a`` via TSQR-R and ``Q = A R^{-1}``;
+    ``refine=True`` runs a second pass (CQR2-style) that restores
+    orthogonality to about machine eps."""
+    kw = dict(nblocks=nblocks, qr_block=qr_block, use_kernel=use_kernel)
+    r1 = tsqr_r(a, **kw)
+    q = triangular_inverse_apply(a, r1)
+    if refine:
+        r2 = tsqr_r(q, **kw)
+        return triangular_inverse_apply(q, r2), r2 @ r1
+    return q, r1
+
+
+def _solve_tsqr_batched(a: Tensor, cfg: QRConfig):
+    """A ``(B, m, n)`` stack through one tree: each level one batched
+    factorization of every matrix's blocks."""
+    kw = dict(nblocks=cfg.nblocks, qr_block=min(cfg.block, a.shape[-1]),
+              use_kernel=bool(cfg.use_kernel))
+    if cfg.mode == "r":
+        r = tsqr_r(a, **kw)
+        return sign_fix_r(r) if cfg.sign_fix else r
+    q, r = tsqr_qr(a, refine=cfg.refine, **kw)
+    return sign_fix_qr(q, r) if cfg.sign_fix else (q, r)
+
+
+def _solve_tsqr(a: Tensor, cfg: QRConfig):
+    return _solve_tsqr_batched(a, cfg)
+
+
+def _smem_tsqr(m: int, n: int, cfg: QRConfig, itemsize: int = 4) -> int:
+    """Per-CTA shared memory of the kernel path: the leaves' panels (the
+    tallest, ``(m / nblocks, bw)``) and the trailing kernel."""
+    from repro_torch.kernels import ops
+
+    nb = cfg.nblocks if cfg.nblocks is not None else default_nblocks(m, n)
+    bw = min(cfg.block, n)
+    return ops.panel_path_smem_bytes(max(m // nb, 2 * n), bw, (bw,), itemsize)
 
 
 register_method(MethodSpec(
     name="tsqr",
     solve=_solve_tsqr,
+    solve_batched=_solve_tsqr_batched,
     resolve=_resolve_tsqr,
     supports_full_q=False,
     min_aspect=4.0,
     kernel_backed=True,
+    smem_bytes=_smem_tsqr,
     description="tall-skinny tree QR (single device; sharded via shard_map)",
 ))

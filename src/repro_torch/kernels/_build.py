@@ -1,12 +1,14 @@
-"""Build and load the macro-op kernels and the megakernel
-(``csrc/macro_ops.cu``).
+"""Build and load the port's CUDA kernels (``csrc/*.cu``): the macro ops
+and megakernels, the MHT panel kernel and the WY trailing kernel.
 
-``nvcc`` compiles the sources into a shared library with a plain C
+``nvcc`` compiles each source into an object, all at once in parallel
+processes, and links them into one shared library with a plain C
 interface, loaded with ``ctypes``; no PyTorch headers are involved, so a
 build takes seconds.  The library lands in ``build/repro_torch_kernels/
-<hash>/`` at the repository root, keyed on a hash of the sources and the
-flags, and is built on first use: :func:`library` is called by the first
-kernel launch, never at import.  A failed build raises.
+<hash>/`` at the repository root, keyed on a hash of every file in
+``csrc/`` and the flags, and is built on first use: :func:`library` is
+called by the first kernel launch, never at import.  A failed build
+raises.
 """
 
 from __future__ import annotations
@@ -18,14 +20,14 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["library", "build", "error_string", "NVCC_FLAGS"]
+__all__ = ["library", "build", "error_string", "NVCC_FLAGS", "LINK_FLAGS"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-_SOURCES = ("macro_ops.cu", "macro_ops.cuh")
 _BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+LINK_FLAGS = ("-shared", "-Xcompiler", "-fPIC")
 
 # (ws, aux0, aux1, idx, ntasks, p, q, nb, is_double, smem_bytes, stream)
 _MACRO_OP_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
@@ -33,6 +35,17 @@ _MACRO_OP_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 #  is_double, smem_bytes, barrier, stream, grid_out)
 _MEGAKERNEL_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 \
     + [ctypes.c_void_p] * 2 + [ctypes.POINTER(ctypes.c_int)]
+# (a, a_bs, lda, m, b, kf, taus, batch, groups, rows, part, barriers,
+#  is_double, smem_bytes, stream, grid_out)
+_MHT_PANEL_ARGS = [ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_int] * 4 \
+    + [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2 \
+    + [ctypes.c_int] * 2 + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
+# (v, v_bs, ldv, t, c, c_bs, ldc, m, n, k, batch, part, barriers,
+#  is_double, smem_bytes, stream, grid_out, splits_out)
+_WY_TRAILING_ARGS = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int] \
+    + [ctypes.c_void_p] * 2 + [ctypes.c_longlong] + [ctypes.c_int] * 5 \
+    + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 \
+    + [ctypes.c_void_p] + [ctypes.POINTER(ctypes.c_int)] * 2
 _ENTRIES = {
     "repro_geqrt": _MACRO_OP_ARGS,
     "repro_larfb": _MACRO_OP_ARGS,
@@ -40,6 +53,8 @@ _ENTRIES = {
     "repro_ssrfb": _MACRO_OP_ARGS,
     "repro_megakernel": _MEGAKERNEL_ARGS,
     "repro_megakernel_batched": _MEGAKERNEL_ARGS,
+    "repro_mht_panel": _MHT_PANEL_ARGS,
+    "repro_wy_trailing": _WY_TRAILING_ARGS,
 }
 _LIB = None
 #: The compiler's output of the build that produced the loaded library
@@ -54,17 +69,30 @@ def _nvcc() -> str:
             return str(path)
     found = shutil.which("nvcc")
     if found is None:
-        raise RuntimeError("nvcc not found: the macro-op kernels are built "
-                           "from csrc/ with the CUDA toolkit")
+        raise RuntimeError("nvcc not found: the kernels are built from csrc/ "
+                           "with the CUDA toolkit")
     return found
 
 
+def _sources():
+    """Every file in ``csrc/``: the hash covers headers too."""
+    return sorted(p for p in _CSRC.iterdir() if p.is_file())
+
+
 def _digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in _SOURCES:
-        h.update(name.encode())
-        h.update((_CSRC / name).read_bytes())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
+    for path in _sources():
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
     return h.hexdigest()[:16]
+
+
+def _run(cmd, what: str) -> str:
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    out = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {what} ({proc.returncode}):\n{out}")
+    return out
 
 
 def build() -> Path:
@@ -72,16 +100,31 @@ def build() -> Path:
     return the library's path."""
     global BUILD_LOG
     out_dir = _BUILD_ROOT / _digest()
-    lib = out_dir / "libmacro_ops.so"
+    lib = out_dir / "libkernels.so"
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"libmacro_ops.{os.getpid()}.so"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_CSRC / "macro_ops.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    BUILD_LOG = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{BUILD_LOG}")
+    nvcc, tag = _nvcc(), os.getpid()
+    units = [p for p in _sources() if p.suffix == ".cu"]
+    objs = [out_dir / f"{p.stem}.{tag}.o" for p in units]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(p)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True)
+             for p, o in zip(units, objs)]
+    logs, failed = [], []
+    for p, proc in zip(units, procs):
+        out = proc.communicate()[0]
+        logs.append(out)
+        if proc.returncode != 0:
+            failed.append(f"{p.name} ({proc.returncode}):\n{out}")
+    BUILD_LOG = "".join(logs)
+    if failed:
+        raise RuntimeError("nvcc failed on " + "\n".join(failed))
+    tmp = out_dir / f"libkernels.{tag}.so"
+    BUILD_LOG += _run([nvcc, *LINK_FLAGS, "-o", str(tmp), *map(str, objs)],
+                      "the link")
+    for o in objs:
+        o.unlink()
     os.replace(tmp, lib)
     return lib
 

@@ -435,13 +435,6 @@ megakernel_batched_kernel(T* ws, T* d_t, T* d_taus, T* t_t, T* t_taus,
 // host side
 // ---------------------------------------------------------------------------
 
-template <typename K>
-static cudaError_t prepare(K kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)bytes);
-}
-
 template <typename T>
 static int launch(int kind, void* ws, void* aux0, void* aux1, const int* idx,
                   int ntasks, int p, int q, int nb, size_t bytes,
@@ -486,19 +479,9 @@ template <typename K>
 static cudaError_t megakernel_grid(K kernel, size_t bytes, long work,
                                    int* grid) {
   *grid = 0;
-  int dev = 0, sms = 0, coop = 0, per_sm = 0;
-  cudaError_t err = prepare(kernel, bytes);
-  if (err == cudaSuccess) err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        kThreads, bytes);
+  long resident = 0;
+  const cudaError_t err = resident_ctas(kernel, bytes, &resident);
   if (err != cudaSuccess) return err;
-  if (!coop) return cudaErrorNotSupported;
-  const long resident = (long)per_sm * sms;
   *grid = (int)(work < resident ? work : resident);
   return cudaSuccess;
 }

@@ -1,12 +1,13 @@
 // Device helpers shared by the tile-DAG macro-op kernels of macro_ops.cu:
 // the LAPACK reflector coefficients, warp reductions, tile copies between
 // global and shared memory, the DLARFT recurrence that forms a block
-// reflector T from a Gram matrix, and the grid-wide barrier of the
-// persistent megakernel.
+// reflector T from a Gram matrix, the grid-wide (and group-wide) barrier
+// of cooperative launches, and the host helpers that size them.
 //
-// Every task runs on one CTA of kThreads threads, holds its nb x nb tiles
-// in dynamic shared memory, and accumulates in its element type (float or
-// double), which is the reference's promote(dtype, fp32).
+// Every kernel runs CTAs of kThreads threads that hold their operands in
+// dynamic shared memory and accumulate in the element type (float or
+// double), which is the reference's promote(dtype, fp32).  Included by
+// macro_ops.cu, mht_panel.cu and wy_trailing.cu.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -96,8 +97,9 @@ __device__ __forceinline__ unsigned long long global_ns() {
   return t;
 }
 
-// Grid-wide barrier for a cooperative launch (every CTA resident).  One
-// 32-bit counter, zero before the launch: CTA 0 adds 2^31 - (n - 1) and
+// Barrier of n CTAs of a cooperative launch (every CTA resident): the
+// whole grid, or one group of CTAs that shares a counter.  One 32-bit
+// counter, zero before the launch: the leader adds 2^31 - (n - 1) and
 // every other CTA adds 1, so the top bit flips exactly when all n CTAs
 // have arrived and the low 31 bits are zero again afterwards.  The fences
 // publish the CTA's global writes before its arrival and order the reads
@@ -106,11 +108,11 @@ __device__ __forceinline__ unsigned long long global_ns() {
 // barrier fails the launch instead of hanging the card.
 constexpr unsigned long long kBarrierTimeoutNs = 10000000000ull;
 
-__device__ __forceinline__ void grid_barrier(unsigned int* arrived,
-                                             unsigned int nblocks) {
+__device__ __forceinline__ void group_barrier(unsigned int* arrived,
+                                              unsigned int n, bool leader) {
   __syncthreads();
   if (threadIdx.x == 0) {
-    const unsigned int add = blockIdx.x == 0 ? 0x80000000u - (nblocks - 1) : 1u;
+    const unsigned int add = leader ? 0x80000000u - (n - 1) : 1u;
     __threadfence();
     const unsigned int old = atomicAdd(arrived, add);
     const unsigned long long start = global_ns();
@@ -121,6 +123,46 @@ __device__ __forceinline__ void grid_barrier(unsigned int* arrived,
     __threadfence();
   }
   __syncthreads();
+}
+
+__device__ __forceinline__ void grid_barrier(unsigned int* arrived,
+                                             unsigned int nblocks) {
+  group_barrier(arrived, nblocks, blockIdx.x == 0);
+}
+
+// ---------------------------------------------------------------------------
+// host side
+// ---------------------------------------------------------------------------
+
+// Opt a kernel in to more than 48 KB of dynamic shared memory.
+template <typename K>
+static cudaError_t prepare(K kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
+}
+
+// CTAs of `kernel` (kThreads threads, `bytes` of dynamic shared memory) that
+// can be resident at once on the current device: the most a cooperative
+// launch may take.  Fails with cudaErrorNotSupported where the device
+// cannot launch cooperatively.
+template <typename K>
+static cudaError_t resident_ctas(K kernel, size_t bytes, long* resident) {
+  *resident = 0;
+  int dev = 0, sms = 0, coop = 0, per_sm = 0;
+  cudaError_t err = prepare(kernel, bytes);
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kThreads, bytes);
+  if (err != cudaSuccess) return err;
+  if (!coop) return cudaErrorNotSupported;
+  *resident = (long)per_sm * sms;
+  return cudaSuccess;
 }
 
 }  // namespace repro

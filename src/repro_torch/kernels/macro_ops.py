@@ -41,7 +41,8 @@ from typing import Callable, Dict, Tuple
 
 import torch
 
-from repro_torch.core.blocked import larft, unpack_v_panel
+# ``core.blocked`` (larft, unpack_v_panel) is imported where it is used:
+# it registers methods with the planner, whose import reaches this module.
 
 __all__ = [
     "MacroOp",
@@ -151,6 +152,8 @@ def wy_body(v: Tensor, t: Tensor, c: Tensor) -> Tensor:
 
 def stacked_larft(v2: Tensor, taus: Tensor) -> Tensor:
     """Block reflectors T of the stacked TSQRT reflectors ``V = [I; V2]``."""
+    from repro_torch.core.blocked import larft
+
     nb = v2.shape[-1]
     eye = torch.eye(nb, dtype=v2.dtype, device=v2.device).expand(v2.shape)
     return larft(torch.cat([eye, v2], dim=-2), taus)
@@ -163,6 +166,8 @@ def stacked_larft(v2: Tensor, taus: Tensor) -> Tensor:
 def geqrt_body(tile: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
     """GEQRT: QR of diagonal tiles -> ``(packed, T, taus)``, with V1
     strictly below and R on and above the diagonal."""
+    from repro_torch.core.blocked import larft, unpack_v_panel
+
     packed, taus = panel_body(tile, 0)
     return packed, larft(unpack_v_panel(packed, 0), taus), taus
 
@@ -170,6 +175,8 @@ def geqrt_body(tile: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
 def larfb_body(diag_packed: Tensor, t: Tensor, c: Tensor) -> Tensor:
     """LARFB: apply Q_k^T to trailing tiles, V1 unpacked from the packed
     diagonal tiles."""
+    from repro_torch.core.blocked import unpack_v_panel
+
     return wy_body(unpack_v_panel(diag_packed, 0), t, c)
 
 
@@ -265,9 +272,16 @@ def ssrfb_plain(tiles: Tensor, t_t: Tensor, idx: Tensor) -> None:
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
-#: Kernel launches per kernel since the last :func:`reset_launch_counts`.
+#: Kernel launches per kernel since the last :func:`reset_launch_counts`,
+#: for every kernel of the port: the macro ops and megakernels here, the
+#: panel and trailing kernels of :mod:`.ops` (``WY_TRAILING_Q`` counts the
+#: trailing kernel's launches that form Q apart from the factorization's)
+#: and the single-tile entry points of :mod:`.tile_ops`.
 LAUNCHES: Dict[str, int] = {"GEQRT": 0, "LARFB": 0, "TSQRT": 0, "SSRFB": 0,
-                            "MEGAKERNEL": 0, "MEGAKERNEL_BATCHED": 0}
+                            "MEGAKERNEL": 0, "MEGAKERNEL_BATCHED": 0,
+                            "MHT_PANEL": 0, "WY_TRAILING": 0,
+                            "WY_TRAILING_Q": 0, "TSQRT_TILE": 0,
+                            "SSRFB_TILE": 0}
 #: CTAs of the last launch of each megakernel (the resident grid).
 MEGAKERNEL_GRID: Dict[str, int] = {"MEGAKERNEL": 0, "MEGAKERNEL_BATCHED": 0}
 
@@ -303,7 +317,9 @@ def _check(kind: str, tiles: Tensor, aux: Tuple[Tensor, ...], idx: Tensor
 
 
 def _launch(kind: str, tiles: Tensor, aux: Tuple[Tensor, ...],
-            idx: Tensor) -> None:
+            idx: Tensor, tally: str = None) -> None:
+    """Launch ``kind``'s kernel on a batch of tasks and add one to
+    ``LAUNCHES[tally]`` (default: the kind's own count)."""
     if tiles.dtype not in KERNEL_DTYPES:
         raise TypeError(f"{kind} kernel takes float32 or float64, "
                         f"got {tiles.dtype}")
@@ -326,7 +342,7 @@ def _launch(kind: str, tiles: Tensor, aux: Tuple[Tensor, ...],
     if rc != 0:
         raise RuntimeError(f"{kind} kernel launch failed: CUDA error {rc} "
                            f"({_build.error_string(rc)})")
-    LAUNCHES[kind] += 1
+    LAUNCHES[tally or kind] += 1
 
 
 def _run(kind: str, plain: Callable, tiles: Tensor, aux: Tuple[Tensor, ...],

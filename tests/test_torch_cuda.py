@@ -1,5 +1,7 @@
 """The port's CUDA kernels on a Hopper card, against their plain
-versions: the four wavefront macro-op kernels and both megakernels.
+versions: the four wavefront macro-op kernels, both megakernels, the MHT
+panel and WY trailing kernels, and the single-tile TSQRT / SSRFB entry
+points.
 
 Every test is marked ``cuda`` and skips without an sm_90 device.  The
 file imports torch, numpy and ``repro_torch`` only, so it also runs where
@@ -19,8 +21,9 @@ import pytest
 import torch
 
 import repro_torch
-from repro_torch.core import engine
+from repro_torch.core import blocked, engine
 from repro_torch.kernels import macro_ops as tmo
+from repro_torch.kernels import ops, tile_ops
 
 
 def _need_hopper():
@@ -130,6 +133,115 @@ def test_qr_on_a_stack_is_one_launch_on_hopper():
     bar = 100 * np.finfo(np.float32).eps * 256
     q64, r64, a64 = q.double(), r.double(), a.double()
     eye = torch.eye(256, dtype=torch.float64, device="cuda")
+    assert float((q64.mT @ q64 - eye).abs().max()) <= bar
+    assert float((torch.linalg.matrix_norm(a64 - q64 @ r64)
+                  / torch.linalg.matrix_norm(a64)).max()) <= bar
+
+
+def _within(got, want, width, dt):
+    """max |kernel - plain| <= 4 * eps * width * max(1, max |plain|)."""
+    scale = max(1.0, max(float(w.abs().max()) for w in want))
+    tol = 4 * torch.finfo(dt).eps * width * scale
+    for x, y in zip(got, want):
+        assert torch.isfinite(x).all() and torch.isfinite(y).all()
+        assert float((x - y).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("shape,row0", [((3, 576, 32), 160), ((3000, 32), 0),
+                                        ((16, 200), 0)], ids=str)
+def test_mht_panel_matches_plain_on_hopper(shape, row0, dtype):
+    """The panel kernel (one CTA per panel of a stack; row blocks of
+    several CTAs meeting at group barriers for 3000 rows; a wide panel)
+    against ``macro_ops.panel_body``, within 4 * eps * (pivot columns) *
+    max(1, max |plain|), one launch each."""
+    _need_hopper()
+    dt = getattr(torch, dtype)
+    a = torch.from_numpy(_workspace(shape, 70, dtype)).cuda()
+    before = tmo.LAUNCHES["MHT_PANEL"]
+    packed, taus = ops.mht_panel(a, row0=row0)
+    want_p, want_t = tmo.panel_body(a, row0)
+    torch.cuda.synchronize()
+    assert tmo.LAUNCHES["MHT_PANEL"] == before + 1
+    kf = taus.shape[-1]
+    assert kf == min(shape[-1], shape[-2] - row0)
+    _within((packed, taus), (want_p, want_t[..., :kf]), kf, dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("bmkn", [(3, 576, 32, 160), (1, 2000, 32, 300),
+                                  (2, 40, 20, 7)], ids=str)
+def test_wy_trailing_matches_plain_on_hopper(bmkn, dtype):
+    """The trailing kernel on V and T of a factored panel, in place on a
+    column view of a wider matrix, against ``macro_ops.wy_body`` within
+    4 * eps * k * max(1, max |plain|); the columns left of the view are
+    untouched."""
+    _need_hopper()
+    bsz, m, k, n = bmkn
+    dt = getattr(torch, dtype)
+    packed, taus = tmo.panel_body(
+        torch.from_numpy(_workspace((bsz, m, k), 71, dtype)).cuda(), 0)
+    v = blocked.unpack_v_panel(packed, 0)
+    t = blocked.larft(v, taus)
+    whole = torch.from_numpy(_workspace((bsz, m, n + 3), 72, dtype)).cuda()
+    keep = whole[..., :3].clone()
+    want = tmo.wy_body(v, t, whole[..., 3:])
+    before = tmo.LAUNCHES["WY_TRAILING"]
+    ops.wy_trailing_(v, t, whole[..., 3:])
+    torch.cuda.synchronize()
+    assert tmo.LAUNCHES["WY_TRAILING"] == before + 1
+    _within((whole[..., 3:],), (want,), k, dt)
+    assert torch.equal(whole[..., :3], keep)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_single_tile_entries_match_plain_on_hopper(dtype):
+    """``tile_ops.tsqrt`` / ``ssrfb`` (the wavefront kernels on one staged
+    task) against their plain bodies, within 4 * eps * nb * max(1,
+    max |plain|)."""
+    _need_hopper()
+    nb = 32
+    dt = getattr(torch, dtype)
+    r_t = torch.triu(torch.from_numpy(_workspace((nb, nb), 73, dtype)).cuda())
+    a_t = torch.from_numpy(_workspace((nb, nb), 74, dtype)).cuda()
+    before = dict(tmo.LAUNCHES)
+    got = tile_ops.tsqrt(r_t, a_t)
+    want = tmo.tsqrt_factor(r_t[None], a_t[None])
+    _within(got, [w[0] for w in want], nb, dt)
+    _, v2, t2, _ = tmo.tsqrt_body(r_t[None], a_t[None])
+    ck, ci = (torch.from_numpy(_workspace((nb, nb), s, dtype)).cuda()
+              for s in (75, 76))
+    got = tile_ops.ssrfb(v2[0], t2[0], ck, ci)
+    want = tmo.ssrfb_body(v2, t2, ck[None], ci[None])
+    torch.cuda.synchronize()
+    _within(got, [w[0] for w in want], nb, dt)
+    assert tmo.LAUNCHES["TSQRT_TILE"] == before["TSQRT_TILE"] + 1
+    assert tmo.LAUNCHES["SSRFB_TILE"] == before["SSRFB_TILE"] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4, 300, 96), (2500, 800), (12, 500),
+                                   (2000, 120)], ids=str)
+def test_qr_off_the_tiled_route_on_hopper(shape):
+    """``repro_torch.qr`` through the auto route's panel path (blocked
+    MHT on a stack and past the tiled ceiling, one wide panel, TSQR): only the
+    panel and trailing kernels launch, and every matrix meets the
+    conformance bar."""
+    _need_hopper()
+    a = torch.from_numpy(_workspace(shape, 77, "float32")).cuda()
+    tmo.reset_launch_counts()
+    q, r = repro_torch.qr(a)
+    torch.cuda.synchronize()
+    launched = {k for k, v in tmo.LAUNCHES.items() if v}
+    assert "MHT_PANEL" in launched
+    assert launched <= {"MHT_PANEL", "WY_TRAILING", "WY_TRAILING_Q"}
+    m, n = shape[-2:]
+    bar = 100 * np.finfo(np.float32).eps * max(m, n)
+    q64, r64, a64 = q.double(), r.double(), a.double()
+    eye = torch.eye(q.shape[-1], dtype=torch.float64, device="cuda")
     assert float((q64.mT @ q64 - eye).abs().max()) <= bar
     assert float((torch.linalg.matrix_norm(a64 - q64 @ r64)
                   / torch.linalg.matrix_norm(a64)).max()) <= bar

@@ -171,8 +171,9 @@ def test_forced_megakernel_verify_and_backend_raise():
         tplan.plan((64, 64), torch.float32, tplan.QRConfig(verify=True))
     with pytest.raises(ValueError, match="backend"):
         tplan.plan((64, 64), torch.float32, backend="tpu")
-    with pytest.raises(NotImplementedError, match="A7"):
-        repro_torch.qr(np.eye(8, dtype=np.float32), device="cpu")
+    with pytest.raises(NotImplementedError, match="A14"):
+        repro_torch.qr(np.eye(8, dtype=np.float32), device="cpu",
+                       config=tplan.QRConfig(method="sharded_tiled"))
 
 
 def test_entry_points_without_card_raise(monkeypatch):
@@ -232,7 +233,9 @@ def test_import_pulls_in_no_jax_and_no_reference():
     code = ("import sys; import repro_torch; "
             "import repro_torch.core.engine, repro_torch.core.tilegraph, "
             "repro_torch.core.tsqr, repro_torch.kernels.macro_ops, "
-            "repro_torch.kernels._build; "
+            "repro_torch.kernels._build, repro_torch.kernels.ops, "
+            "repro_torch.kernels.tile_ops, repro_torch.kernels.ref; "
+            "repro_torch.plan((4096, 4096), backend='cuda'); "
             "repro_torch.plan((2048, 2048), backend='cuda'); "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'repro' or m.startswith('repro.')]; "

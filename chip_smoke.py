@@ -37,12 +37,16 @@ Phases, each of which exits non-zero when it fails:
      timed beside ``torch.linalg.qr`` on the stack and the slice-by-slice
      loop of the wavefront lowering;
   9. time both megakernels at those shapes against their plain walks,
-     their bound and ``torch.geqrf``;
+     their bound and ``torch.geqrf``, with the 640^2 megakernel's ms per
+     level, and each of the four task bodies alone, one task per launch
+     (nb = 32, fp32), since the slowest body of a level sets its time;
  10. hold the panel path's kernels against their plain versions (fp32
      and fp64): ``mht_panel`` and ``wy_trailing`` at the shapes its main
      paths give them, and the single-tile ``tsqrt`` / ``ssrfb`` entry
      points; time each beside its bound, its plain version and one
-     PyTorch call (``torch.geqrf``, ``torch.ormqr``);
+     PyTorch call (``torch.geqrf``, ``torch.ormqr``), and the panel
+     kernel's path (cluster or group, CTAs per panel) and microseconds per
+     column at each panel shape it times;
  11. the panel path: ``repro_torch.qr`` through the auto route on a
      (60, 576, 192) stack, 4096^2, 49152 x 576 (TSQR), 200^2 and 16 x 1000
      (one wide panel): route, launch counts, conformance, agreement with
@@ -707,6 +711,28 @@ def megakernel_bound(engine, p, q, nb, batch, dtype_name):
                 modeled_dma_bound_ms=modeled / PEAK_BYTES * 1e3)
 
 
+def phase_task_bodies(torch, engine, macro_ops):
+    """Each task body alone: the wavefront kernel of its kind on one task
+    (nb = 32, fp32), timed as :func:`time_ms` does (CUDA events behind a
+    spin kernel, the state restored untimed).  In the megakernel a level
+    lasts as long as its slowest task, so these set the level time."""
+    base = make_state(torch, engine, torch.float32, 7, torch.device("cuda"))
+    work = engine.FactorState(*(x.clone() for x in base))
+
+    def reset():
+        for w_, b_ in zip(work, base):
+            w_.copy_(b_)
+    out = {}
+    for kind, task in (("GEQRT", [0, 0, 0]), ("LARFB", [0, 0, 1]),
+                       ("TSQRT", [0, 1, 0]), ("SSRFB", [0, 1, 1])):
+        idx = torch.tensor([task], dtype=torch.int32, device="cuda")
+        out[kind] = time_ms(torch, lambda: macro_ops.run_batch(
+            kind, work, idx, use_kernel=True), reset) * 1e3
+    log("task bodies, one task per launch (nb = 32, fp32), us:",
+        json.dumps(out))
+    return out
+
+
 def phase_megakernel_timing(torch, engine, macro_ops, tilegraph):
     """Both megakernels at the shapes their main paths give them (a
     640 x 640 matrix; the (60, 576, 576) stack), fp32: held against their
@@ -762,6 +788,7 @@ def phase_megakernel_timing(torch, engine, macro_ops, tilegraph):
         def reset():
             work.tiles.copy_(base)
         res = dict(kernel=name, shape=list(lead + (m, n)), grid=[p, q],
+                   levels=table[1],
                    max_abs_err=err, tol=tol, control_err=control_err,
                    err_by_field=by_field, slices_equal_single=slices_equal,
                    grid_ctas=macro_ops.MEGAKERNEL_GRID[name],
@@ -787,6 +814,7 @@ def phase_megakernel_timing(torch, engine, macro_ops, tilegraph):
             res["factor_host_ms"] = host_ms(factor("megakernel"), reps=5)
             res["wavefront_factor_host_ms"] = host_ms(factor("wavefront"),
                                                       reps=5)
+        res["ms_per_level"] = res["ms"] / table[1]
         log("megakernel timing:", json.dumps(res))
         if not err <= tol < control_err or slices_equal not in (None, batch):
             raise SystemExit(f"{name} check failed: {res}")
@@ -837,15 +865,20 @@ def phase_panel_kernels(torch, macro_ops, ops, tile_ops, blocked):
     fp32 and fp64, at the shapes its main paths give them: ``mht_panel``
     on the (60, 576, 32) stack's panels at row0 0 and 160, a (4096, 32)
     panel at row0 0 and 4064, the (8, 6144, 32) TSQR leaves and the wide
-    (16, 1000) panel; ``wy_trailing`` on those paths' first trailing
+    (16, 1000) panel (all on the cluster path), and a (30000, 32) panel
+    (the group path); ``wy_trailing`` on those paths' first trailing
     updates; the single-tile ``tsqrt`` / ``ssrfb`` entry points.  Then the
     fp32 times of each (CUDA events behind a spin kernel), its plain
     version's and one PyTorch call's (``torch.geqrf`` on the panel,
     ``torch.ormqr`` applying the panel's Q^T, ``torch.geqrf`` on the
     stacked pair, ``torch.ormqr`` on the stacked pair)."""
+    from repro_torch.kernels import mht_panel as kpanel
+
     results, rows = [], {}
+    # (30000, 32) is taller than a cluster holds: the group path.
     panels = (((60, 576, 32), 0), ((60, 576, 32), 160), ((4096, 32), 0),
-              ((4096, 32), 4064), ((8, 6144, 32), 0), ((16, 1000), 0))
+              ((4096, 32), 4064), ((8, 6144, 32), 0), ((16, 1000), 0),
+              ((30000, 32), 0))
     for seed, (shape, row0) in enumerate(panels):
         for dtype in (torch.float32, torch.float64):
             a = seeded(torch, shape, 300 + seed, dtype)
@@ -860,6 +893,7 @@ def phase_panel_kernels(torch, macro_ops, ops, tile_ops, blocked):
             kf = got[1].shape[-1]   # pivot columns: the loop's length
             res = dict(kernel="MHT_PANEL", shape=list(shape), row0=row0,
                        dtype=str(dtype).replace("torch.", ""), taus=kf,
+                       path=kpanel.LAST_GRID["path"],
                        **compare(torch, got, want, (a, None), kf, dtype))
             log("panel kernel check:", json.dumps(res))
             results.append(res)
@@ -926,7 +960,6 @@ def phase_panel_kernels(torch, macro_ops, ops, tile_ops, blocked):
     log("single-tile entry launches:", json.dumps(tile_launches))
     assert tile_launches == {"TSQRT_TILE": 1, "SSRFB_TILE": 1}, tile_launches
 
-    from repro_torch.kernels import mht_panel as kpanel
     from repro_torch.kernels import wy_trailing as ktrail
 
     timing = {}
@@ -944,8 +977,14 @@ def phase_panel_kernels(torch, macro_ops, ops, tile_ops, blocked):
                              reps=3, warmup=1),
             library_ms=time_ms(torch, lambda: torch.geqrf(base)),
             grid=dict(kpanel.LAST_GRID),
+            layout=kpanel.layout(m, b)._asdict(),
             **dict(zip(("bound_ms", "bound_by"),
                        bound_ms(flops, elems, "float32"))))
+        t = timing[str(list(shape))]
+        t["us_per_column"] = t["ms"] * 1e3 / min(m, b)
+        log(f"mht_panel {list(shape)}: {t['layout']['path']} path, "
+            f"{t['layout']['ctas']} CTAs per panel, "
+            f"{t['us_per_column']:.3f} us per column")
     rows["MHT_PANEL"].update(timing["[4096, 32]"], timing_by_shape=timing)
     timing = {}
     for bsz, m, k, n in ((1, 4096, 32, 4064), (60, 576, 32, 160),
@@ -1137,7 +1176,9 @@ def profile_window(torch, fn):
                    for e in prof.events() if e.device_type == DeviceType.CUDA)
     if not spans:
         return dict(wall_ms_profiled=wall_ms, note="no device events traced")
-    by = dict(mht_panel_kernel=0.0, wy_trailing_kernel=0.0, other=0.0)
+    # Substrings of the kernels' names: "mht_panel" covers both paths'
+    # kernels (mht_panel_cluster_kernel, mht_panel_kernel).
+    by = dict(mht_panel=0.0, wy_trailing=0.0, other=0.0)
     for s_, e_, name in spans:
         key = next((k_ for k_ in by if k_ in name), "other")
         by[key] += (e_ - s_) / 1e3
@@ -1254,6 +1295,7 @@ def main() -> int:
         repro_torch)
     mega_rows = phase("megakernel timing", phase_megakernel_timing, torch,
                       engine, macro_ops, tilegraph)
+    bodies = phase("task bodies", phase_task_bodies, torch, engine, macro_ops)
     panel_rows, tile_launches = phase(
         "panel kernel checks", phase_panel_kernels, torch, macro_ops, ops,
         tile_ops, blocked)
@@ -1302,6 +1344,11 @@ def main() -> int:
         "| 640 qr_ms", mega_ms, "| torch.linalg.qr ms", mega_lib,
         "| stack qr_ms", stack_timing["qr_ms"], "| torch.linalg.qr ms",
         stack_timing["torch_linalg_qr_ms"])
+    log("card:", card, "| task bodies us:", json.dumps(bodies),
+        "| 640 megakernel ms per level",
+        mega_rows["MEGAKERNEL"]["ms_per_level"], "| mht_panel us per column:",
+        json.dumps({k: v["us_per_column"] for k, v in
+                    panel_rows["MHT_PANEL"]["timing_by_shape"].items()}))
     log("card:", card, "| panel paths qr_ms / torch.linalg.qr ms:",
         json.dumps({k: [p["qr_ms"], p["torch_linalg_qr_ms"]]
                     for k, p in paths.items()}))

@@ -40,6 +40,11 @@ _MEGAKERNEL_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 \
 _MHT_PANEL_ARGS = [ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_int] * 4 \
     + [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2 \
     + [ctypes.c_int] * 2 + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
+# (a, a_bs, lda, m, b, kf, taus, batch, cluster, rows, is_double,
+#  smem_bytes, stream, grid_out)
+_MHT_PANEL_CLUSTER_ARGS = [ctypes.c_void_p, ctypes.c_longlong] \
+    + [ctypes.c_int] * 4 + [ctypes.c_void_p] + [ctypes.c_int] * 5 \
+    + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
 # (v, v_bs, ldv, t, c, c_bs, ldc, m, n, k, batch, part, barriers,
 #  is_double, smem_bytes, stream, grid_out, splits_out)
 _WY_TRAILING_ARGS = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int] \
@@ -54,6 +59,7 @@ _ENTRIES = {
     "repro_megakernel": _MEGAKERNEL_ARGS,
     "repro_megakernel_batched": _MEGAKERNEL_ARGS,
     "repro_mht_panel": _MHT_PANEL_ARGS,
+    "repro_mht_panel_cluster": _MHT_PANEL_CLUSTER_ARGS,
     "repro_wy_trailing": _WY_TRAILING_ARGS,
 }
 _LIB = None

@@ -52,71 +52,200 @@ namespace repro {
 // GEQRT — replaces src/repro/kernels/macro_ops.py: geqrt_wavefront_kernel
 // (launched by src/repro/core/engine.py: _dispatch_geqrt).
 //
-// Bound: at nb = 32 one task is ~1.7 nb^3 = 55 kFLOP on 12 KB, but the
-// column loop is sequential — nb steps, each a warp-reduced tail norm,
-// the reflector, w = tau v^T A and a rank-1 update, three barriers apart —
-// so a task is latency-bound and the main path runs one task per launch.
-// Design: the tile stays in shared memory for the whole column loop and
-// the T recurrence, so global memory is touched once in and once out.
+// Bound: at nb = 32 one task is ~1.7 nb^3 = 55 kFLOP on 12 KB, under a
+// microsecond at the card's rates; what bounds it is the column loop's
+// latency: nb sequential steps, each a reduction, the reflector and a
+// rank-1 update, and then T's nb-step recurrence.  The main path runs one
+// task per launch, so the task's latency is the launch's time, and in the
+// megakernel the level's.
+// Design: the tile goes to shared memory once and back once.  At nb <= 32
+// (the main path) the column loop keeps the tile in registers across the
+// CTA, 4 rows a thread, with one barrier per column (geqrt_columns32):
+// with the MHT reordering a column is one reduction, the tail norm and
+// w = tau v^T A come out of the same sums, the reflector coefficients come
+// from the SFU (reflector_coeffs_fast: the IEEE square root and divides
+// are subroutine calls on the column's chain), and the same sums give the
+// Gram matrix of V, so T's recurrence (form_t_reg: a lane per row of T,
+// no barrier per step) starts right after the loop.  Past 32 columns the
+// loop runs on warp 0 over shared memory (geqrt_columns_smem), then
+// gram_t and form_t.
 // ---------------------------------------------------------------------------
+template <typename T>
+__device__ __forceinline__ T lane_slot(const T (&s)[kSlots], int j) {
+  T own = T(0);
+#pragma unroll
+  for (int t = 0; t < kSlots; ++t)
+    if (t == (j >> 5)) own = s[t];
+  return __shfl_sync(0xffffffffu, own, j & 31);
+}
+
+// The column loop of GEQRT on warp 0 for tiles past 32 columns: A (nb x nb,
+// pitch nb) -> R on and above the diagonal, V strictly below it; taus[j]
+// out.  The tile stays in shared memory, lane c owning columns c, c + 32,
+// ...; every lane forms s_c = sum_{r > j} x_r A[r][c] against the
+// broadcast column x (conflict-free), lane j's s_j is the tail's squared
+// norm, and w_c = tau (A[j][c] + s_c / denom).
+template <typename T>
+__device__ __forceinline__ void geqrt_columns_smem(T* A, T* taus, int nb) {
+  const int lane = threadIdx.x & 31;
+  for (int j = 0; j < nb; ++j) {
+    T s[kSlots], w[kSlots];
+#pragma unroll
+    for (int t = 0; t < kSlots; ++t) {
+      const int c = lane + 32 * t;
+      T acc = T(0);
+      if (c >= j && c < nb)
+#pragma unroll 4
+        for (int r = j + 1; r < nb; ++r) acc += A[r * nb + j] * A[r * nb + c];
+      s[t] = acc;
+    }
+    T beta, tau, denom;
+    reflector_coeffs(A[j * nb + j], lane_slot(s, j), &beta, &tau, &denom);
+#pragma unroll
+    for (int t = 0; t < kSlots; ++t) {
+      const int c = lane + 32 * t;
+      w[t] = c > j && c < nb ? tau * (A[j * nb + c] + s[t] / denom) : T(0);
+    }
+    __syncwarp();  // every lane has read column j and row j
+    for (int r = j + 1 + lane; r < nb; r += 32) A[r * nb + j] /= denom;
+    if (lane == 0) {
+      A[j * nb + j] = beta;
+      taus[j] = tau;
+    }
+    __syncwarp();
+#pragma unroll
+    for (int t = 0; t < kSlots; ++t) {
+      const int c = lane + 32 * t;
+      if (c > j && c < nb) {
+        A[j * nb + c] -= w[t];
+#pragma unroll 4
+        for (int r = j + 1; r < nb; ++r) A[r * nb + c] -= A[r * nb + j] * w[t];
+      }
+    }
+    __syncwarp();
+  }
+}
+
+
+// The column loops for nb <= 32 run on the whole CTA with the tile in
+// registers: warp w holds rows w, w + 8, w + 16, w + 24, lane c column c
+// (rows and columns past nb are zeros, which change no sum).  Per column
+// j, each thread shuffles its four rows' x_r from lane j and forms its
+// part of s_c = sum x_r A[r][c] (lane j's s_j is the tail's squared
+// norm); the warps' parts meet in shared memory `xch`, double-buffered by
+// column parity, behind the one CTA barrier of the column; every thread
+// sums them in the same order and so computes identical coefficients, and
+// w_c = tau (A[j][c] + s_c / denom) needs no second reduction.  The update
+// is a_c[r] -= x_r (w_c / denom); column j keeps x unscaled until the
+// end, when it becomes v = x / denom, the reference's rounding of V.
+// xch holds 2 x (kWarps x 32 partials + a 32-wide pivot row) and the 32
+// denominators: kXchElems.
+constexpr int kXchElems = 2 * (kWarps * 32 + 32) + 32;
+
+template <typename T>
+__device__ __forceinline__ T pick4(const T (&a)[4], int k) {
+  T x = a[0];
+  if (k == 1) x = a[1];
+  if (k == 2) x = a[2];
+  if (k == 3) x = a[3];
+  return x;
+}
+
+template <typename T>
+__device__ __forceinline__ void geqrt_columns32(T* A, T* Gt, T* taus,
+                                                T* xch, int nb) {
+  constexpr unsigned kAll = 0xffffffffu;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  T* dens = xch + 2 * (kWarps * 32 + 32);
+  T own_rden = T(1);  // 1 / denom of this lane's column, once factored
+  T a[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int r = warp + 8 * k;
+    a[k] = r < nb && lane < nb ? A[r * nb + lane] : T(0);
+  }
+  for (int j = 0; j < nb; ++j) {
+    T* red = xch + (j & 1) * (kWarps * 32 + 32);
+    T* prow = red + kWarps * 32;
+    T x[4];
+    T part = T(0);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      x[k] = __shfl_sync(kAll, a[k], j);
+      part = fma_(x[k], warp + 8 * k > j ? a[k] : T(0), part);
+    }
+    red[warp * 32 + lane] = part;
+    if (warp == (j & 7)) prow[lane] = pick4(a, j >> 3);
+    __syncthreads();
+    T s0 = T(0), s1 = T(0), t0 = T(0), t1 = T(0);
+#pragma unroll
+    for (int h = 0; h < kWarps; h += 2) {
+      s0 += red[h * 32 + lane];
+      s1 += red[(h + 1) * 32 + lane];
+      t0 += red[h * 32 + j];
+      t1 += red[(h + 1) * 32 + j];
+    }
+    const T s = s0 + s1;
+    T beta, tau, denom, rden;
+    reflector_coeffs_fast(prow[j], t0 + t1, &beta, &tau, &denom, &rden);
+    // y_c = v_j^T A[:, c]; for c < j, y_c / denom_c is the Gram entry
+    // G[c][j] of the unit-lower V (column c holds x_c, unscaled).
+    const T y = prow[lane] + quot(s, denom, rden);
+    const T w = lane > j ? tau * y : T(0);
+    const T wd = quot(w, denom, rden);
+    if (warp == 0 && lane < j) Gt[j * nb + lane] = y * own_rden;
+    if (lane == j) own_rden = rden;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int r = warp + 8 * k;
+      if (r > j)
+        a[k] = fma_(-x[k], wd, a[k]);
+      else if (r == j)
+        a[k] = lane == j ? beta : a[k] - w;
+    }
+    if (threadIdx.x == 0) {
+      taus[j] = tau;
+      dens[j] = denom;
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int r = warp + 8 * k;
+    if (r < nb && lane < nb)
+      A[r * nb + lane] = r > lane ? a[k] / dens[lane] : a[k];
+  }
+}
+
 template <typename T>
 __device__ __noinline__ void geqrt_task(T* ws, T* d_t, T* d_taus, int k,
                                         int q, int nb) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int nn = nb * nb;
-  T* A = reinterpret_cast<T*>(smem_raw);
-  T* G = A + nn;
-  T* Tm = G + nn;
-  T* v = Tm + nn;
-  T* w = v + nb;
-  T* taus = w + nb;
-  T* coef = taus + nb;  // beta, tau, denom
+  T* A = reinterpret_cast<T*>(smem_raw);  // the tile, pitch nb
+  T* Gt = A + nn;                         // transposed Gram matrix
+  T* Tm = Gt + nn;                        // T, pitch nb + 1
+  T* taus = Tm + nb * (nb + 1);
+  T* xch = taus + nb;                     // column exchange, nb <= 32
 
   T* tile = ws + ((size_t)k * q + k) * nn;
   load_tile(A, tile, nn);
   __syncthreads();
-
-  for (int j = 0; j < nb; ++j) {
-    column_reflector(A, nb, j, j + 1, A[j * nb + j], coef);
+  if (nb <= 32) {
+    geqrt_columns32(A, Gt, taus, xch, nb);
+  } else {
+    if (threadIdx.x < 32) geqrt_columns_smem(A, taus, nb);
     __syncthreads();
-    const T tau = coef[1];
-    const T denom = coef[2];
-    for (int r = threadIdx.x; r < nb; r += blockDim.x)
-      v[r] = r < j ? T(0) : (r == j ? T(1) : A[r * nb + j] / denom);
-    __syncthreads();
-    for (int c = j + 1 + threadIdx.x; c < nb; c += blockDim.x) {
-      T s = T(0);
-      for (int r = j; r < nb; ++r) s += v[r] * A[r * nb + c];
-      w[c] = tau * s;
-    }
-    __syncthreads();
-    for (int e = threadIdx.x; e < nn; e += blockDim.x) {
-      const int r = e / nb, c = e % nb;
-      if (c > j && r >= j) {
-        A[e] -= v[r] * w[c];
-      } else if (c == j && r >= j) {
-        A[e] = r == j ? coef[0] : v[r];
-      }
-    }
-    if (threadIdx.x == 0) taus[j] = tau;
-    __syncthreads();
-  }
-
-  // Gram matrix of the unit-lower V: for c < i,
-  // G[c][i] = V[i][c] + sum_{r > i} V[r][c] V[r][i].
-  for (int e = threadIdx.x; e < nn; e += blockDim.x) {
-    const int c = e / nb, i = e % nb;
-    if (c < i) {
-      T s = A[i * nb + c];
-      for (int r = i + 1; r < nb; ++r) s += A[r * nb + c] * A[r * nb + i];
-      G[e] = s;
-    }
+    gram_t(A, Gt, nb, true);
   }
   __syncthreads();
-  form_t(G, taus, Tm, nb);
-
+  if (nb > 32)
+    form_t(Gt, taus, Tm, nb);
+  else if (threadIdx.x < 32)
+    form_t_reg(Gt, taus, Tm, nb);
+  __syncthreads();
   store_tile(tile, A, nn);
-  store_tile(d_t + (size_t)k * nn, Tm, nn);
+  store_t(d_t + (size_t)k * nn, Tm, nb);
   store_tile(d_taus + (size_t)k * nb, taus, nb);
 }
 
@@ -132,13 +261,51 @@ geqrt_kernel(T* ws, T* d_t, T* d_taus, const int* idx, int q, int nb) {
 //
 // Bound: 3 nb^3 FLOP on 4 nb^2 elements moved, about 6 FLOP per byte in
 // fp32 at nb = 32, under the card's 20 FLOP/byte ridge: memory-bound on
-// paper, launch-bound in practice (at most 63 tasks per launch on the
-// 64 x 64 grid).  Design: C = C - V (T^T (V^T C)) as three FMA loops over
-// shared memory, one output element per thread per pass; the
-// intermediates never leave shared memory.  The products with V run over
-// its unit-lower support only; T is applied in full, as the reference
-// computes it, so any T gives the reference's result.
+// paper; in practice one task is three dependent nb-term product passes,
+// and its latency is what a megakernel level waits for.
+// Design: C = C - V (T^T (V^T C)) as three register-blocked passes over
+// shared memory (rows_times): each thread carries kRowBlock independent
+// sums that share every load of the right operand, so the passes run at
+// the rate of the loads instead of one load latency per term.  The
+// intermediates never leave shared memory.  V is the unit-lower V1 with
+// explicit zeros above the diagonal, so the sums run over whole rows.
 // ---------------------------------------------------------------------------
+constexpr int kRowBlock = 4;
+
+// One product pass over nb x nb shared-memory operands: thread (a0, c),
+// c = tid % nb, a0 = tid / nb < G = blockDim.x / nb, forms the outputs
+// (i, c) for the rows i = a0, a0 + G, ... in blocks of kRowBlock, each
+// s = sum_k X(i, k) Y[k][c] with X(i, k) = X[k][i] when kXt, else X[i][k];
+// emit(i, c, s) takes each result.  Within a warp c runs over consecutive
+// addresses and X is one or two broadcast words: conflict-free.
+template <bool kXt, typename T, typename Emit>
+__device__ __forceinline__ void rows_times(const T* X, const T* Y, int nb,
+                                           Emit emit) {
+  const int g = blockDim.x / nb;
+  const int a0 = threadIdx.x / nb, c = threadIdx.x - a0 * nb;
+  if (a0 >= g) return;
+  for (int ib = a0; ib < nb; ib += kRowBlock * g) {
+    int row[kRowBlock];
+    T acc[kRowBlock];
+#pragma unroll
+    for (int u = 0; u < kRowBlock; ++u) {
+      const int i = ib + u * g;
+      row[u] = i < nb ? i : nb - 1;  // rows past nb repeat the last, unused
+      acc[u] = T(0);
+    }
+#pragma unroll 4
+    for (int k = 0; k < nb; ++k) {
+      const T y = Y[k * nb + c];
+#pragma unroll
+      for (int u = 0; u < kRowBlock; ++u)
+        acc[u] = fma_(kXt ? X[k * nb + row[u]] : X[row[u] * nb + k], y, acc[u]);
+    }
+#pragma unroll
+    for (int u = 0; u < kRowBlock; ++u)
+      if (ib + u * g < nb) emit(ib + u * g, c, acc[u]);
+  }
+}
+
 template <typename T>
 __device__ __noinline__ void larfb_task(T* ws, const T* d_t, int k, int j,
                                         int q, int nb) {
@@ -159,27 +326,13 @@ __device__ __noinline__ void larfb_task(T* ws, const T* d_t, int k, int j,
   load_tile(Tm, d_t + (size_t)k * nn, nn);
   load_tile(C, tile, nn);
   __syncthreads();
-
-  for (int e = threadIdx.x; e < nn; e += blockDim.x) {  // W1 = V^T C
-    const int a = e / nb, c = e % nb;
-    T s = T(0);
-    for (int r = a; r < nb; ++r) s += V[r * nb + a] * C[r * nb + c];
-    W1[e] = s;
-  }
+  rows_times<true>(V, C, nb, [&](int a, int c, T s) { W1[a * nb + c] = s; });
   __syncthreads();
-  for (int e = threadIdx.x; e < nn; e += blockDim.x) {  // W2 = T^T W1
-    const int a = e / nb, c = e % nb;
-    T s = T(0);
-    for (int b = 0; b < nb; ++b) s += Tm[b * nb + a] * W1[b * nb + c];
-    W2[e] = s;
-  }
+  rows_times<true>(Tm, W1, nb, [&](int a, int c, T s) { W2[a * nb + c] = s; });
   __syncthreads();
-  for (int e = threadIdx.x; e < nn; e += blockDim.x) {  // C -= V W2
-    const int r = e / nb, c = e % nb;
-    T s = T(0);
-    for (int a = 0; a <= r; ++a) s += V[r * nb + a] * W2[a * nb + c];
-    tile[e] = C[e] - s;
-  }
+  rows_times<false>(V, W2, nb, [&](int r, int c, T s) {
+    tile[r * nb + c] = C[r * nb + c] - s;
+  });
 }
 
 template <typename T>
@@ -192,81 +345,166 @@ larfb_kernel(T* ws, const T* d_t, const int* idx, int q, int nb) {
 // TSQRT — replaces src/repro/kernels/macro_ops.py: tsqrt_wavefront_kernel
 // (launched by src/repro/core/engine.py: _dispatch_tsqrt).
 //
-// Bound: like GEQRT, a sequential column loop (nb steps of norm, reflector,
-// w = tau (R[j,:] + v2^T A), rank-1 update) then the stacked T recurrence:
-// latency-bound per task; the 64 x 64 grid launches at most 21 at once.
-// Design: the reflectors are [e_j; v2_j], so a step touches only row j of
-// the triangle and the whole sub tile.  The triangle is factored in place
-// in the upper part of the diagonal tile's shared copy, and only that
-// upper triangle is written back: the GEQRT V1 below the diagonal stays
-// as it is in global memory, where a LARFB of the same level may be
+// Bound: ~3.3 nb^3 FLOP on 5 nb^2 elements, again far under a microsecond
+// at the card's rates; like GEQRT the task is bound by its sequential
+// column loop and T recurrence, and every level of the schedule's
+// critical path waits for one.
+// Design: GEQRT's, with [e_j; v2_j] reflectors (tsqrt_columns32 at nb <=
+// 32, tsqrt_columns_smem past it): a step touches only row j of the
+// triangle and the sub tile, which becomes V2 in place.  The triangle is
+// factored in the upper part of the diagonal tile's shared copy, and only
+// that upper triangle is written back: the GEQRT V1 below the diagonal
+// stays as it is in global memory, where a LARFB of the same level may be
 // reading it (and LARFB and Q formation read it later).
 // ---------------------------------------------------------------------------
+// The column loop of TSQRT on warp 0, tiles past 32 columns: D and A in
+// shared memory, lane c owning columns c, c + 32, ...
+template <typename T>
+__device__ __forceinline__ void tsqrt_columns_smem(T* D, T* A, T* taus,
+                                                   int nb) {
+  const int lane = threadIdx.x & 31;
+  for (int j = 0; j < nb; ++j) {
+    T s[kSlots], w[kSlots];
+#pragma unroll
+    for (int t = 0; t < kSlots; ++t) {
+      const int c = lane + 32 * t;
+      T acc = T(0);
+      if (c >= j && c < nb)
+#pragma unroll 4
+        for (int r = 0; r < nb; ++r) acc += A[r * nb + j] * A[r * nb + c];
+      s[t] = acc;
+    }
+    T beta, tau, denom;
+    reflector_coeffs(D[j * nb + j], lane_slot(s, j), &beta, &tau, &denom);
+#pragma unroll
+    for (int t = 0; t < kSlots; ++t) {
+      const int c = lane + 32 * t;
+      w[t] = c > j && c < nb ? tau * (D[j * nb + c] + s[t] / denom) : T(0);
+    }
+    __syncwarp();
+    for (int r = lane; r < nb; r += 32) A[r * nb + j] /= denom;
+    if (lane == 0) {
+      D[j * nb + j] = beta;
+      taus[j] = tau;
+    }
+    __syncwarp();
+#pragma unroll
+    for (int t = 0; t < kSlots; ++t) {
+      const int c = lane + 32 * t;
+      if (c > j && c < nb) {
+        D[j * nb + c] -= w[t];
+#pragma unroll 4
+        for (int r = 0; r < nb; ++r) A[r * nb + c] -= A[r * nb + j] * w[t];
+      }
+    }
+    __syncwarp();
+  }
+}
+
+
+// TSQRT's column loop for nb <= 32, on the whole CTA: GEQRT's scheme on
+// the sub tile, with the pivot row read from the triangle D in shared
+// memory.  Row j of D is read by every thread during column j, so warp 0
+// writes its new values after the next column's barrier.
+template <typename T>
+__device__ __forceinline__ void tsqrt_columns32(T* D, T* A, T* Gt, T* taus,
+                                                T* xch, int nb) {
+  constexpr unsigned kAll = 0xffffffffu;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  T* dens = xch + 2 * (kWarps * 32 + 32);
+  T own_rden = T(1);  // 1 / denom of this lane's column, once factored
+  T a[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int r = warp + 8 * k;
+    a[k] = r < nb && lane < nb ? A[r * nb + lane] : T(0);
+  }
+  T pending = T(0);  // warp 0: D[j - 1][lane], written after the barrier
+  for (int j = 0; j < nb; ++j) {
+    T* red = xch + (j & 1) * (kWarps * 32 + 32);
+    T x[4];
+    T part = T(0);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      x[k] = __shfl_sync(kAll, a[k], j);
+      part = fma_(x[k], a[k], part);
+    }
+    red[warp * 32 + lane] = part;
+    __syncthreads();
+    if (warp == 0 && j > 0 && lane >= j - 1 && lane < nb)
+      D[(j - 1) * nb + lane] = pending;
+    T s0 = T(0), s1 = T(0), t0 = T(0), t1 = T(0);
+#pragma unroll
+    for (int h = 0; h < kWarps; h += 2) {
+      s0 += red[h * 32 + lane];
+      s1 += red[(h + 1) * 32 + lane];
+      t0 += red[h * 32 + j];
+      t1 += red[(h + 1) * 32 + j];
+    }
+    const T s = s0 + s1;
+    const T d = lane >= j && lane < nb ? D[j * nb + lane] : T(0);
+    T beta, tau, denom, rden;
+    reflector_coeffs_fast(D[j * nb + j], t0 + t1, &beta, &tau, &denom, &rden);
+    const T y = quot(s, denom, rden);  // c < j: y_c / denom_c = G[c][j]
+    const T w = lane > j ? tau * (d + y) : T(0);
+    const T wd = quot(w, denom, rden);
+    if (warp == 0 && lane < j) Gt[j * nb + lane] = y * own_rden;
+    if (lane == j) own_rden = rden;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) a[k] = fma_(-x[k], wd, a[k]);
+    pending = lane == j ? beta : d - w;
+    if (threadIdx.x == 0) {
+      taus[j] = tau;
+      dens[j] = denom;
+    }
+  }
+  __syncthreads();
+  if (warp == 0 && lane >= nb - 1 && lane < nb) D[(nb - 1) * nb + lane] = pending;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int r = warp + 8 * k;
+    if (r < nb && lane < nb) A[r * nb + lane] = a[k] / dens[lane];
+  }
+}
+
 template <typename T>
 __device__ __noinline__ void tsqrt_task(T* ws, T* t_t, T* t_taus, int k,
                                         int i, int p, int q, int nb) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int nn = nb * nb;
   const int r_steps = p < q ? p : q;
-  T* D = reinterpret_cast<T*>(smem_raw);
-  T* A = D + nn;
-  T* V2 = A + nn;
-  T* G = V2 + nn;
-  T* Tm = G + nn;
-  T* w = Tm + nn;
-  T* taus = w + nb;
-  T* coef = taus + nb;
+  T* D = reinterpret_cast<T*>(smem_raw);  // diagonal tile, pitch nb
+  T* A = D + nn;                          // sub tile -> V2, pitch nb
+  T* Gt = A + nn;                         // transposed Gram matrix
+  T* Tm = Gt + nn;                        // T, pitch nb + 1
+  T* taus = Tm + nb * (nb + 1);
+  T* xch = taus + nb;                     // column exchange, nb <= 32
 
   T* diag = ws + ((size_t)k * q + k) * nn;
   T* sub = ws + ((size_t)i * q + k) * nn;
   load_tile(D, diag, nn);
   load_tile(A, sub, nn);
   __syncthreads();
-
-  for (int j = 0; j < nb; ++j) {
-    column_reflector(A, nb, j, 0, D[j * nb + j], coef);
+  if (nb <= 32) {
+    tsqrt_columns32(D, A, Gt, taus, xch, nb);
+  } else {
+    if (threadIdx.x < 32) tsqrt_columns_smem(D, A, taus, nb);
     __syncthreads();
-    const T tau = coef[1];
-    const T denom = coef[2];
-    for (int r = threadIdx.x; r < nb; r += blockDim.x)
-      V2[r * nb + j] = A[r * nb + j] / denom;
-    __syncthreads();
-    for (int c = j + 1 + threadIdx.x; c < nb; c += blockDim.x) {
-      T s = T(0);
-      for (int r = 0; r < nb; ++r) s += V2[r * nb + j] * A[r * nb + c];
-      w[c] = tau * (D[j * nb + c] + s);
-    }
-    __syncthreads();
-    for (int e = threadIdx.x; e < nn; e += blockDim.x) {
-      const int r = e / nb, c = e % nb;
-      if (c > j) A[e] -= V2[r * nb + j] * w[c];
-    }
-    for (int c = j + 1 + threadIdx.x; c < nb; c += blockDim.x)
-      D[j * nb + c] -= w[c];
-    if (threadIdx.x == 0) {
-      D[j * nb + j] = coef[0];
-      taus[j] = tau;
-    }
-    __syncthreads();
-  }
-
-  // Gram matrix of [I; V2]: for c < i, G[c][i] = sum_r V2[r][c] V2[r][i].
-  for (int e = threadIdx.x; e < nn; e += blockDim.x) {
-    const int c = e / nb, i2 = e % nb;
-    if (c < i2) {
-      T s = T(0);
-      for (int r = 0; r < nb; ++r) s += V2[r * nb + c] * V2[r * nb + i2];
-      G[e] = s;
-    }
+    gram_t(A, Gt, nb, false);
   }
   __syncthreads();
-  form_t(G, taus, Tm, nb);
+  if (nb > 32)
+    form_t(Gt, taus, Tm, nb);
+  else if (threadIdx.x < 32)
+    form_t_reg(Gt, taus, Tm, nb);
+  __syncthreads();
 
   const size_t slot = (size_t)i * r_steps + k;
-  for (int e = threadIdx.x; e < nn; e += blockDim.x)
-    if (e / nb <= e % nb) diag[e] = D[e];
-  store_tile(sub, V2, nn);
-  store_tile(t_t + slot * nn, Tm, nn);
+  for (int r = threadIdx.x >> 5; r < nb; r += blockDim.x >> 5)
+    for (int c = r + (threadIdx.x & 31); c < nb; c += 32)
+      diag[r * nb + c] = D[r * nb + c];
+  store_tile(sub, A, nn);
+  store_t(t_t + slot * nn, Tm, nb);
   store_tile(t_taus + slot * nb, taus, nb);
 }
 
@@ -284,9 +522,11 @@ tsqrt_kernel(T* ws, T* t_t, T* t_taus, const int* idx, int p, int q, int nb) {
 // Bound: 5 nb^3 FLOP on 6 nb^2 elements moved, about 7 FLOP per byte in
 // fp32 at nb = 32: memory-bound by the roofline, and the kernel that
 // carries the main path's work (up to 1,113 tasks in one launch on the
-// 64 x 64 grid, enough CTAs to fill the 132 SMs several times over).
-// Design: W = T^T (C_k + V2^T C_i), C_k -= W, C_i -= V2 W as FMA passes over
-// shared memory, each tile read from and written to global memory once.
+// 64 x 64 grid, enough CTAs to fill the 132 SMs several times over); in
+// the megakernel a level also waits for its slowest SSRFB.
+// Design: W = T^T (C_k + V2^T C_i), C_k -= W, C_i -= V2 W as LARFB's
+// register-blocked passes over shared memory, each tile read from and
+// written to global memory once.
 // ---------------------------------------------------------------------------
 template <typename T>
 __device__ __noinline__ void ssrfb_task(T* ws, const T* t_t, int k, int i,
@@ -308,28 +548,16 @@ __device__ __noinline__ void ssrfb_task(T* ws, const T* t_t, int k, int i,
   load_tile(Ck, tile_k, nn);
   load_tile(Ci, tile_i, nn);
   __syncthreads();
-
-  for (int e = threadIdx.x; e < nn; e += blockDim.x) {  // W = Ck + V2^T Ci
-    const int a = e / nb, c = e % nb;
-    T s = T(0);
-    for (int r = 0; r < nb; ++r) s += V2[r * nb + a] * Ci[r * nb + c];
-    W[e] = Ck[e] + s;
-  }
+  rows_times<true>(V2, Ci, nb, [&](int a, int c, T s) {
+    W[a * nb + c] = Ck[a * nb + c] + s;
+  });
   __syncthreads();
-  for (int e = threadIdx.x; e < nn; e += blockDim.x) {  // W2 = T^T W
-    const int a = e / nb, c = e % nb;
-    T s = T(0);
-    for (int b = 0; b < nb; ++b) s += Tm[b * nb + a] * W[b * nb + c];
-    W2[e] = s;
-  }
+  rows_times<true>(Tm, W, nb, [&](int a, int c, T s) { W2[a * nb + c] = s; });
   __syncthreads();
-  for (int e = threadIdx.x; e < nn; e += blockDim.x) {
-    const int r = e / nb, c = e % nb;
-    T s = T(0);
-    for (int a = 0; a < nb; ++a) s += V2[r * nb + a] * W2[a * nb + c];
-    tile_k[e] = Ck[e] - W2[e];
-    tile_i[e] = Ci[e] - s;
-  }
+  for (int e = threadIdx.x; e < nn; e += blockDim.x) tile_k[e] = Ck[e] - W2[e];
+  rows_times<false>(V2, W2, nb, [&](int r, int c, T s) {
+    tile_i[r * nb + c] = Ci[r * nb + c] - s;
+  });
 }
 
 template <typename T>
@@ -356,11 +584,14 @@ ssrfb_kernel(T* ws, const T* t_t, const int* idx, int p, int q, int nb) {
 // task loads its tiles itself.
 //
 // Bound: the whole factorization is ~5 nb^3 FLOP per SSRFB and the
-// workspace read and written once; but each level is a barrier, and the
-// GEQRT/TSQRT column loops of the critical path are sequential, so a call
-// is latency-bound by levels x the slowest task of each.  Design: one
-// launch instead of ~3 per level removes the launch gaps; the batched
-// kernel fills the card with the tasks of many slices per level.
+// workspace read and written once (6.6 us of FP32 work at 640^2), but the
+// schedule is a chain of levels with a grid barrier after each, and
+// almost every level holds a GEQRT or a TSQRT, so a call takes about
+// levels x (the slowest task of a level + the barrier).
+// Design: one launch instead of ~3 per level removes the launch gaps; the
+// batched kernel fills the card with the tasks of many slices per level;
+// and the GEQRT/TSQRT bodies, which set the level time, run their column
+// loops warp-synchronously with no CTA barrier per column (above).
 // ---------------------------------------------------------------------------
 constexpr int kTableCols = 16;
 constexpr int kNoop = 4;
@@ -517,6 +748,7 @@ static int dispatch_megakernel(bool batched, void* ws, void* d_t,
                                int batch, int p, int q, int nb, int is_double,
                                int smem_bytes, void* barrier, void* stream,
                                int* grid_out) {
+  if (nb < 1 || nb > 32 * kSlots) return (int)cudaErrorInvalidValue;
   const int* tb = static_cast<const int*>(tab);
   unsigned int* bar = static_cast<unsigned int*>(barrier);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -533,6 +765,7 @@ static int dispatch_megakernel(bool batched, void* ws, void* d_t,
 static int dispatch(int kind, void* ws, void* aux0, void* aux1, const void* idx,
                     int ntasks, int p, int q, int nb, int is_double,
                     int smem_bytes, void* stream) {
+  if (nb < 1 || nb > 32 * kSlots) return (int)cudaErrorInvalidValue;
   const int* ix = static_cast<const int*>(idx);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t bytes = (size_t)smem_bytes;

@@ -1,8 +1,9 @@
 // Device helpers shared by the tile-DAG macro-op kernels of macro_ops.cu:
 // the LAPACK reflector coefficients, warp reductions, tile copies between
-// global and shared memory, the DLARFT recurrence that forms a block
-// reflector T from a Gram matrix, the grid-wide (and group-wide) barrier
-// of cooperative launches, and the host helpers that size them.
+// global and shared memory, the Gram matrix of a tile's reflectors and the
+// DLARFT recurrence that forms a block reflector T from it, the grid-wide
+// (and group-wide) barrier of cooperative launches, and the host helpers
+// that size them.
 //
 // Every kernel runs CTAs of kThreads threads that hold their operands in
 // dynamic shared memory and accumulate in the element type (float or
@@ -16,9 +17,17 @@
 namespace repro {
 
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
 
 __device__ __forceinline__ float sqrt_(float x) { return sqrtf(x); }
 __device__ __forceinline__ double sqrt_(double x) { return ::sqrt(x); }
+
+__device__ __forceinline__ float fma_(float a, float b, float c) {
+  return fmaf(a, b, c);
+}
+__device__ __forceinline__ double fma_(double a, double b, double c) {
+  return ::fma(a, b, c);
+}
 
 template <typename T>
 __device__ __forceinline__ T warp_sum(T v) {
@@ -41,21 +50,55 @@ __device__ __forceinline__ void reflector_coeffs(T x0, T tail2, T* beta_val,
   *beta_val = degen ? x0 : beta;
 }
 
-// Sum of src[r * nb + col]^2 over rows [r0, nb), by warp 0; lane 0 turns
-// it into reflector coefficients stored at coef[0..2] = (beta, tau, denom).
-// The caller synchronises before reading coef.
-template <typename T>
-__device__ __forceinline__ void column_reflector(const T* src, int nb, int col,
-                                                 int r0, T x0, T* coef) {
-  if (threadIdx.x < 32) {
-    T s = T(0);
-    for (int r = r0 + threadIdx.x; r < nb; r += 32) {
-      const T x = src[r * nb + col];
-      s += x * x;
-    }
-    s = warp_sum(s);
-    if (threadIdx.x == 0) reflector_coeffs(x0, s, &coef[0], &coef[1], &coef[2]);
-  }
+// reflector_coeffs and rden = 1 / denom, for the column loops' critical
+// path.  In fp32 the square root and the reciprocals come from the SFU
+// (rsqrt.approx and rcp.approx) and are refined in registers: a Newton
+// step each, a residual correction of the square root, and of tau's
+// quotient, so each result is within about an ulp of the IEEE one.  The
+// IEEE operations are subroutine calls, slow links of a chain that every
+// column waits for.  An exactly zero tail still gives tau = 0, beta = x0
+// and denom = rden = 1.  fp64 keeps the IEEE operations.
+__device__ __forceinline__ float quot(float a, float b, float rb) {
+  const float q = a * rb;  // a / b, corrected by its residual
+  return fmaf(fmaf(-q, b, a), rb, q);
+}
+
+__device__ __forceinline__ double quot(double a, double b, double rb) {
+  return a / b;
+}
+
+__device__ __forceinline__ void reflector_coeffs_fast(float x0, float tail2,
+                                                      float* beta_val,
+                                                      float* tau, float* denom,
+                                                      float* rden) {
+  const float n2 = fmaf(x0, x0, tail2);
+  float rs;
+  asm("rsqrt.approx.f32 %0, %1;" : "=f"(rs) : "f"(n2));
+  rs = rs * fmaf(-0.5f * n2 * rs, rs, 1.5f);
+  float norm = n2 * rs;
+  norm = fmaf(0.5f * rs, fmaf(-norm, norm, n2), norm);
+  const float beta = x0 >= 0.f ? -norm : norm;
+  const bool degen = tail2 == 0.f;
+  const float d = degen ? 1.f : x0 - beta;
+  const float b = degen ? 1.f : beta;
+  float rd, rb;
+  asm("rcp.approx.f32 %0, %1;" : "=f"(rd) : "f"(d));
+  asm("rcp.approx.f32 %0, %1;" : "=f"(rb) : "f"(b));
+  rd = fmaf(rd, fmaf(-d, rd, 1.f), rd);
+  rb = fmaf(rb, fmaf(-b, rb, 1.f), rb);
+  *denom = d;
+  *rden = rd;
+  *tau = degen ? 0.f : quot(-d, b, rb);
+  *beta_val = degen ? x0 : beta;
+}
+
+__device__ __forceinline__ void reflector_coeffs_fast(double x0, double tail2,
+                                                      double* beta_val,
+                                                      double* tau,
+                                                      double* denom,
+                                                      double* rden) {
+  reflector_coeffs(x0, tail2, beta_val, tau, denom);
+  *rden = 1.0 / *denom;
 }
 
 // Global loads go through L2 only (ld.global.cg): in the megakernel a
@@ -71,23 +114,88 @@ __device__ __forceinline__ void store_tile(T* dst, const T* src, int n) {
   for (int e = threadIdx.x; e < n; e += blockDim.x) dst[e] = src[e];
 }
 
-// DLARFT (forward, columnwise): T upper triangular with T[i][i] = tau_i and
-// T[0:i, i] = -tau_i * T[0:i, 0:i] G[0:i, i], one column per step.  Only
-// the strictly upper part of G (G[c * nb + i], c < i, the Gram matrix of
-// the reflectors) is read.  Ends synchronised.
+// Most columns a lane owns in the warp-synchronous column loops
+// (c = lane + 32 t, t < kSlots): tiles up to nb = 128.
+constexpr int kSlots = 4;
+
+// Gram matrix of a tile's reflectors, transposed so that every read and
+// write is conflict-free: Gt[i * nb + c] = sum_{r >= r0(i)} V[r][c] V[r][i]
+// for c < i, with V the nb-row tile A at pitch nb.  `unit`: V is unit lower
+// (GEQRT: the r = i term is A[i][c] * 1 and the sum runs over r > i); else
+// every row counts (TSQRT's V2).  Warp w takes i = w, w + 8, ...; lane c
+// reads A[r][c] (consecutive) against the broadcast A[r][i].
 template <typename T>
-__device__ void form_t(const T* G, const T* taus, T* Tm, int nb) {
-  for (int e = threadIdx.x; e < nb * nb; e += blockDim.x) Tm[e] = T(0);
-  __syncthreads();
-  for (int i = 0; i < nb; ++i) {
-    const T tau = taus[i];
-    for (int r = threadIdx.x; r < i; r += blockDim.x) {
-      T s = T(0);
-      for (int c = r; c < i; ++c) s += Tm[r * nb + c] * G[c * nb + i];
-      Tm[r * nb + i] = -tau * s;
+__device__ __forceinline__ void gram_t(const T* A, T* Gt, int nb, bool unit) {
+  const int lane = threadIdx.x & 31;
+  for (int i = threadIdx.x >> 5; i < nb; i += blockDim.x >> 5) {
+    for (int c = lane; c < i; c += 32) {
+      T s = unit ? A[i * nb + c] : T(0);
+#pragma unroll 4
+      for (int r = unit ? i + 1 : 0; r < nb; ++r)
+        s += A[r * nb + c] * A[r * nb + i];
+      Gt[i * nb + c] = s;
     }
-    if (threadIdx.x == 0) Tm[i * nb + i] = tau;
-    __syncthreads();
+  }
+}
+
+// DLARFT (forward, columnwise): T upper triangular with T[i][i] = tau_i and
+// T[0:i, i] = -tau_i * T[0:i, 0:i] G[0:i, i].  Row r of T depends only on
+// row r itself (T[r][i] needs T[r][c], c < i), so thread r forms its row
+// alone, with no barrier between steps: Tm at pitch nb + 1 (odd, so the
+// threads' rows fall in distinct banks) against the broadcast column
+// Gt[i][.] of the transposed Gram matrix.  The sum starts at the warp's
+// first row; T[r][c] is zero for c < r, so the extra terms add zeros.
+// The caller synchronises before reading Tm.
+template <typename T>
+__device__ __forceinline__ void form_t(const T* Gt, const T* taus, T* Tm,
+                                       int nb) {
+  const int pitch = nb + 1;
+  const int c0 = threadIdx.x & ~31;
+  for (int r = threadIdx.x; r < nb; r += blockDim.x) {
+    T* row = Tm + r * pitch;
+    for (int c = 0; c < nb; ++c) row[c] = c == r ? taus[r] : T(0);
+    for (int i = r + 1; i < nb; ++i) {
+      const T* g = Gt + i * nb;
+      T s = T(0);
+#pragma unroll 4
+      for (int c = c0; c < i; ++c) s += row[c] * g[c];
+      row[i] = -taus[i] * s;
+    }
+  }
+}
+
+// Global copy of Tm (pitch nb + 1) at pitch nb, a warp per row.
+template <typename T>
+__device__ __forceinline__ void store_t(T* dst, const T* Tm, int nb) {
+  for (int r = threadIdx.x >> 5; r < nb; r += blockDim.x >> 5)
+    for (int c = threadIdx.x & 31; c < nb; c += 32)
+      dst[r * nb + c] = Tm[r * (nb + 1) + c];
+}
+
+// form_t for nb <= 32, on warp 0: lane r keeps row r of T in registers,
+// the loops over i and c unrolled (static register indices) against the
+// broadcast Gt[i][c]; two partial sums per step shorten its chain.
+template <typename T>
+__device__ __forceinline__ void form_t_reg(const T* Gt, const T* taus, T* Tm,
+                                           int nb) {
+  const int lane = threadIdx.x & 31;
+  T t[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    if (i >= nb) break;
+    T s0 = T(0), s1 = T(0);
+#pragma unroll
+    for (int c = 0; c < i; ++c) {
+      const T g = Gt[i * nb + c];
+      if (c & 1) s1 = fma_(t[c], g, s1); else s0 = fma_(t[c], g, s0);
+    }
+    const T tau = taus[i];
+    t[i] = lane < i ? -tau * (s0 + s1) : (lane == i ? tau : T(0));
+  }
+  if (lane < nb) {
+#pragma unroll
+    for (int c = 0; c < 32; ++c)
+      if (c < nb) Tm[lane * (nb + 1) + c] = t[c];
   }
 }
 

@@ -1,5 +1,5 @@
-// The paper's fused MHT panel factorization (DGEQR2HT) as a hand-written
-// CUDA kernel for Hopper (sm_90a), with a plain C interface loaded through
+// The paper's fused MHT panel factorization (DGEQR2HT) as hand-written
+// CUDA kernels for Hopper (sm_90a), with a plain C interface loaded through
 // ctypes by repro_torch/kernels/mht_panel.py.
 //
 // Replaces src/repro/kernels/mht_panel.py: mht_panel_kernel (launched by
@@ -12,35 +12,46 @@
 // packed column (beta at the pivot, v below it).  Every column after j is
 // updated, those past kf on a wide panel too.  In place; taus[j] out.
 //
-// Design.  The TPU kernel holds the whole panel in 8 MiB of VMEM; one H100
-// CTA has 227 KB of shared memory, a (1,700, 32) fp32 panel at most.  So a
-// panel's rows are split over a group of `groups` CTAs, each holding its
-// `rows`-row block for all b columns in shared memory for the whole column
-// loop: the panel is read from global memory once and written once.  Per
-// column, each CTA reduces its part of the tail's squared norm (the pivot
-// comes from the CTA that holds it); after a group barrier every CTA sums
-// the parts in the same order and computes identical coefficients; each
-// CTA then reduces its part of v^T A, and after a second barrier sums the
-// parts and updates its rows.  With one CTA per panel the barriers are
-// __syncthreads and the parts stay in shared memory.  The launch is
-// cooperative: groups of CTAs are resident together, each group walks the
-// stack's panels s = group, group + ngroups, ... with its own barrier
-// counter, so a stack of any size is one launch.
+// Bound: 2 m b^2 - 2/3 b^3 FLOP on m b elements read and written once:
+// 0.3 us of HBM traffic for a (4096, 32) fp32 panel.  What bounds it is
+// latency: b sequential columns, each a reduction over all m rows whose
+// result every row's update needs.  The TPU kernel holds the whole panel
+// in 8 MiB of VMEM; one H100 CTA has 227 KB of shared memory, so a tall
+// panel's rows are split over several CTAs, and the per-column exchange
+// between them is the cost to cut.
 //
-// Bound: 2 m b^2 - 2/3 b^3 FLOP on m b elements read and written once, ~10
-// FLOP per fp32 byte at b = 32: compute-bound on paper.  In practice it is
-// latency-bound: b sequential columns, each two CTA-wide reductions and
-// (with several CTAs) two group barriers apart; the per-CTA work of a
-// column is a few hundred FMAs a thread.
+// Design, two paths, chosen by kernels/mht_panel.py: layout() from the
+// shape alone:
+//
+//  * cluster (mht_panel_cluster_kernel), every panel one thread block
+//    cluster holds (up to 16 CTAs on neighbouring SMs): each CTA keeps its
+//    row block in shared memory for the whole column loop, and the CTAs
+//    exchange partials through distributed shared memory with one hardware
+//    cluster barrier per column.  The MHT reordering makes that one
+//    exchange: right after its update for column j, a CTA makes one local
+//    pass that yields its partials for column j + 1 (the tail's squared
+//    norm, s_c = x^T A[:, c] over the later columns, and the pivot row
+//    from the CTA that owns it); every CTA sums its peers' partials in rank
+//    order, so all compute identical coefficients, and forms
+//    w_c = tau (A[j][c] + s_c / denom) with no second reduction.  The
+//    partial slots are double-buffered by column parity, so one barrier
+//    per column is safe.  Warps own rows and lanes columns, so a lane's
+//    loads are consecutive (conflict-free) against a broadcast v_r, with
+//    no per-element index arithmetic.  One cluster per panel: an ordinary
+//    launch for a stack of any size.
+//  * group (mht_panel_kernel), panels taller than a cluster holds: the
+//    rows are split over a group of CTAs of one cooperative launch that
+//    meet at two global-atomic group barriers per column; each group walks
+//    the stack's panels.
 //
 // Accumulation in the element type (float or double); no tensor cores (an
 // fp32 product there is TF32, which misses the conformance bar).
 
+#include <cooperative_groups.h>
+
 #include "macro_ops.cuh"
 
 namespace repro {
-
-constexpr int kWarps = kThreads / 32;
 
 // Sum of one value per thread over the CTA, in a fixed order (lanes, then
 // warps); every thread gets the result.  `red` holds kWarps partials.
@@ -186,6 +197,180 @@ mht_panel_kernel(T* a, long long a_bs, int lda, int m, int b, int kf,
   }
 }
 
+// Most CTAs in a cluster: Hopper's non-portable cluster size
+// (kernels/mht_panel.py: MAX_CLUSTER).
+constexpr int kMaxCluster = 16;
+
+// Shared memory of the cluster kernel (layout()'s "cluster" carve-up):
+//   A     rows x pitch   the CTA's row block, pitch = b | 1 (odd, so a
+//                        thread per row reads column j conflict-free)
+//   red   kWarps x b     per-warp partials of s_c
+//   nrm   kWarps         per-warp partials of the tail's squared norm
+//   slot  2 x 2b         the published partials by column parity: the
+//                        CTA's sums s_c (s_j = the tail norm), then the
+//                        pivot row (written by its owner only)
+//   tot   b              the cluster's sums, in rank order
+//   piv   b              the pivot row
+//   w     b              tau v^T A
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+mht_panel_cluster_kernel(T* a, long long a_bs, int lda, int m, int b, int kf,
+                         T* taus, int rows) {
+  namespace cg = cooperative_groups;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cs = (int)cluster.num_blocks();
+  const int g = (int)cluster.block_rank();
+  const int pitch = b | 1;
+  T* A = reinterpret_cast<T*>(smem_raw);
+  T* red = A + (size_t)rows * pitch;
+  T* nrm = red + (size_t)kWarps * b;
+  T* slot = nrm + kWarps;
+  T* tot = slot + 4 * b;
+  T* piv = tot + b;
+  T* w = piv + b;
+
+  const int s = blockIdx.x / cs;
+  const int r_lo = g * rows;
+  const int nr = max(0, min(rows, m - r_lo));
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  T* pan = a + (size_t)s * a_bs + (size_t)r_lo * lda;
+  for (int r = warp; r < nr; r += kWarps)
+    for (int c = lane; c < b; c += 32)
+      A[r * pitch + c] = __ldcg(pan + (size_t)r * lda + c);
+  for (int c = threadIdx.x; c < b; c += blockDim.x) w[c] = T(0);
+  __syncthreads();
+
+  // j = -1 is the pass that yields column 0's partials: no reflector, so
+  // v = 0 and w = 0, and the update leaves every element as it is.
+  T beta = T(0), denom = T(1), rden = T(1);
+  for (int j = -1; j < kf; ++j) {
+    if (j >= 0) {
+      // (1) the cluster's partials for column j, summed in rank order.
+      const T* part = slot + (j & 1) * 2 * b;
+      const int owner = j / rows;
+      for (int c = j + threadIdx.x; c < b; c += blockDim.x) {
+        T peer[kMaxCluster];  // every load in flight before the sum
+#pragma unroll
+        for (int h = 0; h < kMaxCluster; ++h)
+          peer[h] = h < cs ? cluster.map_shared_rank(part, h)[c] : T(0);
+        const T pv = cluster.map_shared_rank(part + b, owner)[c];
+        T acc = T(0);
+#pragma unroll
+        for (int h = 0; h < kMaxCluster; ++h) acc += peer[h];
+        tot[c] = acc;
+        piv[c] = pv;
+      }
+      __syncthreads();
+      T tau;
+      reflector_coeffs_fast(piv[j], tot[j], &beta, &tau, &denom, &rden);
+      for (int c = j + 1 + threadIdx.x; c < b; c += blockDim.x)
+        w[c] = tau * (piv[c] + quot(tot[c], denom, rden));
+      if (g == 0 && threadIdx.x == 0) taus[(size_t)s * b + j] = tau;
+      __syncthreads();
+    }
+    const bool next = j + 1 < kf;  // column j + 1 pivots: publish partials
+
+    // (2) a thread per row: v and the packed column j, the updated column
+    // j + 1 and its part of the tail's squared norm.
+    const T wn = j + 1 < b ? w[j + 1] : T(0);
+    T n2 = T(0);
+    for (int r = threadIdx.x; r < nr; r += blockDim.x) {
+      const int gr = r_lo + r;
+      if (gr < j) continue;
+      T v = T(0);
+      if (j >= 0) {
+        v = gr == j ? T(1) : quot(A[r * pitch + j], denom, rden);
+        A[r * pitch + j] = gr == j ? beta : v;
+      }
+      if (j + 1 < b) {
+        const T x = fma_(-v, wn, A[r * pitch + j + 1]);
+        A[r * pitch + j + 1] = x;
+        if (gr > j + 1) n2 += x * x;
+      }
+    }
+    n2 = warp_sum(n2);
+    if (lane == 0) nrm[warp] = n2;
+    __syncthreads();
+
+    // (3) a warp per row, a lane per column after j + 1: the rank-1 update
+    // and, in the same pass, s_c = sum_{r > j + 1} x_r A[r][c] against the
+    // broadcast updated column x = A[:, j + 1].
+    const int r0 = min(nr, max(0, j - r_lo));
+    for (int c = j + 2 + lane; c < b; c += 32) {
+      const T wc = w[c];
+      T acc = T(0);
+      for (int r = r0 + warp; r < nr; r += kWarps) {
+        const int gr = r_lo + r;
+        const T v = j < 0 ? T(0) : (gr == j ? T(1) : A[r * pitch + j]);
+        const T y = fma_(-v, wc, A[r * pitch + c]);
+        A[r * pitch + c] = y;
+        if (gr > j + 1) acc += A[r * pitch + j + 1] * y;
+      }
+      red[warp * b + c] = acc;
+    }
+    if (!next) break;
+    __syncthreads();
+
+    // (4) publish column j + 1's partials, then the one cluster barrier.
+    T* out = slot + ((j + 1) & 1) * 2 * b;
+    const int pr = j + 1 - r_lo;
+    for (int c = j + 1 + threadIdx.x; c < b; c += blockDim.x) {
+      T acc = T(0);
+      for (int h = 0; h < kWarps; ++h)
+        acc += c == j + 1 ? nrm[h] : red[h * b + c];
+      out[c] = acc;
+      if (pr >= 0 && pr < nr) out[b + c] = A[pr * pitch + c];
+    }
+    cluster.sync();
+  }
+  __syncthreads();
+  for (int r = warp; r < nr; r += kWarps)
+    for (int c = lane; c < b; c += 32)
+      pan[(size_t)r * lda + c] = A[r * pitch + c];
+  cluster.sync();  // peers may still read this CTA's last partials
+}
+
+// One cluster of `cluster` CTAs per panel, grid = batch x cluster: an
+// ordinary launch.  Raises (returns the error) where the device cannot
+// hold one such cluster.
+template <typename T>
+static int launch_mht_panel_cluster(void* a, long long a_bs, int lda, int m,
+                                    int b, int kf, void* taus, int batch,
+                                    int cluster, int rows, size_t bytes,
+                                    cudaStream_t stream, int* grid_out) {
+  auto kernel = mht_panel_cluster_kernel<T>;
+  *grid_out = 0;
+  if (cluster < 1 || cluster > kMaxCluster) return (int)cudaErrorInvalidValue;
+  cudaError_t err = prepare(kernel, bytes);
+  if (err == cudaSuccess && cluster > 8)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(batch * cluster));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int fit = 0;
+  err = cudaOccupancyMaxActiveClusters(&fit, kernel, &cfg);
+  if (err != cudaSuccess) return (int)err;
+  if (fit < 1) return (int)cudaErrorLaunchOutOfResources;
+  *grid_out = batch * cluster;
+  T* pa = static_cast<T*>(a);
+  T* pt = static_cast<T*>(taus);
+  err = cudaLaunchKernelEx(&cfg, kernel, pa, a_bs, lda, m, b, kf, pt, rows);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
 // Groups of `groups` CTAs, as many as can be resident at once (a group's
 // barrier needs all its CTAs running), at most one per panel.  One CTA per
 // panel needs no barrier, so that launch is an ordinary one of `batch` CTAs.
@@ -237,6 +422,24 @@ extern "C" {
 // panel; part: batch * groups * (b + 2) elements of scratch (groups > 1);
 // barriers: batch zeroed uint32 counters; smem_bytes: the layout's size
 // per CTA (kernels/mht_panel.py: layout); *grid_out: CTAs launched.
+// (a, a_batch_stride, lda, m, b, kf, taus, batch, cluster, rows,
+//  is_double, smem_bytes, stream, grid_out): the cluster path, one cluster
+// of `cluster` CTAs of `rows` rows per panel; the other arguments as above.
+int repro_mht_panel_cluster(void* a, long long a_bs, int lda, int m, int b,
+                            int kf, void* taus, int batch, int cluster,
+                            int rows, int is_double, int smem_bytes,
+                            void* stream, int* grid_out) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t bytes = (size_t)smem_bytes;
+  return is_double
+             ? repro::launch_mht_panel_cluster<double>(
+                   a, a_bs, lda, m, b, kf, taus, batch, cluster, rows, bytes,
+                   s, grid_out)
+             : repro::launch_mht_panel_cluster<float>(
+                   a, a_bs, lda, m, b, kf, taus, batch, cluster, rows, bytes,
+                   s, grid_out);
+}
+
 int repro_mht_panel(void* a, long long a_bs, int lda, int m, int b, int kf,
                     void* taus, int batch, int groups, int rows, void* part,
                     void* barriers, int is_double, int smem_bytes, void* stream,

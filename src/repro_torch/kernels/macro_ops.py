@@ -543,19 +543,28 @@ class MacroOp:
     smem_elems: Callable[[int], int]
 
 
+#: The GEQRT/TSQRT column loops' exchange buffer (``kXchElems`` in
+#: ``csrc/macro_ops.cu``): two parities of 8 warps' 32 partials and a
+#: 32-wide pivot row, and 32 denominators.
+XCH_ELEMS = 2 * (8 * 32 + 32) + 32
+
 MACRO_OPS: Dict[str, MacroOp] = {
-    # A, G, T tiles; v, w, taus vectors; beta, tau, denom (+1 pad).
+    # A and the transposed Gram matrix (pitch nb), T (pitch nb + 1), taus,
+    # the column loop's exchange buffer.
     "GEQRT": MacroOp("GEQRT", geqrt_body, geqrt, geqrt_plain,
                      ("d_t", "d_taus"), tile_reads=1, tile_writes=1,
-                     vmem_tiles=4, smem_elems=lambda nb: 3 * nb * nb + 3 * nb + 4),
+                     vmem_tiles=4,
+                     smem_elems=lambda nb: 3 * nb * nb + 2 * nb + XCH_ELEMS),
     # V, T, C, W1, W2 tiles.
     "LARFB": MacroOp("LARFB", larfb_body, larfb, larfb_plain, ("d_t",),
                      tile_reads=2, tile_writes=1, vmem_tiles=5,
                      smem_elems=lambda nb: 5 * nb * nb),
-    # D, A, V2, G, T tiles; w, taus vectors; beta, tau, denom (+1 pad).
+    # D, A (-> V2) and the transposed Gram matrix (pitch nb), T (pitch
+    # nb + 1), taus, the column loop's exchange buffer.
     "TSQRT": MacroOp("TSQRT", tsqrt_body, tsqrt, tsqrt_plain,
                      ("t_t", "t_taus"), tile_reads=2, tile_writes=2,
-                     vmem_tiles=6, smem_elems=lambda nb: 5 * nb * nb + 2 * nb + 4),
+                     vmem_tiles=6,
+                     smem_elems=lambda nb: 4 * nb * nb + 2 * nb + XCH_ELEMS),
     # V2, T, C_k, C_i, W, W2 tiles.
     "SSRFB": MacroOp("SSRFB", ssrfb_body, ssrfb, ssrfb_plain, ("t_t",),
                      tile_reads=3, tile_writes=2, vmem_tiles=7,

@@ -1,7 +1,8 @@
 """The port's CUDA kernels on a Hopper card, against their plain
-versions: the four wavefront macro-op kernels, both megakernels, the MHT
-panel and WY trailing kernels, and the single-tile TSQRT / SSRFB entry
-points.
+versions: the four wavefront macro-op kernels (their task bodies at
+several tile sizes), both megakernels, the MHT panel kernel on each of
+its paths, the WY trailing kernel, and the single-tile TSQRT / SSRFB
+entry points.
 
 Every test is marked ``cuda`` and skips without an sm_90 device.  The
 file imports torch, numpy and ``repro_torch`` only, so it also runs where
@@ -77,6 +78,54 @@ def test_kernel_matches_plain_on_hopper(kind, dtype):
         assert torch.isfinite(x).all() and torch.isfinite(y).all()
         assert float((x - y).abs().max()) <= tol
 
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("nb", [16, 32, 64])
+@pytest.mark.parametrize("kind", ["GEQRT", "LARFB", "TSQRT", "SSRFB"])
+def test_tile_bodies_match_plain_on_hopper(kind, nb, dtype):
+    """Each task body at nb in {16, 32, 64} (the register column loops
+    below 32, the shared-memory ones above) against its plain version on a
+    (3, 3) grid holding a tile with an exactly zero tail column (the
+    tau = 0 path) and a zero-padded ragged tile, within 4 * eps * nb *
+    max(1, max |plain|); the zero columns give exactly tau = 0 on both
+    sides."""
+    _need_hopper()
+    p = q = 3
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(80 + nb)
+    state = engine.FactorState(*(
+        torch.from_numpy(rng.standard_normal(s)).to("cuda", dt)
+        for s in [(p, q, nb, nb), (p, nb, nb), (p, nb), (p, p, nb, nb),
+                  (p, p, nb)]))
+    # A zero column stays zero under the updates before it, so its tail is
+    # exactly zero when it pivots: column 3 of diagonal tile (0, 0), and
+    # column 5 of the stacked pair [triu((0, 0)); (1, 0)].
+    state.tiles[0, 0, :, 3] = 0
+    state.tiles[0, 0, :5, 5] = 0
+    state.tiles[1, 0, :, 5] = 0
+    h = nb // 2                            # tile (2, 2): ragged, zero-padded
+    state.tiles[2, 2, h:, :] = 0
+    state.tiles[2, 2, :, h:] = 0
+    idx = torch.tensor({"GEQRT": [[0, 0, 0], [2, 2, 2]], "LARFB": [[0, 0, 1]],
+                        "TSQRT": [[0, 1, 0]], "SSRFB": [[0, 1, 2]]}[kind],
+                       dtype=torch.int32, device="cuda")
+    a = engine.FactorState(*(x.clone() for x in state))
+    b = engine.FactorState(*(x.clone() for x in state))
+    before = tmo.LAUNCHES[kind]
+    tmo.run_batch(kind, a, idx, use_kernel=True)
+    tmo.run_batch(kind, b, idx, use_kernel=False)
+    torch.cuda.synchronize()
+    assert tmo.LAUNCHES[kind] == before + 1
+    _within(tuple(a), tuple(b), nb, dt)
+    if kind == "GEQRT":
+        for x in (a, b):
+            assert float(x.d_taus[0, 3]) == 0.0
+            assert bool((x.d_taus[2, h:] == 0).all())
+    if kind == "TSQRT":
+        for x in (a, b):
+            assert float(x.t_taus[1, 0, 5]) == 0.0
 
 
 @pytest.mark.cuda
@@ -167,6 +216,30 @@ def test_mht_panel_matches_plain_on_hopper(shape, row0, dtype):
     kf = taus.shape[-1]
     assert kf == min(shape[-1], shape[-2] - row0)
     _within((packed, taus), (want_p, want_t[..., :kf]), kf, dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("shape,path", [((4096, 32), "cluster"),
+                                        ((30000, 32), "group")], ids=str)
+def test_mht_panel_paths_on_hopper(shape, path, dtype):
+    """The panel kernel on one shape of each path that ``layout`` picks: a
+    (4096, 32) panel on one cluster of 16 CTAs, and a (30000, 32) panel,
+    taller than a cluster holds, on a cooperative group; against
+    ``macro_ops.panel_body`` within 4 * eps * 32 * max(1, max |plain|)."""
+    _need_hopper()
+    from repro_torch.kernels import mht_panel as kpanel
+
+    dt = getattr(torch, dtype)
+    assert kpanel.layout(*shape, torch.finfo(dt).bits // 8).path == path
+    a = torch.from_numpy(_workspace(shape, 78, dtype)).cuda()
+    before = tmo.LAUNCHES["MHT_PANEL"]
+    packed, taus = ops.mht_panel(a)
+    want_p, want_t = tmo.panel_body(a, 0)
+    torch.cuda.synchronize()
+    assert tmo.LAUNCHES["MHT_PANEL"] == before + 1
+    assert kpanel.LAST_GRID["path"] == path
+    _within((packed, taus), (want_p, want_t), shape[-1], dt)
 
 
 @pytest.mark.cuda

@@ -156,11 +156,15 @@ def test_macro_op_cards_match_reference():
 
 def test_kernel_shared_memory_is_what_the_budget_checks_read():
     """The launch size and the budget checks read one number per kind:
-    the kernel's layout in elements (SSRFB's six tiles are the largest)."""
+    the kernel's layout in elements (SSRFB's six tiles are the largest;
+    GEQRT and TSQRT carry T at pitch nb + 1 and the column loop's exchange
+    buffer)."""
     nb = 32
+    xch = 2 * (8 * 32 + 32) + 32
+    assert tmo.XCH_ELEMS == xch
     assert [tmo.smem_bytes(k, nb, 4) for k in tmo.MACRO_OPS] == [
-        (3 * nb * nb + 3 * nb + 4) * 4, 5 * nb * nb * 4,
-        (5 * nb * nb + 2 * nb + 4) * 4, 6 * nb * nb * 4]
+        (3 * nb * nb + 2 * nb + xch) * 4, 5 * nb * nb * 4,
+        (4 * nb * nb + 2 * nb + xch) * 4, 6 * nb * nb * 4]
     assert tmo.engine_smem_bytes(nb, 8) == 6 * nb * nb * 8
     budget = engine.DEFAULT_SMEM_BUDGET
     fits = [nb for nb in range(1, 129) if tmo.engine_smem_bytes(nb, 4) <= budget]

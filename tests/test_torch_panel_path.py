@@ -296,21 +296,53 @@ def test_panel_routes_match_reference(shape, slug, method):
 
 
 def test_panel_kernel_layout_and_cap():
-    """The panel kernel's row split: one CTA where the panel fits, row
-    blocks of at most ROWS_TARGET otherwise, per-CTA bytes within the
+    """The panel kernel's row split: a cluster of up to MAX_CLUSTER CTAs of
+    about CLUSTER_ROWS rows while one cluster holds the panel, a group of
+    row blocks of at most ROWS_TARGET beyond; per-CTA bytes within the
     budget and equal to the estimator's; past the cap the planner raises
     naming it, and the plain lowering stays available."""
-    assert tpanel.layout(576, 32)[:2] == (1, 576)
-    assert tpanel.layout(4096, 32)[:2] == (4, 1024)
-    groups, rows, nbytes = tpanel.layout(6144, 32, 8)
-    assert groups * rows >= 6144 and nbytes <= tplan.DEFAULT_SMEM_BUDGET
+    assert tpanel.layout(576, 32)[:3] == ("cluster", 3, 192)
+    assert tpanel.layout(4096, 32)[:3] == ("cluster", 16, 256)
+    path, ctas, rows, nbytes = tpanel.layout(6144, 32, 8)
+    assert (path, ctas, rows) == ("cluster", 16, 384)
+    assert ctas * rows >= 6144 and nbytes <= tplan.DEFAULT_SMEM_BUDGET
     assert tops.mht_panel_smem_bytes(6144, 32, 8) == nbytes
+    assert nbytes == (rows * 33 + 15 * 32 + 8) * 8
+    path, groups, rows, nbytes = tpanel.layout(30000, 32, 8)
+    assert path == "group" and groups * rows >= 30000
     assert nbytes == rows * 34 * 8 + (8 * 32 + 32 + 8) * 8
     with pytest.raises(ValueError, match="cooperative launch can hold"):
         tplan.plan((8000, 1000), torch.float32,
                    tplan.QRConfig(method="geqr2_ht"), backend="cuda")
     assert tplan.plan((8000, 1000), torch.float32, tplan.QRConfig(
         method="geqr2_ht", use_kernel=False), backend="cuda").config.use_kernel is False
+
+
+@pytest.mark.parametrize("m,b,itemsize,want", [
+    (576, 32, 4, ("cluster", 3, 192)),       # the (60, 576, 192) stack's panels
+    (4096, 32, 4, ("cluster", 16, 256)),     # 4096^2, the first panel
+    (6144, 32, 4, ("cluster", 16, 384)),     # the TSQR leaves
+    (1152, 32, 4, ("cluster", 5, 231)),      # a TSQR merge of two leaves' R
+    (16, 16, 4, ("cluster", 1, 16)),         # 16 x 1000: the pivot block
+    (200, 32, 8, ("cluster", 1, 200)),       # 200^2 in fp64
+    (20000, 32, 4, ("cluster", 16, 1250)),   # near a cluster's limit
+    (20000, 32, 8, ("group", 24, 834)),      # past it in fp64
+    (30000, 32, 4, ("group", 30, 1000)),     # past it in fp32
+], ids=str)
+def test_panel_kernel_layout_per_shape(m, b, itemsize, want):
+    """The path, CTAs per panel and rows per CTA that ``layout`` picks from
+    the shape alone, and its bytes: within the budget, enough rows, and
+    the cluster path never past MAX_CLUSTER CTAs."""
+    lay = tpanel.layout(m, b, itemsize)
+    assert tuple(lay[:3]) == want
+    assert lay.ctas * lay.rows >= m
+    assert lay.smem_bytes <= tplan.DEFAULT_SMEM_BUDGET
+    if lay.path == "cluster":
+        assert lay.ctas <= tpanel.MAX_CLUSTER
+        assert lay.smem_bytes == (lay.rows * (b | 1) + 15 * b + 8) * itemsize
+    else:
+        assert lay.ctas <= tpanel.MAX_GROUP
+    assert tops.mht_panel_smem_bytes(m, b, itemsize) == lay.smem_bytes
 
 
 def test_launch_counters_untouched_on_the_cpu():

@@ -23,9 +23,11 @@ Phases, each of which exits non-zero when it fails:
      of one factorization (a ``torch.profiler`` trace), and the time of
      forming Q;
   6. hold the megakernel and its batched twin against their plain walks
-     (fp32 and fp64, 8 x 8 and 5 x 3 grids at nb = 32), the megakernel
-     against the wavefront kernels on the same workspace (bitwise), and
-     each batched slice against a single megakernel run of it (bitwise);
+     (fp32 and fp64, 8 x 8 and 5 x 3 grids at nb = 32, stacks of 3 and,
+     on the 5 x 3 grid, 7 slices, whose CTA runs cross slice boundaries),
+     the megakernel against the wavefront kernels on the same workspace
+     (bitwise), and each batched slice against a single megakernel run of
+     it (bitwise);
   7. the megakernel path: ``repro_torch.qr`` on a seeded 640 x 640 float32
      matrix (the largest square the auto rule gives the megakernel) runs
      one megakernel launch, meets the conformance bar, agrees with the
@@ -36,17 +38,20 @@ Phases, each of which exits non-zero when it fails:
      runs one batched megakernel launch, every slice inside the bar,
      timed beside ``torch.linalg.qr`` on the stack and the slice-by-slice
      loop of the wavefront lowering;
-  9. time both megakernels at those shapes against their plain walks,
-     their bound and ``torch.geqrf``, with the 640^2 megakernel's ms per
-     level, and each of the four task bodies alone, one task per launch
+  9. time both megakernels at those shapes (and the batched one on a
+     (15, 576, 576) stack) against their plain walks, their bound and
+     ``torch.geqrf``, with each one's ms per level and resident CTAs per
+     SM, and each of the four task bodies alone, one task per launch
      (nb = 32, fp32), since the slowest body of a level sets its time;
  10. hold the panel path's kernels against their plain versions (fp32
      and fp64): ``mht_panel`` and ``wy_trailing`` at the shapes its main
      paths give them, and the single-tile ``tsqrt`` / ``ssrfb`` entry
      points; time each beside its bound, its plain version and one
-     PyTorch call (``torch.geqrf``, ``torch.ormqr``), and the panel
-     kernel's path (cluster or group, CTAs per panel) and microseconds per
-     column at each panel shape it times;
+     PyTorch call (``torch.geqrf``, ``torch.ormqr``), the panel kernel's
+     path (cluster or group, CTAs per panel) and microseconds per column
+     at each panel shape it times, and the trailing kernel's layout
+     (cluster of G CTAs sized for one or two CTAs an SM, or streaming) at
+     each;
  11. the panel path: ``repro_torch.qr`` through the auto route on a
      (60, 576, 192) stack, 4096^2, 49152 x 576 (TSQR), 200^2 and 16 x 1000
      (one wide panel): route, launch counts, conformance, agreement with
@@ -546,14 +551,18 @@ def phase_megakernel_checks(torch, engine, macro_ops):
     control that must fail it; the megakernel against the wavefront
     kernels on the same workspace, and each batched slice against a
     single megakernel run of it: both bitwise, since every lowering runs
-    the same task bodies on the same inputs."""
+    the same compute functions on the same operands.  A 7-slice stack of
+    the (5, 3) grid gives CTA runs that cross slice boundaries."""
     results = []
     for seed, (p, q) in enumerate(((8, 8), (5, 3))):
         table = engine.megakernel_table(p, q, torch.device("cuda"))
         for dtype in (torch.float32, torch.float64):
             tol = 4 * float(torch.finfo(dtype).eps) * NB
             res = dict(grid=[p, q], dtype=str(dtype).replace("torch.", ""))
-            for name, batch in (("MEGAKERNEL", None), ("MEGAKERNEL_BATCHED", 3)):
+            # 7 slices of the (5, 3) grid: runs that cross slice boundaries.
+            cases = (("MEGAKERNEL", None), ("MEGAKERNEL_BATCHED", 3)) + (
+                (("MEGAKERNEL_BATCHED", 7),) if (p, q) == (5, 3) else ())
+            for name, batch in cases:
                 lead = () if batch is None else (batch,)
                 base = stack_tiles(torch, lead + (p, q, NB, NB), dtype,
                                    100 + seed, ragged=batch is not None)
@@ -577,7 +586,8 @@ def phase_megakernel_checks(torch, engine, macro_ops):
                 control = [torch.where(g != b, round_low(torch, g), g)
                            for g, b in zip(got, init)]
                 control_err = max_err(torch, control, want)[0]
-                key = name.lower()
+                key = name.lower() + ("" if batch in (None, 3) else
+                                      f"_{batch}")
                 res[key] = dict(max_abs_err=err, tol=tol * scale,
                                 control_err=control_err,
                                 grid_ctas=macro_ops.MEGAKERNEL_GRID[name])
@@ -601,7 +611,8 @@ def phase_megakernel_checks(torch, engine, macro_ops):
                                         for g, x in zip(got, single))
                     res[key]["slice_vs_single_max_abs"] = diff
                 res[key]["ok"] = bool(ok)
-            res["ok"] = res["megakernel"]["ok"] and res["megakernel_batched"]["ok"]
+            res["ok"] = all(v["ok"] for v in res.values()
+                            if isinstance(v, dict))
             log("megakernel check:", json.dumps(res))
             results.append(res)
     bad = [r for r in results if not r["ok"]]
@@ -735,10 +746,13 @@ def phase_task_bodies(torch, engine, macro_ops):
 
 def phase_megakernel_timing(torch, engine, macro_ops, tilegraph):
     """Both megakernels at the shapes their main paths give them (a
-    640 x 640 matrix; the (60, 576, 576) stack), fp32: held against their
-    plain walks on the same inputs, then timed — kernel, plain walk and
+    640 x 640 matrix; the (60, 576, 576) stack; and a (15, 576, 576)
+    stack), fp32: held against their plain walks on the same inputs, then
+    timed — kernel, plain walk (not for the 15-slice stack) and
     ``torch.geqrf`` on the same matrix or stack — each run bracketed by
-    CUDA events behind a spin kernel, the workspace restored untimed.
+    CUDA events behind a spin kernel, the workspace restored untimed,
+    with the resident CTAs per SM the occupancy query gives the launch
+    and the ms per level.
 
     Tolerance of the whole factorization: the kernel check's
     4 * eps * nb * max(1, max |plain|) per step, grown over the min(p, q)
@@ -747,9 +761,12 @@ def phase_megakernel_timing(torch, engine, macro_ops, tilegraph):
     below and right of it.  The TF32-rounded control must fail it.  Every
     slice of the batched run must equal a single megakernel run of it."""
     rows = {}
+    # A quarter of the stack too: the batched walk at another stack size.
     cases = (("MEGAKERNEL", (N_MEGA, N_MEGA), None),
-             ("MEGAKERNEL_BATCHED", STACK[1:], STACK[0]))
+             ("MEGAKERNEL_BATCHED", STACK[1:], STACK[0]),
+             ("MEGAKERNEL_BATCHED", STACK[1:], STACK[0] // 4))
     for seed, (name, (m, n), batch) in enumerate(cases):
+        label = name if batch in (None, STACK[0]) else f"{name}_{batch}"
         p, q = m // NB, n // NB
         lead = () if batch is None else (batch,)
         rng = np.random.default_rng(200 + seed)
@@ -792,9 +809,13 @@ def phase_megakernel_timing(torch, engine, macro_ops, tilegraph):
                    max_abs_err=err, tol=tol, control_err=control_err,
                    err_by_field=by_field, slices_equal_single=slices_equal,
                    grid_ctas=macro_ops.MEGAKERNEL_GRID[name],
+                   ctas_per_sm=macro_ops.MEGAKERNEL_OCCUPANCY[name]["per_sm"],
+                   stages=macro_ops.megakernel_stages(NB, 4),
+                   smem_bytes=macro_ops.megakernel_launch_smem_bytes(NB, 4),
                    ms=time_ms(torch, lambda: kernel(work, *table), reset),
-                   plain_ms=time_ms(torch, lambda: plain(work, *table), reset,
-                                    reps=2, warmup=1),
+                   plain_ms=(time_ms(torch, lambda: plain(work, *table),
+                                     reset, reps=2, warmup=1)
+                             if label == name else None),
                    library_ms=time_ms(torch, lambda: torch.geqrf(a), reps=5),
                    **megakernel_bound(engine, p, q, NB, batch or 1, "float32"))
         if batch is None:
@@ -816,9 +837,13 @@ def phase_megakernel_timing(torch, engine, macro_ops, tilegraph):
                                                       reps=5)
         res["ms_per_level"] = res["ms"] / table[1]
         log("megakernel timing:", json.dumps(res))
+        log(f"{label}: {res['ctas_per_sm']} resident CTAs per SM "
+            f"({res['grid_ctas']} CTAs, {res['smem_bytes']} B of shared "
+            f"memory, {res['stages']} operand buffers per slot), "
+            f"{res['ms_per_level'] * 1e3:.2f} us per level")
         if not err <= tol < control_err or slices_equal not in (None, batch):
-            raise SystemExit(f"{name} check failed: {res}")
-        rows[name] = res
+            raise SystemExit(f"{label} check failed: {res}")
+        rows[label] = res
     return rows
 
 
@@ -867,7 +892,9 @@ def phase_panel_kernels(torch, macro_ops, ops, tile_ops, blocked):
     panel at row0 0 and 4064, the (8, 6144, 32) TSQR leaves and the wide
     (16, 1000) panel (all on the cluster path), and a (30000, 32) panel
     (the group path); ``wy_trailing`` on those paths' first trailing
-    updates; the single-tile ``tsqrt`` / ``ssrfb`` entry points.  Then the
+    updates (each on the layout ``wy_trailing.layout`` picks) and on a
+    (30000, 32) V (the streaming layout); the single-tile ``tsqrt`` /
+    ``ssrfb`` entry points.  Then the
     fp32 times of each (CUDA events behind a spin kernel), its plain
     version's and one PyTorch call's (``torch.geqrf`` on the panel,
     ``torch.ormqr`` applying the panel's Q^T, ``torch.geqrf`` on the
@@ -897,8 +924,12 @@ def phase_panel_kernels(torch, macro_ops, ops, tile_ops, blocked):
                        **compare(torch, got, want, (a, None), kf, dtype))
             log("panel kernel check:", json.dumps(res))
             results.append(res)
+    from repro_torch.kernels import wy_trailing as ktrail
+
+    # The main paths' first trailing updates, and (30000, 32)·64 for the
+    # streaming layout in fp32 (fp64 (8, 6144, 32) streams too).
     traces = ((60, 576, 32, 160), (1, 4096, 32, 4064), (8, 6144, 32, 544),
-              (1, 16, 16, 984))
+              (1, 16, 16, 984), (1, 30000, 32, 64))
     for seed, (bsz, m, k, n) in enumerate(traces):
         for dtype in (torch.float32, torch.float64):
             packed, taus = macro_ops.panel_body(
@@ -911,8 +942,12 @@ def phase_panel_kernels(torch, macro_ops, ops, tile_ops, blocked):
             torch.cuda.synchronize()
             assert macro_ops.LAUNCHES["WY_TRAILING"] == before + 1, "wy_trailing"
             want = macro_ops.wy_body(v, t, c)
+            lay = ktrail.layout(m, n, k, bsz, c.element_size())
+            assert ktrail.LAST_GRID["layout"] == lay.path, ktrail.LAST_GRID
             res = dict(kernel="WY_TRAILING", shape=[bsz, m, k, n],
                        dtype=str(dtype).replace("torch.", ""),
+                       layout=lay.path, cluster=lay.cluster,
+                       per_sm=lay.per_sm,
                        **compare(torch, (got,), (want,), (c,), k, dtype))
             log("panel kernel check:", json.dumps(res))
             results.append(res)
@@ -960,8 +995,6 @@ def phase_panel_kernels(torch, macro_ops, ops, tile_ops, blocked):
     log("single-tile entry launches:", json.dumps(tile_launches))
     assert tile_launches == {"TSQRT_TILE": 1, "SSRFB_TILE": 1}, tile_launches
 
-    from repro_torch.kernels import wy_trailing as ktrail
-
     timing = {}
     for shape in ((4096, 32), (60, 576, 32), (8, 6144, 32)):
         base = seeded(torch, shape, 700, torch.float32)
@@ -988,7 +1021,7 @@ def phase_panel_kernels(torch, macro_ops, ops, tile_ops, blocked):
     rows["MHT_PANEL"].update(timing["[4096, 32]"], timing_by_shape=timing)
     timing = {}
     for bsz, m, k, n in ((1, 4096, 32, 4064), (60, 576, 32, 160),
-                         (8, 6144, 32, 544)):
+                         (8, 6144, 32, 544), (1, 30000, 32, 64)):
         packed, taus = macro_ops.panel_body(
             seeded(torch, (bsz, m, k), 701, torch.float32), 0)
         v = blocked.unpack_v_panel(packed, 0)
@@ -1007,6 +1040,10 @@ def phase_panel_kernels(torch, macro_ops, ops, tile_ops, blocked):
                 packed, taus, base, left=True, transpose=True)),
             **dict(zip(("bound_ms", "bound_by"),
                        bound_ms(flops, elems, "float32"))))
+        t = timing[str([bsz, m, k, n])]
+        log(f"wy_trailing {[bsz, m, k, n]}: {t['grid']['layout']} layout, "
+            f"cluster {t['grid']['cluster']}, sized for {t['grid']['per_sm']} "
+            f"CTA(s) an SM, {t['grid']['grid']} CTAs, {t['ms']:.5f} ms")
     rows["WY_TRAILING"].update(timing["[1, 4096, 32, 4064]"],
                                timing_by_shape=timing)
     pair = torch.cat([r_t, a_t]).contiguous()
@@ -1301,7 +1338,16 @@ def main() -> int:
         tile_ops, blocked)
     paths = phase("panel paths", phase_panel_paths, torch, macro_ops,
                   repro_torch)
-    phase("panel breakdown", phase_panel_breakdown, torch, repro_torch, blocked)
+    breakdown = phase("panel breakdown", phase_panel_breakdown, torch,
+                      repro_torch, blocked)
+    # Each panel-path kernel's device time summed over one call of each
+    # traced path (the profiler's spans), beside launches x one launch.
+    summed = {}
+    for key, kind in (("mht_panel", "MHT_PANEL"), ("wy_trailing", "WY_TRAILING")):
+        summed[kind] = {
+            label: sum(w.get("device_ms", {}).get(key, 0.0)
+                       for w in parts.values() if isinstance(w, dict))
+            for label, parts in breakdown.items()}
 
     kernels = []
     for kind in ("GEQRT", "LARFB", "TSQRT", "SSRFB"):
@@ -1338,7 +1384,8 @@ def main() -> int:
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"],
-            **({"launches_by_path": path_launches[kind]}
+            **({"launches_by_path": path_launches[kind],
+                "summed_device_ms_by_path": summed[kind]}
                if kind in path_launches else {})))
     log("card:", card, "| main path qr_ms", e2e, "| torch.linalg.qr ms", lib,
         "| 640 qr_ms", mega_ms, "| torch.linalg.qr ms", mega_lib,
@@ -1349,6 +1396,16 @@ def main() -> int:
         mega_rows["MEGAKERNEL"]["ms_per_level"], "| mht_panel us per column:",
         json.dumps({k: v["us_per_column"] for k, v in
                     panel_rows["MHT_PANEL"]["timing_by_shape"].items()}))
+    log("card:", card, "| summed device ms per call (profiler):",
+        json.dumps(summed), "| launches x ms at 4096^2:", json.dumps({
+            kind: path_launches[kind]["4096"] * panel_rows[kind]["ms"]
+            for kind in summed}))
+    log("card:", card, "| megakernel ms per level / CTAs per SM:",
+        json.dumps({k: [r["ms_per_level"], r["ctas_per_sm"]]
+                    for k, r in mega_rows.items()}),
+        "| wy_trailing ms by shape:", json.dumps({
+            k: [v["ms"], v["grid"]["layout"], v["grid"]["cluster"]] for k, v in
+            panel_rows["WY_TRAILING"]["timing_by_shape"].items()}))
     log("card:", card, "| panel paths qr_ms / torch.linalg.qr ms:",
         json.dumps({k: [p["qr_ms"], p["torch_linalg_qr_ms"]]
                     for k, p in paths.items()}))

@@ -17,10 +17,11 @@ Three lowerings run the schedule:
     canonical kind order GEQRT, LARFB, TSQRT, SSRFB on one stream;
   * the **megakernel lowering** (``use_kernel=True``,
     ``dispatch_mode="megakernel"``): one cooperative launch walks the
-    whole task table (:func:`megakernel_task_table`), a grid barrier
-    between levels; :func:`factor_tiles_batched` runs a whole
+    whole task table (:func:`megakernel_task_table`), each CTA a
+    contiguous run of every level (:func:`megakernel_runs`), a grid
+    barrier between levels; :func:`factor_tiles_batched` runs a whole
     ``(B, p, q, nb, nb)`` stack through one launch of its batched twin.
-    It calls the wavefront kernels' task bodies, so the two kernel
+    It calls the wavefront kernels' compute functions, so the two kernel
     lowerings agree bit for bit;
   * the **plain lowering** (``use_kernel=False``): the wavefront batches
     through the kernels' plain PyTorch versions.
@@ -60,6 +61,8 @@ __all__ = [
     "factor_tiles_batched",
     "init_state",
     "level_indices",
+    "megakernel_runs",
+    "megakernel_runs_device",
     "megakernel_table",
     "megakernel_task_table",
     "modeled_dma_bytes",
@@ -231,6 +234,110 @@ def megakernel_task_table(p: int, q: int) -> Tuple[np.ndarray, int, int]:
             if cts is not None and cts == _task_t_source(*nxt):
                 tab[t + 1, _COL_REUSET] = 1
     return tab, nlevels, nslots
+
+
+def _chained(rows: np.ndarray) -> np.ndarray:
+    """``chained[t]``: task t of a level (rows in table order) continues
+    the run of t - 1 in a way the megakernel keeps a tile for — a LARFB
+    after a LARFB or an SSRFB after an SSRFB whose V operand the REUSE0
+    column marks as the same tile (a same-(k, i) SSRFB group)."""
+    kind = rows[:, _COL_KIND]
+    out = np.zeros(len(rows), bool)
+    out[1:] = ((kind[1:] == kind[:-1])
+               & np.isin(kind[1:], (_KIND_ID["LARFB"], _KIND_ID["SSRFB"]))
+               & (rows[1:, _COL_REUSE0] != 0))
+    return out
+
+
+#: Weight of a GEQRT or TSQRT task against a LARFB or SSRFB (1) when the
+#: megakernel's runs balance a level over the CTAs: a GEQRT/TSQRT is a
+#: chain of nb dependent column steps (~20 us alone, PERF.md §6), where an
+#: SSRFB's throughput cost on a shared SM is a few us; counted as one, two
+#: or three of them would land on one CTA and set the level's time.  6 was
+#: the best of 1, 4, 6, 8, 10, 12 and 16 on the (60, 576, 576) stack
+#: (chip_smoke.py's stack on an H100; PERF.md §6).
+HEAVY_TASK_WEIGHT = 6
+
+
+def _task_weights(rows: np.ndarray) -> np.ndarray:
+    heavy = np.isin(rows[:, _COL_KIND], (_KIND_ID["GEQRT"], _KIND_ID["TSQRT"]))
+    return np.where(heavy, HEAVY_TASK_WEIGHT, 1)
+
+
+@functools.lru_cache(maxsize=None)
+def megakernel_runs(p: int, q: int, batch: int, grid: int) -> np.ndarray:
+    """The megakernel's runs: an int32 ``(nlevels, grid, 8)`` array whose
+    ``[lv, c]`` is ``(start, end, n, slot, kind, k, i, j)``: ``[start,
+    end)`` is CTA c's contiguous run of level lv's work list, the level's
+    n tasks of slice 0, then of slice 1, ... (item ``w`` is slice ``w //
+    n``, task ``w % n``), ``slot = start % n`` the table row of the run's
+    first task and ``(kind, k, i, j)`` that row's task (what the kernel
+    reads a level ahead instead of scanning the table).
+
+    The runs cover every item exactly once, in order.  A level of at most
+    ``grid`` items gives each of the first CTAs one.  Otherwise boundary c
+    starts at the first item whose preceding items weigh at least c / grid
+    of the level (:func:`_task_weights`), and moves to the nearest end of a
+    chained group (:func:`_chained`) that it falls inside, where that end
+    is at most a sixteenth of an even run away: a split group costs its
+    second CTA one reload of the V tile and T, a longer run costs whole
+    tasks.  A CTA's run may span slices; the kernel keeps no tile across a
+    slice boundary."""
+    table, nlevels, nslots = megakernel_task_table(p, q)
+    out = np.zeros((nlevels, grid, 8), np.int32)
+    counts = []
+    for lv in range(nlevels):
+        rows = table[lv * nslots:(lv + 1) * nslots]
+        n = int((rows[:, _COL_KIND] != _NOOP).sum())
+        counts.append(n)
+        chained = _chained(rows[:n])
+        total = batch * n
+        if total <= grid:  # a task a CTA: the level takes its slowest task
+            out[lv, :total, 0] = np.arange(total)
+            out[lv, :total, 1] = np.arange(1, total + 1)
+            out[lv, total:] = total
+            continue
+        # before[x]: the weight of the items ahead of item x.
+        before = np.concatenate(
+            [[0], np.cumsum(np.tile(_task_weights(rows[:n]), batch))])
+        targets = np.arange(1, grid) * before[-1] / grid
+        slack = total // grid // 16
+        bounds = [0]
+        for x in np.searchsorted(before, targets, side="left").tolist():
+            x = min(x, total)
+            b, t = divmod(x, n)
+            if x < total and chained[t] and slack:
+                g0 = t
+                while chained[g0]:
+                    g0 -= 1
+                g1 = t
+                while g1 < n and chained[g1]:
+                    g1 += 1
+                if min(t - g0, g1 - t) <= slack:
+                    x = b * n + (g0 if t - g0 <= g1 - t else g1)
+            bounds.append(max(x, bounds[-1]))
+        bounds.append(total)
+        out[lv, :, 0] = bounds[:-1]
+        out[lv, :, 1] = bounds[1:]
+    n = np.asarray(counts, np.int32)[:, None]
+    out[:, :, 2] = n
+    out[:, :, 3] = out[:, :, 0] % n
+    out[:, :, 4:8] = table[np.arange(nlevels)[:, None] * nslots
+                           + out[:, :, 3], :4]
+    return out
+
+
+_DEVICE_RUNS: Dict[Tuple[int, int, int, int, str], torch.Tensor] = {}
+
+
+def megakernel_runs_device(p: int, q: int, batch: int, grid: int,
+                           device: torch.device) -> torch.Tensor:
+    """:func:`megakernel_runs` on ``device``: one upload per key."""
+    key = (p, q, batch, grid, str(device))
+    if key not in _DEVICE_RUNS:
+        _DEVICE_RUNS[key] = torch.from_numpy(
+            megakernel_runs(p, q, batch, grid)).to(device)
+    return _DEVICE_RUNS[key]
 
 
 def table_fits(p: int, q: int, budget: int) -> Tuple[bool, int]:

@@ -31,10 +31,13 @@ LINK_FLAGS = ("-shared", "-Xcompiler", "-fPIC")
 
 # (ws, aux0, aux1, idx, ntasks, p, q, nb, is_double, smem_bytes, stream)
 _MACRO_OP_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-# (ws, d_t, d_taus, t_t, t_taus, table, nlevels, nslots, batch, p, q, nb,
-#  is_double, smem_bytes, barrier, stream, grid_out)
-_MEGAKERNEL_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 \
+# (ws, d_t, d_taus, t_t, t_taus, table, runs, nlevels, nslots, batch, p,
+#  q, nb, stages, grid, is_double, smem_bytes, barrier, stream, grid_out)
+_MEGAKERNEL_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 \
     + [ctypes.c_void_p] * 2 + [ctypes.POINTER(ctypes.c_int)]
+# (batched, is_double, smem_bytes, per_sm_out, resident_out)
+_MEGAKERNEL_RESIDENT_ARGS = [ctypes.c_int] * 3 \
+    + [ctypes.POINTER(ctypes.c_int)] * 2
 # (a, a_bs, lda, m, b, kf, taus, batch, groups, rows, part, barriers,
 #  is_double, smem_bytes, stream, grid_out)
 _MHT_PANEL_ARGS = [ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_int] * 4 \
@@ -51,6 +54,12 @@ _WY_TRAILING_ARGS = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int] \
     + [ctypes.c_void_p] * 2 + [ctypes.c_longlong] + [ctypes.c_int] * 5 \
     + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 \
     + [ctypes.c_void_p] + [ctypes.POINTER(ctypes.c_int)] * 2
+# (v, v_bs, ldv, t, c, c_bs, ldc, m, n, k, batch, cluster, rows,
+#  is_double, smem_bytes, stream, grid_out)
+_WY_TRAILING_CLUSTER_ARGS = [ctypes.c_void_p, ctypes.c_longlong,
+                             ctypes.c_int] + [ctypes.c_void_p] * 2 \
+    + [ctypes.c_longlong] + [ctypes.c_int] * 9 \
+    + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
 _ENTRIES = {
     "repro_geqrt": _MACRO_OP_ARGS,
     "repro_larfb": _MACRO_OP_ARGS,
@@ -58,9 +67,11 @@ _ENTRIES = {
     "repro_ssrfb": _MACRO_OP_ARGS,
     "repro_megakernel": _MEGAKERNEL_ARGS,
     "repro_megakernel_batched": _MEGAKERNEL_ARGS,
+    "repro_megakernel_resident": _MEGAKERNEL_RESIDENT_ARGS,
     "repro_mht_panel": _MHT_PANEL_ARGS,
     "repro_mht_panel_cluster": _MHT_PANEL_CLUSTER_ARGS,
     "repro_wy_trailing": _WY_TRAILING_ARGS,
+    "repro_wy_trailing_cluster": _WY_TRAILING_CLUSTER_ARGS,
 }
 _LIB = None
 #: The compiler's output of the build that produced the loaded library

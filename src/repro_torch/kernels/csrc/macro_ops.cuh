@@ -114,6 +114,73 @@ __device__ __forceinline__ void store_tile(T* dst, const T* src, int n) {
   for (int e = threadIdx.x; e < n; e += blockDim.x) dst[e] = src[e];
 }
 
+// Four consecutive elements as 16-byte accesses (two for double); the
+// address on a 16-byte boundary.
+__device__ __forceinline__ void ld4(const float* p, float (&o)[4]) {
+  const float4 x = *reinterpret_cast<const float4*>(p);
+  o[0] = x.x; o[1] = x.y; o[2] = x.z; o[3] = x.w;
+}
+
+__device__ __forceinline__ void ld4(const double* p, double (&o)[4]) {
+  const double2 x = *reinterpret_cast<const double2*>(p);
+  const double2 y = *reinterpret_cast<const double2*>(p + 2);
+  o[0] = x.x; o[1] = x.y; o[2] = y.x; o[3] = y.y;
+}
+
+__device__ __forceinline__ void st4(float* p, const float (&o)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(o[0], o[1], o[2], o[3]);
+}
+
+__device__ __forceinline__ void st4(double* p, const double (&o)[4]) {
+  *reinterpret_cast<double2*>(p) = make_double2(o[0], o[1]);
+  *reinterpret_cast<double2*>(p + 2) = make_double2(o[2], o[3]);
+}
+
+// Asynchronous copies global -> shared (cp.async).  The 16-byte form
+// caches in L2 only (.cg), like __ldcg; the element form (.ca) is for
+// data no other CTA of the launch writes.  A thread's copies complete at
+// its cp_async_wait(); a barrier after it publishes them to the CTA.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+
+template <typename T>
+__device__ __forceinline__ void cp_async_elem(T* dst, const T* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s),
+               "l"(src), "n"(sizeof(T))
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Copy n contiguous elements global -> shared, L2 only: 16-byte cp.async
+// where both ends and the size allow it, else synchronous __ldcg loads.
+// The caller commits, waits and synchronises.
+template <typename T>
+__device__ __forceinline__ void copy_tile_async(T* dst, const T* src, int n) {
+  const bool vec = ((((size_t)dst) | ((size_t)src)) & 15) == 0 &&
+                   (n * sizeof(T)) % 16 == 0;
+  if (vec) {
+    constexpr int kPer = 16 / sizeof(T);
+    for (int e = threadIdx.x * kPer; e < n; e += blockDim.x * kPer)
+      cp_async16(dst + e, src + e);
+  } else {
+    load_tile(dst, src, n);
+  }
+}
+
 // Most columns a lane owns in the warp-synchronous column loops
 // (c = lane + 32 t, t < kSlots): tiles up to nb = 128.
 constexpr int kSlots = 4;

@@ -25,7 +25,9 @@ megakernels of its ``repro.core.engine``.  Three layers:
   * **megakernel wrappers** — :func:`megakernel` and
     :func:`megakernel_batched`: one cooperative launch walks the engine's
     whole task table (``engine.megakernel_task_table``) over a factor
-    state, or over a stacked ``(B, ...)`` state, in place.  Their plain
+    state, or over a stacked ``(B, ...)`` state, in place; each CTA takes
+    the contiguous runs ``engine.megakernel_runs`` gives it, sized here
+    from the occupancy query (:func:`megakernel_resident`).  Their plain
     versions :func:`megakernel_plain` / :func:`megakernel_batched_plain`
     walk the table row by row, one task at a time, the reference's
     sequential semantics.
@@ -78,6 +80,10 @@ __all__ = [
     "engine_vmem_bytes",
     "megakernel_smem_bytes",
     "megakernel_launch_smem_bytes",
+    "megakernel_scratch_elems",
+    "megakernel_stages",
+    "megakernel_resident",
+    "MEGAKERNEL_OCCUPANCY",
     "MEGAKERNEL_SMEM_TILES",
 ]
 
@@ -449,8 +455,42 @@ def _check_megakernel(name: str, state, table: Tensor, nlevels: int,
                          f"{tuple(table.shape)} {table.dtype} on {table.device}")
 
 
+#: Resident CTAs per SM and in all of each megakernel's last launch.
+MEGAKERNEL_OCCUPANCY: Dict[str, Dict[str, int]] = {
+    "MEGAKERNEL": {"per_sm": 0, "resident": 0},
+    "MEGAKERNEL_BATCHED": {"per_sm": 0, "resident": 0}}
+_RESIDENT: Dict[Tuple, Tuple[int, int]] = {}
+
+
+def megakernel_resident(name: str, nb: int, dtype: torch.dtype,
+                        device: torch.device) -> Tuple[int, int]:
+    """``(CTAs per SM, resident CTAs)`` of the ``name`` megakernel at its
+    launch's shared memory for tile ``nb`` on ``device``: the occupancy
+    query, once per key.  The grid of a launch is at most the resident
+    count (a cooperative launch needs every CTA resident)."""
+    itemsize = torch.finfo(dtype).bits // 8
+    smem = megakernel_launch_smem_bytes(nb, itemsize)
+    key = (name, smem, itemsize, str(device))
+    if key not in _RESIDENT:
+        from repro_torch.kernels import _build
+
+        lib = _build.library()
+        per_sm, resident = ctypes.c_int(0), ctypes.c_int(0)
+        with torch.cuda.device(device):
+            rc = lib.repro_megakernel_resident(
+                int(name == "MEGAKERNEL_BATCHED"), int(itemsize == 8), smem,
+                ctypes.byref(per_sm), ctypes.byref(resident))
+        if rc != 0:
+            raise RuntimeError(f"{name} occupancy query failed: CUDA error "
+                               f"{rc} ({_build.error_string(rc)})")
+        _RESIDENT[key] = (per_sm.value, resident.value)
+    return _RESIDENT[key]
+
+
 def _launch_megakernel(name: str, state, table: Tensor, nlevels: int,
                        nslots: int, batch: int) -> None:
+    from repro_torch.core import engine
+
     tiles = state.tiles
     if tiles.dtype not in KERNEL_DTYPES:
         raise TypeError(f"{name} kernel takes float32 or float64, "
@@ -462,18 +502,29 @@ def _launch_megakernel(name: str, state, table: Tensor, nlevels: int,
 
     lib = _build.library()
     p, q, nb = tiles.shape[-4], tiles.shape[-3], tiles.shape[-1]
+    itemsize = tiles.element_size()
+    per_sm, resident = megakernel_resident(name, nb, tiles.dtype, tiles.device)
+    MEGAKERNEL_OCCUPANCY[name] = {"per_sm": per_sm, "resident": resident}
+    grid_ctas = min(batch * nslots, resident)
+    if grid_ctas < 1:
+        raise RuntimeError(f"{name}: not one CTA of "
+                           f"{megakernel_launch_smem_bytes(nb, itemsize)} B "
+                           f"of shared memory fits the device")
+    runs = engine.megakernel_runs_device(p, q, batch, grid_ctas, tiles.device)
     barrier = torch.zeros(1, dtype=torch.int32, device=tiles.device)
     grid = ctypes.c_int(0)
     with torch.cuda.device(tiles.device):
         stream = torch.cuda.current_stream(tiles.device).cuda_stream
         rc = getattr(lib, f"repro_{name.lower()}")(
-            *(x.data_ptr() for x in state), table.data_ptr(), nlevels, nslots,
-            batch, p, q, nb, int(tiles.dtype == torch.float64),
-            megakernel_launch_smem_bytes(nb, tiles.element_size()),
+            *(x.data_ptr() for x in state), table.data_ptr(), runs.data_ptr(),
+            nlevels, nslots, batch, p, q, nb,
+            megakernel_stages(nb, itemsize), grid_ctas,
+            int(tiles.dtype == torch.float64),
+            megakernel_launch_smem_bytes(nb, itemsize),
             barrier.data_ptr(), stream, ctypes.byref(grid))
     MEGAKERNEL_GRID[name] = grid.value
     if rc != 0:
-        raise RuntimeError(f"{name} cooperative launch failed ({grid.value} "
+        raise RuntimeError(f"{name} cooperative launch failed ({grid_ctas} "
                            f"CTAs): CUDA error {rc} "
                            f"({_build.error_string(rc)})")
     LAUNCHES[name] += 1
@@ -610,8 +661,31 @@ def megakernel_smem_bytes(nb: int, itemsize: int = 4) -> int:
     return MEGAKERNEL_SMEM_TILES * nb * nb * itemsize
 
 
+def megakernel_scratch_elems(nb: int) -> int:
+    """The largest compute scratch of the four bodies (``csrc/macro_ops.cu``):
+    GEQRT's and TSQRT's transposed Gram matrix, T at pitch nb + 1, taus and
+    the column exchange; LARFB's and SSRFB's two tiles fit inside it."""
+    return 2 * nb * nb + 2 * nb + XCH_ELEMS
+
+
+def _megakernel_elems(nb: int, stages: int) -> int:
+    return 4 * stages * nb * nb + megakernel_scratch_elems(nb)
+
+
+def megakernel_stages(nb: int, itemsize: int = 4) -> int:
+    """Operand buffers per slot of a megakernel CTA: 2 (the next task's
+    tiles stream in while one computes) where four double-buffered slots
+    and the scratch fit the shared-memory budget, else 1 (reuse, no
+    prefetch: e.g. nb = 64 fp64, whose double buffers alone are 256 KiB)."""
+    from repro_torch.core.engine import DEFAULT_SMEM_BUDGET
+
+    fits = _megakernel_elems(nb, 2) * itemsize <= DEFAULT_SMEM_BUDGET
+    return 2 if fits else 1
+
+
 def megakernel_launch_smem_bytes(nb: int, itemsize: int = 4) -> int:
     """Dynamic shared memory of one megakernel CTA, the size its launch
-    passes and the engine's guard reads: a CTA runs every kind of task out
-    of one region, so it is the largest body's carve-up."""
-    return engine_smem_bytes(nb, itemsize)
+    passes and the engine's guard reads: four operand slots (V, T, C,
+    C_i) of :func:`megakernel_stages` tiles each, then the largest compute
+    scratch."""
+    return _megakernel_elems(nb, megakernel_stages(nb, itemsize)) * itemsize

@@ -130,17 +130,19 @@ def test_tile_bodies_match_plain_on_hopper(kind, nb, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
-@pytest.mark.parametrize("p,q", [(8, 8), (5, 3)])
-def test_megakernels_match_plain_walk_on_hopper(p, q, dtype):
+@pytest.mark.parametrize("p,q,batch", [(8, 8, 3), (5, 3, 3), (5, 3, 7)])
+def test_megakernels_match_plain_walk_on_hopper(p, q, batch, dtype):
     """Both megakernels against their plain walks within 4 * eps * nb *
     max(1, max |plain|) (chip_smoke.py's kernel tolerance), the megakernel
     against the wavefront kernels bitwise, and each batched slice against
-    a single megakernel run bitwise."""
+    a single megakernel run bitwise; 7 slices of a (5, 3) grid give runs
+    that cross slice boundaries."""
     _need_hopper()
     nb = 32
     dt = getattr(torch, dtype)
     table = engine.megakernel_table(p, q, torch.device("cuda"))
-    base = torch.from_numpy(_ragged(_workspace((3, p, q, nb, nb), 60, dtype))).cuda()
+    base = torch.from_numpy(_ragged(_workspace((batch, p, q, nb, nb), 60,
+                                               dtype))).cuda()
     tol = 4 * torch.finfo(dt).eps * nb
     single = engine.init_state(base[0].clone())
     plain = engine.init_state(base[0].clone())
@@ -160,7 +162,43 @@ def test_megakernels_match_plain_walk_on_hopper(p, q, dtype):
             assert float((x - y).abs().max()) <= tol * scale
     for x, y in zip(single, wave):
         assert torch.equal(x, y)
-    for b in range(3):
+    for b in range(batch):
+        alone = engine.init_state(base[b].clone())
+        tmo.megakernel(alone, *table)
+        torch.cuda.synchronize()
+        for x, y in zip(stacked, alone):
+            assert torch.equal(x[b], y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_megakernel_at_nb64_on_hopper(dtype):
+    """At nb = 64 the megakernel's operand slots hold two buffers in fp32
+    and one in fp64 (the double buffers do not fit): both walks against
+    their plain versions within 4 * eps * nb * max(1, max |plain|), the
+    megakernel equal to the wavefront kernels and every batched slice to
+    its single run, bitwise."""
+    _need_hopper()
+    p, q, nb, batch = 4, 3, 64, 3
+    dt = getattr(torch, dtype)
+    assert tmo.megakernel_stages(nb, dt.itemsize) == (2 if dtype == "float32"
+                                                       else 1)
+    table = engine.megakernel_table(p, q, torch.device("cuda"))
+    base = torch.from_numpy(_ragged(_workspace((batch, p, q, nb, nb), 62,
+                                               dtype))).cuda()
+    single = engine.init_state(base[0].clone())
+    plain = engine.init_state(base[0].clone())
+    wave = engine.init_state(base[0].clone())
+    tmo.megakernel(single, *table)
+    tmo.megakernel_plain(plain, *table)
+    engine.run_levels(wave, use_kernel=True)
+    stacked = engine.init_state(base.clone())
+    tmo.megakernel_batched(stacked, *table)
+    torch.cuda.synchronize()
+    _within(tuple(single), tuple(plain), nb, dt)
+    for x, y in zip(single, wave):
+        assert torch.equal(x, y)
+    for b in range(batch):
         alone = engine.init_state(base[b].clone())
         tmo.megakernel(alone, *table)
         torch.cuda.synchronize()
@@ -245,15 +283,23 @@ def test_mht_panel_paths_on_hopper(shape, path, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 @pytest.mark.parametrize("bmkn", [(3, 576, 32, 160), (1, 2000, 32, 300),
-                                  (2, 40, 20, 7)], ids=str)
+                                  (2, 40, 20, 7), (1, 4096, 32, 300),
+                                  (1, 8000, 32, 64), (2, 30000, 32, 40)],
+                         ids=str)
 def test_wy_trailing_matches_plain_on_hopper(bmkn, dtype):
     """The trailing kernel on V and T of a factored panel, in place on a
     column view of a wider matrix, against ``macro_ops.wy_body`` within
     4 * eps * k * max(1, max |plain|); the columns left of the view are
-    untouched."""
+    untouched.  One shape per layout: clusters of 3 (fp64: 6), 8 (fp64:
+    8 at one CTA an SM), 1 and 16 CTAs sized for two CTAs an SM (4096 rows; fp64 one),
+    16 CTAs at one an SM (8000 rows, fp32), and the streaming layout
+    (30000 rows; 8000 in fp64)."""
     _need_hopper()
+    from repro_torch.kernels import wy_trailing as ktrail
+
     bsz, m, k, n = bmkn
     dt = getattr(torch, dtype)
+    lay = ktrail.layout(m, n, k, bsz, torch.finfo(dt).bits // 8)
     packed, taus = tmo.panel_body(
         torch.from_numpy(_workspace((bsz, m, k), 71, dtype)).cuda(), 0)
     v = blocked.unpack_v_panel(packed, 0)
@@ -265,6 +311,8 @@ def test_wy_trailing_matches_plain_on_hopper(bmkn, dtype):
     ops.wy_trailing_(v, t, whole[..., 3:])
     torch.cuda.synchronize()
     assert tmo.LAUNCHES["WY_TRAILING"] == before + 1
+    assert ktrail.LAST_GRID["layout"] == lay.path
+    assert ktrail.LAST_GRID["cluster"] == lay.cluster
     _within((whole[..., 3:],), (want,), k, dt)
     assert torch.equal(whole[..., :3], keep)
 

@@ -227,11 +227,20 @@ def test_megakernel_table_upload_and_wrapper_checks():
 
 
 def test_launch_shared_memory_is_the_largest_body():
-    """The megakernel's launch takes the largest body's carve-up; the
+    """The megakernel's launch takes four operand slots (two buffers each
+    wherever they fit the budget, else one) and the largest body's
+    compute scratch, which holds every wavefront kernel's carve-up; the
     auto rule keeps the reference's 15-tile model."""
-    for nb, itemsize in ((8, 4), (32, 4), (32, 8), (64, 8)):
-        assert tmo.megakernel_launch_smem_bytes(nb, itemsize) == max(
-            tmo.smem_bytes(k, nb, itemsize) for k in tmo.MACRO_OPS)
+    for nb, itemsize in ((8, 4), (32, 4), (32, 8), (64, 4), (64, 8)):
+        stages = tmo.megakernel_stages(nb, itemsize)
+        need = tmo.megakernel_launch_smem_bytes(nb, itemsize)
+        assert need == (4 * stages * nb * nb + 2 * nb * nb + 2 * nb
+                        + tmo.XCH_ELEMS) * itemsize
+        assert need <= teng.DEFAULT_SMEM_BUDGET
+        assert need >= max(tmo.smem_bytes(k, nb, itemsize)
+                           for k in tmo.MACRO_OPS)
+    assert [tmo.megakernel_stages(nb, size) for nb, size in
+            ((16, 8), (32, 4), (32, 8), (64, 4), (64, 8))] == [2, 2, 2, 2, 1]
     assert tmo.megakernel_smem_bytes(32) == 15 * 32 * 32 * 4
     cfg = tplan.QRConfig(method="tiled", dispatch_mode="megakernel")
     assert ttg._smem_tiled(640, 640, cfg) == tmo.megakernel_launch_smem_bytes(32)

@@ -13,16 +13,22 @@ Phases, each of which exits non-zero when it fails:
      and zero-padded tiles that take the exact ``tau = 0`` path), and time
      kernel, plain version and, where one PyTorch call computes the same
      function, that call;
+  3b. hold Q formation's updates (QLARFB, QSSRFB) against their plain
+     versions the same way, at the 2048 x 2048 path's largest Q batches;
   4. run the main path — ``repro_torch.qr(a)`` with the default config on a
      seeded 2048 x 2048 float32 matrix — check that it went through the
-     kernels (launch counts equal to the schedule's), meets the
-     conformance bar, and agrees with the plain lowering on the card, and
-     time it beside ``torch.linalg.qr``;
+     kernels (launch counts equal to the schedule's: Q formed in at most
+     two launches a Q level), meets the conformance bar, and agrees with
+     the plain lowering on the card, and time it beside
+     ``torch.linalg.qr``;
   5. break the main path's time down: the factorization's host time, the
      device time of each kernel kind's launches, the device's busy share
-     of one factorization (a ``torch.profiler`` trace), and the time of
-     forming Q;
+     of one factorization (a ``torch.profiler`` trace), and Q formation on
+     the kernels at 2048^2 and 640^2 (launches, host and device time,
+     agreement with the plain Q loop on the same state);
   6. hold the megakernel and its batched twin against their plain walks
+     (and their Q-table launches against the plain Q loop, the wavefront
+     Q walk and single runs)
      (fp32 and fp64, 8 x 8 and 5 x 3 grids at nb = 32, stacks of 3 and,
      on the 5 x 3 grid, 7 slices, whose CTA runs cross slice boundaries),
      the megakernel against the wavefront kernels on the same workspace
@@ -35,14 +41,17 @@ Phases, each of which exits non-zero when it fails:
      forced wavefront lowering;
   8. the batched path: ``repro_torch.qr`` on a seeded (60, 576, 576)
      float32 stack (the shape class of SmolLM-135M's 60 q/o projections)
-     runs one batched megakernel launch, every slice inside the bar,
-     timed beside ``torch.linalg.qr`` on the stack and the slice-by-slice
-     loop of the wavefront lowering;
+     runs one batched megakernel launch and one over the Q table, every
+     slice inside the bar, timed beside ``torch.linalg.qr`` on the stack
+     and the slice-by-slice loop of the wavefront lowering, with Q
+     formation's host and device time;
   9. time both megakernels at those shapes (and the batched one on a
      (15, 576, 576) stack) against their plain walks, their bound and
      ``torch.geqrf``, with each one's ms per level and resident CTAs per
-     SM, and each of the four task bodies alone, one task per launch
-     (nb = 32, fp32), since the slowest body of a level sets its time;
+     SM, and their launches over the Q table against the plain Q walk and
+     ``torch.linalg.householder_product``; and each of the four task
+     bodies alone, one task per launch (nb = 32, fp32), since the slowest
+     body of a level sets its time;
  10. hold the panel path's kernels against their plain versions (fp32
      and fp64): ``mht_panel`` and ``wy_trailing`` at the shapes its main
      paths give them, and the single-tile ``tsqrt`` / ``ssrfb`` entry
@@ -61,8 +70,10 @@ Phases, each of which exits non-zero when it fails:
 
 Each correctness check is shown to reject a control whose answer is only
 TF32-grade: the kernels' written outputs rounded to TF32 (fp64: to fp32),
-and the main paths' plain lowering run with TF32 products.  Every phase
-prints its seconds.
+the update kernels' plain versions and the plain Q loop run on inputs
+rounded to TF32 (one-pass TF32 products), and the main paths' plain
+lowering run with TF32 products.
+Every phase prints its seconds.
 
 The second-to-last line of output is a JSON object with one record per
 kernel; the last is ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -82,8 +93,9 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM data-sheet peaks (dense, no tensor cores): the kernels run FMA
-# on the CUDA cores, so FP32 SIMT is their compute roof.
+# H100 SXM data-sheet peaks outside the tensor cores: the kernels' fp32
+# work runs as FMA on the CUDA cores, so FP32 SIMT is their compute roof
+# (the fp64 update products' DMMA rate is not a roof any row reports).
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
 PEAK_BYTES = 3.35e12
 
@@ -100,6 +112,9 @@ FLOPS = {"GEQRT": lambda nb: 5 * nb ** 3 / 3, "LARFB": lambda nb: 3 * nb ** 3,
          "TSQRT": lambda nb: 10 * nb ** 3 / 3, "SSRFB": lambda nb: 5 * nb ** 3}
 ELEMS = {"GEQRT": lambda nb: 3 * nb * nb + nb, "LARFB": lambda nb: 4 * nb * nb,
          "TSQRT": lambda nb: 5 * nb * nb + nb, "SSRFB": lambda nb: 6 * nb * nb}
+# Q formation's updates are LARFB's and SSRFB's with T for T^T.
+FLOPS.update(QLARFB=FLOPS["LARFB"], QSSRFB=FLOPS["SSRFB"])
+ELEMS.update(QLARFB=ELEMS["LARFB"], QSSRFB=ELEMS["SSRFB"])
 
 REPLACES = {
     "GEQRT": "src/repro/kernels/macro_ops.py:295",
@@ -112,7 +127,14 @@ REPLACES = {
     "WY_TRAILING": "src/repro/kernels/wy_trailing.py:36",
     "TSQRT_TILE": "src/repro/kernels/tile_ops.py:83",
     "SSRFB_TILE": "src/repro/kernels/tile_ops.py:126",
+    # Q formation runs LARFB's and SSRFB's kernels with T for T^T; the
+    # reference computes it in jnp (src/repro/core/tilegraph.py:265).
+    "QLARFB": "src/repro/kernels/macro_ops.py:309",
+    "QSSRFB": "src/repro/kernels/macro_ops.py:340",
+    "MEGAKERNEL_Q": "src/repro/core/engine.py:803",
+    "MEGAKERNEL_Q_BATCHED": "src/repro/core/engine.py:814",
 }
+Q_FORMATION = "src/repro/core/tilegraph.py:265"
 
 N_MEGA = 640            # 20 x 20 grid: the largest square the auto rule
                         # gives the megakernel (24 x 24's table is over budget)
@@ -242,6 +264,13 @@ def check_kernel(torch, engine, macro_ops, kind, idx_np, dtype, seed,
                ntasks=int(idx_np.shape[0]), max_abs_err=err, tol=tol,
                control_err=control_err,
                ok=err <= tol and control_err > tol)
+    if kind in ("LARFB", "SSRFB") and dtype == torch.float32:
+        # The one-pass TF32 control: the plain version with TF32 products.
+        res["tf32_plain_err"] = max_err(torch, tf32_plain(
+            torch, lambda st: macro_ops.run_batch(kind, st, idx,
+                                                  use_kernel=False),
+            base, engine), want)[0]
+        res["ok"] = res["ok"] and res["tf32_plain_err"] > tol
     if timing:
         work = engine.FactorState(*(x.clone() for x in base))
 
@@ -256,6 +285,18 @@ def check_kernel(torch, engine, macro_ops, kind, idx_np, dtype, seed,
         res["bound_ms"], res["bound_by"] = bound(kind, idx_np.shape[0], NB,
                                                  res["dtype"])
     return res, got, want
+
+
+def tf32_plain(torch, run, base, engine):
+    """``run`` (a plain version, in place) on a copy of ``base`` whose
+    entries are rounded to TF32: the products of one-pass TF32 (exact
+    products of TF32 operands, summed in fp32), a result only that
+    accurate.  (``allow_tf32`` is a hint that cuBLAS does not take for
+    every batched shape.)"""
+    work = engine.FactorState(*(round_low(torch, x) for x in base))
+    run(work)
+    torch.cuda.synchronize()
+    return work
 
 
 def library_ms(torch, kind, st, idx_np):
@@ -331,7 +372,113 @@ def phase_kernels(torch, engine, macro_ops):
     bad = [r for r in results if not r["ok"]]
     if bad:
         raise SystemExit(f"kernel checks failed: {bad}")
+    # The update walk in fp64 (DMMA products) on the same batches.
+    for seed, kind in enumerate(("LARFB", "SSRFB")):
+        base = make_state(torch, engine, torch.float64, 20 + seed,
+                          torch.device("cuda"))
+        work = engine.FactorState(*(x.clone() for x in base))
+        idx = torch.from_numpy(np.ascontiguousarray(
+            largest_batch(engine, kind))).cuda()
+
+        def reset():
+            for w_, b_ in zip(work, base):
+                w_.copy_(b_)
+        rows[kind]["fp64_ms"] = time_ms(torch, lambda: macro_ops.run_batch(
+            kind, work, idx, use_kernel=True), reset)
+        rows[kind]["fp64_bound_ms"] = bound(kind, idx.shape[0], NB,
+                                            "float64")[0]
+        log(f"{kind} fp64 ms:", rows[kind]["fp64_ms"])
     return rows, results
+
+
+def q_largest_batch(engine, kind, p=P, q=Q, qe=Q):
+    """(n, 3) int32 index array of Q formation's largest ``kind`` batch."""
+    return max((lv[kind] for lv in engine.q_task_arrays(p, q, qe)
+                if kind in lv), key=len)
+
+
+def phase_q_kernels(torch, engine, macro_ops):
+    """Q formation's updates (QLARFB, QSSRFB: the walk kernel's Q kinds)
+    against their plain versions on the card, fp32 and fp64, at the
+    2048 x 2048 path's largest Q batch of each kind, on a seeded factor
+    state and Q workspace: the bound is the kernel checks'
+    4 * eps * nb * max(1, max |plain|), which the TF32-rounded outputs
+    and (fp32) the plain version with TF32 products must both miss; the
+    factored state must come out untouched (the TF32 control of fp32: the
+    plain version on TF32-rounded inputs).  fp32 times: kernel, plain
+    version, and ``torch.ormqr`` applying the same reflectors' Q (not
+    Q^T) to the same tiles."""
+    rows, results = {}, []
+    dev = torch.device("cuda")
+    for seed, kind in enumerate(("QLARFB", "QSSRFB")):
+        idx_np = q_largest_batch(engine, kind)
+        idx = torch.from_numpy(np.ascontiguousarray(idx_np)).to(dev)
+        for dtype in (torch.float32, torch.float64):
+            st = make_state(torch, engine, dtype, 40 + seed, dev)
+            keep = [x.clone() for x in st]
+            rng = np.random.default_rng(50 + seed)
+            e0 = torch.from_numpy(rng.standard_normal((P, Q, NB, NB))).to(
+                dev, dtype)
+            got, want = e0.clone(), e0.clone()
+            before = macro_ops.LAUNCHES[kind]
+            macro_ops.run_q_batch(kind, st, got, idx, use_kernel=True)
+            torch.cuda.synchronize()
+            assert macro_ops.LAUNCHES[kind] == before + 1, f"{kind} not launched"
+            macro_ops.run_q_batch(kind, st, want, idx, use_kernel=False)
+            torch.cuda.synchronize()
+            assert macro_ops.LAUNCHES[kind] == before + 1
+            res = dict(kind=kind, dtype=str(dtype).replace("torch.", ""),
+                       ntasks=int(idx_np.shape[0]),
+                       grid_ctas=macro_ops.WALK_GRID[kind],
+                       state_untouched=all(torch.equal(x, y)
+                                           for x, y in zip(st, keep)),
+                       **compare(torch, (got,), (want,), (e0,), NB, dtype))
+            if dtype == torch.float32:
+                # One-pass TF32: the plain version on TF32-rounded inputs.
+                ctrl = round_low(torch, e0)
+                macro_ops.run_q_batch(kind, engine.FactorState(*(
+                    round_low(torch, x) for x in st)), ctrl, idx,
+                    use_kernel=False)
+                torch.cuda.synchronize()
+                res["tf32_plain_err"] = max_err(torch, (ctrl,), (want,))[0]
+                res["ok"] = res["ok"] and res["tf32_plain_err"] > res["tol"]
+                work = e0.clone()
+                res["ms"] = time_ms(torch, lambda: macro_ops.run_q_batch(
+                    kind, st, work, idx, use_kernel=True), lambda: work.copy_(e0))
+                res["plain_ms"] = time_ms(torch, lambda: macro_ops.run_q_batch(
+                    kind, st, work, idx, use_kernel=False),
+                    lambda: work.copy_(e0), reps=5, warmup=1)
+                res["library_ms"] = q_library_ms(torch, kind, st, e0, idx_np)
+                res["bound_ms"], res["bound_by"] = bound(
+                    kind, idx_np.shape[0], NB, res["dtype"])
+                rows[kind] = res
+            res["ok"] = res["ok"] and res["state_untouched"]
+            log("Q kernel check:", json.dumps(res))
+            results.append(res)
+    bad = [r for r in results if not r["ok"]]
+    if bad:
+        raise SystemExit(f"Q kernel checks failed: {bad}")
+    return rows
+
+
+def q_library_ms(torch, kind, st, e, idx_np):
+    """``torch.ormqr`` applying the batch's reflectors' Q (transpose=False)
+    to its E tiles, gathered outside the timed region: QLARFB's V1 from
+    the diagonal tile, QSSRFB's stacked ``[0; V2]`` to ``[E_k; E_i]``."""
+    kk, ii, jj = (torch.from_numpy(idx_np[:, c].astype(np.int64)).cuda()
+                  for c in range(3))
+    if kind == "QLARFB":
+        diag = st.tiles[kk, kk].contiguous()
+        taus = st.d_taus[kk].contiguous()
+        c = e[kk, jj].contiguous()
+        return time_ms(torch, lambda: torch.ormqr(diag, taus, c, left=True,
+                                                  transpose=False))
+    v2 = st.tiles[ii, kk]
+    packed = torch.cat([torch.zeros_like(v2), v2], dim=1).contiguous()
+    taus = st.t_taus[ii, kk].contiguous()
+    c = torch.cat([e[kk, jj], e[ii, jj]], dim=1).contiguous()
+    return time_ms(torch, lambda: torch.ormqr(packed, taus, c, left=True,
+                                              transpose=False))
 
 
 def launch_counts(macro_ops):
@@ -365,9 +512,20 @@ def phase_main_path(torch, engine, macro_ops, repro_torch, n, mode, label):
     q, r = repro_torch.qr(a)
     torch.cuda.synchronize()
     launches = launch_counts(macro_ops)
-    expected = engine.dispatch_counts(n // NB, n // NB, mode)
+    g = n // NB
+    expected = dict(engine.dispatch_counts(g, g, mode),
+                    **engine.q_dispatch_counts(g, g, g, mode))
+    q_levels = len(engine.q_task_arrays(g, g, g))
     log(f"{label} launches:", json.dumps(launches), "expected:",
-        json.dumps(expected), "grid:", json.dumps(macro_ops.MEGAKERNEL_GRID))
+        json.dumps(expected), "Q levels:", q_levels,
+        "grid:", json.dumps(macro_ops.MEGAKERNEL_GRID))
+    # Q forms on the kernels: one megakernel launch, or at most two
+    # launches (QLARFB, QSSRFB) a Q level.
+    if mode == "megakernel":
+        assert launches.get("MEGAKERNEL_Q") == 1, launches
+    else:
+        assert 0 < launches.get("QLARFB", 0) + launches.get("QSSRFB", 0) \
+            <= 2 * q_levels, launches
 
     eps = float(torch.finfo(torch.float32).eps)
     bar = 100 * eps * n
@@ -424,7 +582,8 @@ def phase_main_path(torch, engine, macro_ops, repro_torch, n, mode, label):
         repro_torch.qr(a, config=wave)
         torch.cuda.synchronize()
         wave_launches = launch_counts(macro_ops)
-        wave_expected = engine.dispatch_counts(n // NB, n // NB)
+        wave_expected = dict(engine.dispatch_counts(g, g),
+                             **engine.q_dispatch_counts(g, g, g))
         assert wave_launches == wave_expected, (wave_launches, wave_expected)
 
         def run_wave():
@@ -453,7 +612,7 @@ def busy_share(torch, engine, fresh):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    names = ("geqrt_kernel", "larfb_kernel", "tsqrt_kernel", "ssrfb_kernel")
+    names = ("geqrt_kernel", "tsqrt_kernel", "walk_kernel")
     for _ in range(2):      # the first session pays the tracer's start-up
         state = fresh()
         torch.cuda.synchronize()
@@ -517,17 +676,75 @@ def phase_breakdown(torch, engine, macro_ops, tilegraph, a):
         per_kind[kind] += start.elapsed_time(end)
     span_ms = timed[0][1].elapsed_time(timed[-1][2])
 
-    def form_q():
-        tilegraph._form_q_tiled(state, ncols=N)
-        torch.cuda.synchronize()
-
-    form_q_ms = host_ms(form_q, reps=3)
     total = sum(per_kind.values())
     out = dict(factor_host_ms=factor_ms, kernel_device_ms=per_kind,
                kernel_device_total_ms=total, spun_device_span_ms=span_ms,
-               profiled=busy_share(torch, engine, fresh),
-               form_q_host_ms=form_q_ms)
+               profiled=busy_share(torch, engine, fresh))
     log("main path breakdown:", json.dumps(out))
+    # Q formation as qr runs it, at 2048^2 (wavefront) and at 640^2 (the
+    # megakernel), each from its own factored state.
+    out["form_q"] = q_formation(torch, engine, macro_ops, tilegraph, state,
+                                N, "2048")
+    a640 = torch.from_numpy(np.random.default_rng(N_MEGA).standard_normal(
+        (N_MEGA, N_MEGA)).astype(np.float32)).cuda()
+    g = N_MEGA // NB
+    f640 = engine.factor_tiles(tilegraph._split_tiles(a640, g, g, NB), p=g,
+                               q=g, nb=NB, use_kernel=True)
+    out["form_q_640"] = q_formation(torch, engine, macro_ops, tilegraph, f640,
+                                    N_MEGA, "640")
+    return out
+
+
+def q_formation(torch, engine, macro_ops, tilegraph, state, ncols, label):
+    """Q formation on the kernels from a factored state, as ``qr`` runs it
+    (``engine.form_q_tiles`` by the auto rule's lowering, then the join):
+    its launches (one megakernel launch, or at most two a Q level), its
+    host time (median of 5) and device time (CUDA events behind a spin
+    kernel long enough for the host to enqueue every launch), held
+    against the plain Q loop (``tilegraph._form_q_tiled``) on the same
+    state within 4 * sqrt(N) * eps, N the rows, which the plain loop on
+    the state rounded to TF32 must miss; the plain loop's host time beside
+    it."""
+    *lead, p, q, nb, _ = state.tiles.shape
+    qe = ncols // nb
+    torch.cuda.synchronize()
+    macro_ops.reset_launch_counts()
+    got = tilegraph._join_tiles(engine.form_q_tiles(state, ncols))
+    torch.cuda.synchronize()
+    launches = launch_counts(macro_ops)
+    q_levels = len(engine.q_task_arrays(p, q, qe))
+    want = tilegraph._form_q_tiled(state, ncols)
+    # One-pass TF32: the plain Q loop on the factored state rounded to TF32.
+    ctrl = tilegraph._form_q_tiled(engine.FactorState(*(
+        round_low(torch, x) for x in state)), ncols)
+    torch.cuda.synchronize()
+    eps = float(torch.finfo(state.tiles.dtype).eps)
+    tol = 4 * (p * nb) ** 0.5 * eps
+    err = float((got - want).abs().max())
+    ctrl_err = float((ctrl - want).abs().max())
+
+    def run():
+        tilegraph._join_tiles(engine.form_q_tiles(state, ncols))
+        torch.cuda.synchronize()
+
+    def run_plain():
+        tilegraph._form_q_tiled(state, ncols)
+        torch.cuda.synchronize()
+    nlaunch = sum(launches.values())
+    out = dict(shape=list(lead) + [p * nb, ncols], launches=launches,
+               q_levels=q_levels, max_abs_err=err, tol=tol,
+               tf32_plain_err=ctrl_err, host_ms=host_ms(run, reps=5),
+               device_ms=time_ms(torch, lambda: engine.form_q_tiles(
+                   state, ncols), reps=10,
+                   spin=SPIN_CYCLES * (1 + nlaunch // 16)),
+               plain_host_ms=host_ms(run_plain, reps=1))
+    log(f"Q formation {label}:", json.dumps(out))
+    if "MEGAKERNEL_Q" in launches or "MEGAKERNEL_Q_BATCHED" in launches:
+        assert nlaunch == 1, launches
+    else:
+        assert set(launches) <= {"QLARFB", "QSSRFB"}, launches
+        assert 0 < nlaunch <= 2 * q_levels, (launches, q_levels)
+    assert err <= tol < ctrl_err, out
     return out
 
 
@@ -544,15 +761,19 @@ def stack_tiles(torch, shape, dtype, seed, ragged=False):
     return x
 
 
-def phase_megakernel_checks(torch, engine, macro_ops):
+def phase_megakernel_checks(torch, engine, macro_ops, tilegraph):
     """Both megakernels against their plain walks (the table's rows in
     order, one task at a time) on every state array, under the kernel
     checks' 4 * eps * nb * max(1, max |plain|) with a TF32-rounded
     control that must fail it; the megakernel against the wavefront
     kernels on the same workspace, and each batched slice against a
     single megakernel run of it: both bitwise, since every lowering runs
-    the same compute functions on the same operands.  A 7-slice stack of
-    the (5, 3) grid gives CTA runs that cross slice boundaries."""
+    the same compute functions on the same operands.  Then Q from each
+    factored state: the Q megakernel (one launch, the batched one for a
+    stack) within 4 * sqrt(N) * eps of the plain Q loop, bitwise equal to
+    the wavefront Q walk, and each batched slice's Q to the single
+    megakernel's.  A 7-slice stack of the (5, 3) grid gives CTA runs that
+    cross slice boundaries."""
     results = []
     for seed, (p, q) in enumerate(((8, 8), (5, 3))):
         table = engine.megakernel_table(p, q, torch.device("cuda"))
@@ -592,6 +813,19 @@ def phase_megakernel_checks(torch, engine, macro_ops):
                                 control_err=control_err,
                                 grid_ctas=macro_ops.MEGAKERNEL_GRID[name])
                 ok = err <= tol * scale < control_err
+                # Q formation from the factored state: the Q megakernel
+                # (batched for a stack) in one launch.
+                qname = "MEGAKERNEL_Q" + ("" if batch is None else "_BATCHED")
+                qbefore = macro_ops.LAUNCHES[qname]
+                q_mega = engine.form_q_tiles(got, p * NB,
+                                             dispatch_mode="megakernel")
+                torch.cuda.synchronize()
+                ok = ok and macro_ops.LAUNCHES[qname] == qbefore + 1
+                q_plain = tilegraph._form_q_tiled(got, p * NB)
+                q_tol = 4 * (p * NB) ** 0.5 * float(torch.finfo(dtype).eps)
+                res[key]["q_vs_plain_max_abs"] = float(
+                    (tilegraph._join_tiles(q_mega) - q_plain).abs().max())
+                ok = ok and res[key]["q_vs_plain_max_abs"] <= q_tol
                 if batch is None:
                     wave = engine.init_state(base.clone())
                     engine.run_levels(wave, use_kernel=True)
@@ -599,17 +833,27 @@ def phase_megakernel_checks(torch, engine, macro_ops):
                     diff = [float((g - w).abs().max()) for g, w in zip(got, wave)]
                     res[key]["vs_wavefront_max_abs"] = diff
                     ok = ok and all(torch.equal(g, w) for g, w in zip(got, wave))
+                    q_wave = engine.form_q_tiles(got, p * NB,
+                                                 dispatch_mode="wavefront")
+                    res[key]["q_vs_wavefront_max_abs"] = float(
+                        (q_mega - q_wave).abs().max())
+                    ok = ok and torch.equal(q_mega, q_wave)
                 else:
-                    diff = []
+                    diff, qdiff = [], []
                     for b in range(batch):
                         single = engine.init_state(base[b].clone())
                         macro_ops.megakernel(single, *table)
+                        q_single = engine.form_q_tiles(
+                            single, p * NB, dispatch_mode="megakernel")
                         torch.cuda.synchronize()
                         diff.append(max(float((g[b] - x).abs().max())
                                         for g, x in zip(got, single)))
+                        qdiff.append(float((q_mega[b] - q_single).abs().max()))
                         ok = ok and all(torch.equal(g[b], x)
                                         for g, x in zip(got, single))
+                        ok = ok and torch.equal(q_mega[b], q_single)
                     res[key]["slice_vs_single_max_abs"] = diff
+                    res[key]["q_slice_vs_single_max_abs"] = qdiff
                 res[key]["ok"] = bool(ok)
             res["ok"] = all(v["ok"] for v in res.values()
                             if isinstance(v, dict))
@@ -621,7 +865,7 @@ def phase_megakernel_checks(torch, engine, macro_ops):
     return results
 
 
-def phase_batched_path(torch, engine, macro_ops, repro_torch):
+def phase_batched_path(torch, engine, macro_ops, repro_torch, tilegraph):
     """``repro_torch.qr`` on a seeded (60, 576, 576) float32 stack: one
     batched megakernel launch, every slice inside the conformance bar and
     its R equal to a single call's; timed beside ``torch.linalg.qr`` on
@@ -645,7 +889,9 @@ def phase_batched_path(torch, engine, macro_ops, repro_torch):
     q, r = repro_torch.qr(stack)
     torch.cuda.synchronize()
     launches = launch_counts(macro_ops)
-    expected = engine.dispatch_counts(m // NB, n // NB, "megakernel", b)
+    expected = dict(engine.dispatch_counts(m // NB, n // NB, "megakernel", b),
+                    **engine.q_dispatch_counts(m // NB, n // NB, n // NB,
+                                               "megakernel", b))
     log("batched path launches:", json.dumps(launches), "expected:",
         json.dumps(expected), "grid:", json.dumps(macro_ops.MEGAKERNEL_GRID))
 
@@ -689,6 +935,11 @@ def phase_batched_path(torch, engine, macro_ops, repro_torch):
                   per_slice_wavefront_ms=host_ms(run_loop(wave), reps=2),
                   per_slice_megakernel_ms=host_ms(run_loop(None), reps=2))
     log("batched path timing:", json.dumps(timing))
+    g = m // NB
+    f = engine.factor_tiles_batched(tilegraph._split_tiles(stack, g, g, NB),
+                                    p=g, q=g, nb=NB, use_kernel=True)
+    timing["form_q"] = q_formation(torch, engine, macro_ops, tilegraph, f, n,
+                                   "stack")
 
     assert launches == expected, (launches, expected)
     assert checks["finite"] and checks["slices_in_bar"] == b, checks
@@ -844,7 +1095,59 @@ def phase_megakernel_timing(torch, engine, macro_ops, tilegraph):
         if not err <= tol < control_err or slices_equal not in (None, batch):
             raise SystemExit(f"{label} check failed: {res}")
         rows[label] = res
+        qlabel = label.replace("MEGAKERNEL", "MEGAKERNEL_Q")
+        rows[qlabel] = q_megakernel_timing(torch, engine, macro_ops, got, a,
+                                           batch, label == name)
     return rows
+
+
+def q_megakernel_timing(torch, engine, macro_ops, state, a, batch, plain):
+    """The Q megakernel (batched for a stack) over the Q table from a
+    factored state: held against its plain walk within 4 * sqrt(N) * eps
+    (N the rows), then timed — kernel, plain walk (``plain``) and
+    ``torch.linalg.householder_product`` forming Q from ``torch.geqrf`` of
+    the same matrix or stack — beside its bound (the factored state read
+    once, E written once; the Q updates' FLOPs)."""
+    *lead, p, q, nb, _ = state.tiles.shape
+    qe = q
+    name = "MEGAKERNEL_Q" + ("" if batch is None else "_BATCHED")
+    kernel, walk = ((macro_ops.megakernel_q, macro_ops.megakernel_q_plain)
+                    if batch is None else
+                    (macro_ops.megakernel_q_batched,
+                     macro_ops.megakernel_q_batched_plain))
+    table = engine.q_megakernel_table(p, q, qe, a.device)
+    e0 = engine.q_workspace(tuple(lead), p, qe, nb, a.dtype, a.device)
+    got, want = e0.clone(), e0.clone()
+    kernel(state, got, *table)
+    walk(state, want, *table)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    tol = 4 * (p * nb) ** 0.5 * float(torch.finfo(a.dtype).eps)
+    work = e0.clone()
+    h, tau = torch.geqrf(a)
+    kinds = table[0][:, 0]
+    nl = int((kinds == macro_ops.Q_KIND_ID["QLARFB"]).sum()) * (batch or 1)
+    ns = int((kinds == macro_ops.Q_KIND_ID["QSSRFB"]).sum()) * (batch or 1)
+    flops = nl * FLOPS["QLARFB"](nb) + ns * FLOPS["QSSRFB"](nb)
+    r = min(p, q)
+    elems = (batch or 1) * (p * q + r + p * r + p * qe) * nb * nb
+    res = dict(kernel=name, shape=list(a.shape), levels=table[1], tasks=nl + ns,
+               max_abs_err=err, tol=tol,
+               grid_ctas=macro_ops.MEGAKERNEL_GRID[name],
+               ms=time_ms(torch, lambda: kernel(state, work, *table),
+                          lambda: work.copy_(e0)),
+               plain_ms=(time_ms(torch, lambda: walk(state, work, *table),
+                                 lambda: work.copy_(e0), reps=2, warmup=1)
+                         if plain else None),
+               library_ms=time_ms(torch, lambda: torch.linalg.householder_product(
+                   h, tau), reps=5),
+               **dict(zip(("bound_ms", "bound_by"),
+                          bound_ms(flops, elems, "float32"))))
+    res["ms_per_level"] = res["ms"] / table[1]
+    log("Q megakernel timing:", json.dumps(res))
+    if not err <= tol:
+        raise SystemExit(f"{name} check failed: {res}")
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -1315,21 +1618,23 @@ def main() -> int:
         return out
 
     rows, _ = phase("kernel checks", phase_kernels, torch, engine, macro_ops)
+    q_rows = phase("Q kernel checks", phase_q_kernels, torch, engine,
+                   macro_ops)
     launches, e2e, lib = phase("main path 2048", phase_main_path, torch,
                                engine, macro_ops, repro_torch, N, "wavefront",
                                "main path")
     a = torch.from_numpy(np.random.default_rng(N).standard_normal(
         (N, N)).astype(np.float32)).cuda()
-    phase("breakdown 2048", phase_breakdown, torch, engine, macro_ops,
-          tilegraph, a)
+    breakdown_2048 = phase("breakdown 2048", phase_breakdown, torch, engine,
+                           macro_ops, tilegraph, a)
     phase("megakernel checks", phase_megakernel_checks, torch, engine,
-          macro_ops)
+          macro_ops, tilegraph)
     mega_launches, mega_ms, mega_lib = phase(
         "megakernel path 640", phase_main_path, torch, engine, macro_ops,
         repro_torch, N_MEGA, "megakernel", "megakernel path")
     stack_launches, stack_timing = phase(
         "batched path", phase_batched_path, torch, engine, macro_ops,
-        repro_torch)
+        repro_torch, tilegraph)
     mega_rows = phase("megakernel timing", phase_megakernel_timing, torch,
                       engine, macro_ops, tilegraph)
     bodies = phase("task bodies", phase_task_bodies, torch, engine, macro_ops)
@@ -1350,23 +1655,32 @@ def main() -> int:
             for label, parts in breakdown.items()}
 
     kernels = []
-    for kind in ("GEQRT", "LARFB", "TSQRT", "SSRFB"):
-        r = rows[kind]
+    for kind in ("GEQRT", "LARFB", "TSQRT", "SSRFB", "QLARFB", "QSSRFB"):
+        r = rows[kind] if kind in rows else q_rows[kind]
+        kernel = (f"{kind.lower()}_kernel" if kind in ("GEQRT", "TSQRT")
+                  else f"walk_kernel ({kind})")
         kernels.append(dict(
-            name=f"{kind.lower()}_kernel", route="cuda", source=SOURCE,
+            name=kernel, route="cuda", source=SOURCE,
             replaces=REPLACES[kind], launches=launches[kind],
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-            library_ms=r["library_ms"], ntasks=r["ntasks"]))
+            library_ms=r["library_ms"], ntasks=r["ntasks"],
+            **({"fp64_ms": r["fp64_ms"]} if "fp64_ms" in r else {}),
+            **({"computes": Q_FORMATION} if kind.startswith("Q") else {})))
     for name, path_launches in (("MEGAKERNEL", mega_launches),
-                                ("MEGAKERNEL_BATCHED", stack_launches)):
+                                ("MEGAKERNEL_BATCHED", stack_launches),
+                                ("MEGAKERNEL_Q", mega_launches),
+                                ("MEGAKERNEL_Q_BATCHED", stack_launches)):
         r = mega_rows[name]
         kernels.append(dict(
-            name=f"{name.lower()}_kernel", route="cuda", source=SOURCE,
+            name=(name.replace("_Q", "").lower() + "_kernel"
+                  + (" (Q table)" if "_Q" in name else "")),
+            route="cuda", source=SOURCE,
             replaces=REPLACES[name], launches=path_launches[name],
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-            library_ms=r["library_ms"], shape=r["shape"]))
+            library_ms=r["library_ms"], shape=r["shape"],
+            **({"computes": Q_FORMATION} if "_Q" in name else {})))
     path_launches = {
         "MHT_PANEL": {k: p["launches"].get("MHT_PANEL", 0)
                       for k, p in paths.items()},
@@ -1391,6 +1705,14 @@ def main() -> int:
         "| 640 qr_ms", mega_ms, "| torch.linalg.qr ms", mega_lib,
         "| stack qr_ms", stack_timing["qr_ms"], "| torch.linalg.qr ms",
         stack_timing["torch_linalg_qr_ms"])
+    forms = {"2048": breakdown_2048["form_q"],
+             "640": breakdown_2048["form_q_640"],
+             "stack": stack_timing["form_q"]}
+    log("card:", card, "| Q formation host ms / device ms / launches:",
+        json.dumps({k: [v["host_ms"], v["device_ms"], v["launches"]]
+                    for k, v in forms.items()}),
+        "| plain Q loop host ms:",
+        json.dumps({k: v["plain_host_ms"] for k, v in forms.items()}))
     log("card:", card, "| task bodies us:", json.dumps(bodies),
         "| 640 megakernel ms per level",
         mega_rows["MEGAKERNEL"]["ms_per_level"], "| mht_panel us per column:",
@@ -1401,7 +1723,7 @@ def main() -> int:
             kind: path_launches[kind]["4096"] * panel_rows[kind]["ms"]
             for kind in summed}))
     log("card:", card, "| megakernel ms per level / CTAs per SM:",
-        json.dumps({k: [r["ms_per_level"], r["ctas_per_sm"]]
+        json.dumps({k: [r["ms_per_level"], r.get("ctas_per_sm")]
                     for k, r in mega_rows.items()}),
         "| wy_trailing ms by shape:", json.dumps({
             k: [v["ms"], v["grid"]["layout"], v["grid"]["cluster"]] for k, v in

@@ -18,6 +18,7 @@ whole stack of matrices.  Q is formed the same way, panel by panel
 
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import torch
@@ -96,7 +97,7 @@ def wy_apply(v: Tensor, t: Tensor, c: Tensor, *, use_kernel: bool = False
 
 def _as_stack(a: Tensor) -> Tensor:
     m, n = a.shape[-2:]
-    return a.reshape((-1, m, n)).clone(memory_format=torch.contiguous_format)
+    return a.reshape((math.prod(a.shape[:-2]), m, n)).clone(memory_format=torch.contiguous_format)
 
 
 def geqrf(a: Tensor, *, block: int = 32, panel_method: str = "mht",
@@ -189,9 +190,10 @@ def _panel_reflectors(packed: Tensor, taus: Tensor, block: int):
 def _apply_panels(packed: Tensor, taus: Tensor, c: Tensor, *, block: int,
                   transpose: bool, use_kernel: bool, identity: bool) -> Tensor:
     lead = c.shape[:-2]
-    packed = packed.reshape((-1,) + packed.shape[-2:])
-    taus = taus.reshape((-1, taus.shape[-1]))
-    out = c.reshape((-1,) + c.shape[-2:]).clone(
+    nmat = math.prod(lead)
+    packed = packed.reshape((nmat,) + packed.shape[-2:])
+    taus = taus.reshape((nmat, taus.shape[-1]))
+    out = c.reshape((nmat,) + c.shape[-2:]).clone(
         memory_format=torch.contiguous_format)
     if use_kernel:
         from repro_torch.kernels import ops

@@ -26,6 +26,11 @@ Three lowerings run the schedule:
   * the **plain lowering** (``use_kernel=False``): the wavefront batches
     through the kernels' plain PyTorch versions.
 
+Q formation (:func:`form_q_tiles`) runs the factorization's updates in
+reverse over a second tile workspace E (:func:`q_task_arrays`,
+:func:`q_megakernel_task_table`) by the same lowering: the Q kinds of the
+wavefront walk, or one (batched) megakernel launch over the Q table.
+
 ``dispatch_mode=None`` resolves by the reference's auto rule
 (:func:`resolve_dispatch_mode`): megakernel when the task table fits
 :data:`DEFAULT_TABLE_BUDGET` and the reference's modeled working set fits
@@ -59,6 +64,7 @@ __all__ = [
     "explain_dispatch_mode",
     "factor_tiles",
     "factor_tiles_batched",
+    "form_q_tiles",
     "init_state",
     "level_indices",
     "megakernel_runs",
@@ -66,7 +72,18 @@ __all__ = [
     "megakernel_table",
     "megakernel_task_table",
     "modeled_dma_bytes",
+    "q_dispatch_counts",
+    "q_level_indices",
+    "q_megakernel_runs",
+    "q_megakernel_table",
+    "q_megakernel_task_table",
+    "q_table_fits",
+    "q_task_arrays",
+    "q_task_count",
+    "q_workspace",
     "resolve_dispatch_mode",
+    "resolve_q_dispatch_mode",
+    "run_q_levels",
     "run_levels",
     "schedule_stats",
     "state_from_numpy",
@@ -144,7 +161,7 @@ def wavefront_task_arrays(p: int, q: int
 
 
 _KIND_ID = {kind: n for n, kind in enumerate(_KIND_ORDER)}
-_NOOP = len(_KIND_ORDER)
+_NOOP = macro_ops.NOOP
 
 _COL_KIND, _COL_K, _COL_I, _COL_J = 0, 1, 2, 3
 _COL_R0 = 4            # 3 (row, col) operand-tile coords: columns 4..9
@@ -191,6 +208,48 @@ def task_count(p: int, q: int) -> int:
     return sum((p - k) * (q - k) for k in range(min(p, q)))
 
 
+def _fill_table(levels, kind_id, reads, writes, t_source
+                ) -> Tuple[np.ndarray, int, int]:
+    """A task table from ``levels`` (per level, its ``(kind, k, i, j)``
+    tasks in slot order): the kind ids, the tasks' operand tiles and the
+    one-ahead prefetch and reuse chains.  ``reads`` lists a task's operand
+    tiles in body order and ``writes`` the tiles it writes, each tile a
+    tuple ending in (row, col) — a tag ahead of them names the workspace
+    where there are two — and ``t_source`` names its block reflector.
+    Asserts that no two tasks of a level write the same tile and that a
+    slot's successor never reads what the slot writes."""
+    nlevels = len(levels)
+    nslots = max(len(rows) for rows in levels)
+    tab = np.zeros((nlevels * nslots, _NCOLS), np.int32)
+    tab[:, _COL_KIND] = _NOOP
+    for lv, rows in enumerate(levels):
+        written = [w for task in rows for w in writes(*task)]
+        assert len(written) == len(set(written)), "same-level write overlap"
+        for s, task in enumerate(rows):
+            kind, k, i, j = task
+            t = lv * nslots + s
+            tab[t, _COL_KIND] = kind_id[kind]
+            tab[t, _COL_K], tab[t, _COL_I], tab[t, _COL_J] = k, i, j
+            for b, tile in enumerate(reads(*task)):
+                tab[t, _COL_R0 + 2 * b] = tile[-2]
+                tab[t, _COL_R0 + 2 * b + 1] = tile[-1]
+        for s in range(len(rows) - 1):
+            cur, nxt = rows[s], rows[s + 1]
+            t = lv * nslots + s
+            nr = reads(*nxt)
+            assert not (set(nr) & writes(*cur)), (cur, nxt)
+            tab[t, _COL_PREFETCH] = 1
+            tab[t + 1, _COL_FETCHED] = 1
+            cr = reads(*cur)
+            for b in range(min(len(cr), len(nr))):
+                if nr[b] == cr[b]:
+                    tab[t + 1, _COL_REUSE0 + b] = 1
+            cts = t_source(*cur)
+            if cts is not None and cts == t_source(*nxt):
+                tab[t + 1, _COL_REUSET] = 1
+    return tab, nlevels, nslots
+
+
 @functools.lru_cache(maxsize=None)
 def megakernel_task_table(p: int, q: int) -> Tuple[np.ndarray, int, int]:
     """The flattened schedule ``(table, nlevels, nslots)`` of the
@@ -199,52 +258,127 @@ def megakernel_task_table(p: int, q: int) -> Tuple[np.ndarray, int, int]:
     of its one-ahead double buffering.  Asserts the two invariants those
     rely on: no two same-level tasks write the same tile, and a slot's
     successor never reads what the slot writes."""
-    levels: List[List[Tuple[str, int, int, int]]] = []
-    for by_kind in wavefront_task_arrays(p, q):
-        levels.append([(kind, int(k), int(i), int(j))
-                       for kind in _KIND_ORDER
-                       for k, i, j in by_kind.get(kind, ())])
-    nlevels = len(levels)
-    nslots = max(len(rows) for rows in levels)
-    tab = np.zeros((nlevels * nslots, _NCOLS), np.int32)
-    tab[:, _COL_KIND] = _NOOP
-    for lv, rows in enumerate(levels):
-        writes = [w for task in rows for w in _task_writes(*task)]
-        assert len(writes) == len(set(writes)), "same-level write overlap"
-        for s, task in enumerate(rows):
-            kind, k, i, j = task
-            t = lv * nslots + s
-            tab[t, _COL_KIND] = _KIND_ID[kind]
-            tab[t, _COL_K], tab[t, _COL_I], tab[t, _COL_J] = k, i, j
-            for b, (r, c) in enumerate(_task_reads(*task)):
-                tab[t, _COL_R0 + 2 * b] = r
-                tab[t, _COL_R0 + 2 * b + 1] = c
-        for s in range(len(rows) - 1):
-            cur, nxt = rows[s], rows[s + 1]
-            t = lv * nslots + s
-            nr = _task_reads(*nxt)
-            assert not (set(nr) & _task_writes(*cur)), (cur, nxt)
-            tab[t, _COL_PREFETCH] = 1
-            tab[t + 1, _COL_FETCHED] = 1
-            cr = _task_reads(*cur)
-            for b in range(min(len(cr), len(nr))):
-                if nr[b] == cr[b]:
-                    tab[t + 1, _COL_REUSE0 + b] = 1
-            cts = _task_t_source(*cur)
-            if cts is not None and cts == _task_t_source(*nxt):
-                tab[t + 1, _COL_REUSET] = 1
-    return tab, nlevels, nslots
+    levels = [[(kind, int(k), int(i), int(j))
+               for kind in _KIND_ORDER
+               for k, i, j in by_kind.get(kind, ())]
+              for by_kind in wavefront_task_arrays(p, q)]
+    return _fill_table(levels, _KIND_ID, _task_reads, _task_writes,
+                       _task_t_source)
+
+
+# ---------------------------------------------------------------------------
+# Q formation's schedule (numpy): the factorization's updates in reverse
+# ---------------------------------------------------------------------------
+#
+# Q's first ncols columns form in a (p, qe, nb, nb) tile workspace E,
+# qe = ncols / nb, starting from the identity, by the tasks
+#
+#     QSSRFB(k, i, j)  E_k, E_i <- E_k - W, E_i - V2 W,
+#                      W = T_ik (E_k + V2^T E_i)        (tiles (k, j), (i, j))
+#     QLARFB(k, j)     E_k <- E_k - V1 (D_k (V1^T E_k))  (tile (k, j))
+#
+# in the sequential order of tilegraph._form_q_tiled: k descending, and
+# within k, i descending, then the diagonal step.  A task's level is 1 +
+# the highest level of any E tile it touches, in that order.  Column tiles
+# j < k are skipped: E's rows >= k are still exactly zero there (E starts
+# as the identity and every later step touches rows >= k + 1 only), so the
+# update would be an exact no-op — LAPACK's orgqr skips it the same way.
+
+#: Q formation's kinds, in their canonical order within a level.
+Q_KINDS = tuple(macro_ops.Q_OPS)
+
+
+def _q_task_reads(kind: str, k: int, i: int, j: int) -> List[Tuple]:
+    """Operand tiles of a Q task in body order: the factored V tile, then
+    E's tiles (tagged with their workspace)."""
+    if kind == "QLARFB":
+        return [("v", k, k), ("e", k, j)]
+    return [("v", i, k), ("e", k, j), ("e", i, j)]
+
+
+def _q_task_writes(kind: str, k: int, i: int, j: int) -> set:
+    if kind == "QLARFB":
+        return {("e", k, j)}
+    return {("e", k, j), ("e", i, j)}
+
+
+def _q_task_t_source(kind: str, k: int, i: int, j: int):
+    return ("d_t", k) if kind == "QLARFB" else ("t_t", i, k)
+
+
+def q_task_count(p: int, q: int, qe: int) -> int:
+    """Q formation's task count: step k updates columns k..qe - 1 of its
+    p - k row tiles (p - k - 1 QSSRFB and one QLARFB each)."""
+    return sum((p - k) * max(qe - k, 0) for k in range(min(p, q)))
+
+
+@functools.lru_cache(maxsize=None)
+def q_task_arrays(p: int, q: int, qe: int
+                  ) -> Tuple[Dict[str, np.ndarray], ...]:
+    """Q formation's schedule as dispatchable batches: one dict per level
+    mapping kind -> int32 ``(ntasks, 3)`` array of (k, i, j) (QLARFB: i =
+    k), sorted by (k, i, j) so that a same-(k, i) group is contiguous.
+    Asserts that no two tasks of a level write the same E tile."""
+    last = np.zeros((p, qe), np.int64)   # level of the last toucher
+    parts = []
+    for k in reversed(range(min(p, q))):
+        if k >= qe:
+            continue
+        js = np.arange(k, qe)
+        col = np.ones_like(js)
+        for i in reversed(range(k + 1, p)):
+            lv = 1 + np.maximum(last[k, k:], last[i, k:])
+            last[k, k:] = lv
+            last[i, k:] = lv
+            parts.append(np.stack([lv, col, col * k, col * i, js], 1))
+        lv = 1 + last[k, k:]
+        last[k, k:] = lv
+        parts.append(np.stack([lv, 0 * col, col * k, col * k, js], 1))
+    if not parts:
+        return ()
+    rows = np.concatenate(parts)
+    rows = rows[np.lexsort(rows.T[::-1])]   # by level, kind, k, i, j
+    out = []
+    for lv in range(1, int(rows[-1, 0]) + 1):
+        at = rows[rows[:, 0] == lv]
+        level = {kind: at[at[:, 1] == n][:, 2:].astype(np.int32)
+                 for n, kind in enumerate(Q_KINDS) if (at[:, 1] == n).any()}
+        written = [w for kind, idx in level.items()
+                   for k, i, j in idx.tolist()
+                   for w in _q_task_writes(kind, k, i, j)]
+        assert len(written) == len(set(written)), "same-level write overlap"
+        out.append(level)
+    return tuple(out)
+
+
+@functools.lru_cache(maxsize=None)
+def q_megakernel_task_table(p: int, q: int, qe: int
+                            ) -> Tuple[np.ndarray, int, int]:
+    """Q formation's schedule as a megakernel task table ``(table,
+    nlevels, nslots)``, in :func:`megakernel_task_table`'s format with the
+    kinds ``macro_ops.Q_KIND_ID``; the same two invariants asserted."""
+    levels = [[(kind, int(k), int(i), int(j))
+               for kind in Q_KINDS
+               for k, i, j in by_kind.get(kind, ())]
+              for by_kind in q_task_arrays(p, q, qe)]
+    return _fill_table(levels, macro_ops.Q_KIND_ID, _q_task_reads,
+                       _q_task_writes, _q_task_t_source)
+
+
+_UPDATE_IDS = (_KIND_ID["LARFB"], _KIND_ID["SSRFB"],
+               macro_ops.Q_KIND_ID["QLARFB"], macro_ops.Q_KIND_ID["QSSRFB"])
 
 
 def _chained(rows: np.ndarray) -> np.ndarray:
     """``chained[t]``: task t of a level (rows in table order) continues
-    the run of t - 1 in a way the megakernel keeps a tile for — a LARFB
-    after a LARFB or an SSRFB after an SSRFB whose V operand the REUSE0
-    column marks as the same tile (a same-(k, i) SSRFB group)."""
+    the run of t - 1 in a way the megakernel keeps a tile for — an update
+    (LARFB, SSRFB, QLARFB, QSSRFB) after one of its own kind whose V
+    operand the REUSE0 column marks as the same tile (a same-k LARFB or a
+    same-(k, i) SSRFB group)."""
     kind = rows[:, _COL_KIND]
     out = np.zeros(len(rows), bool)
     out[1:] = ((kind[1:] == kind[:-1])
-               & np.isin(kind[1:], (_KIND_ID["LARFB"], _KIND_ID["SSRFB"]))
+               & np.isin(kind[1:], _UPDATE_IDS)
                & (rows[1:, _COL_REUSE0] != 0))
     return out
 
@@ -283,7 +417,21 @@ def megakernel_runs(p: int, q: int, batch: int, grid: int) -> np.ndarray:
     second CTA one reload of the V tile and T, a longer run costs whole
     tasks.  A CTA's run may span slices; the kernel keeps no tile across a
     slice boundary."""
-    table, nlevels, nslots = megakernel_task_table(p, q)
+    return _runs(*megakernel_task_table(p, q), batch, grid)
+
+
+@functools.lru_cache(maxsize=None)
+def q_megakernel_runs(p: int, q: int, qe: int, batch: int, grid: int
+                      ) -> np.ndarray:
+    """:func:`megakernel_runs` of Q formation's table
+    (:func:`q_megakernel_task_table`): a same-(k, i) QSSRFB group and a
+    same-k QLARFB group are kept on one CTA as the factorization's
+    groups are."""
+    return _runs(*q_megakernel_task_table(p, q, qe), batch, grid)
+
+
+def _runs(table: np.ndarray, nlevels: int, nslots: int, batch: int,
+          grid: int) -> np.ndarray:
     out = np.zeros((nlevels, grid, 8), np.int32)
     counts = []
     for lv in range(nlevels):
@@ -327,16 +475,19 @@ def megakernel_runs(p: int, q: int, batch: int, grid: int) -> np.ndarray:
     return out
 
 
-_DEVICE_RUNS: Dict[Tuple[int, int, int, int, str], torch.Tensor] = {}
+_DEVICE_RUNS: Dict[Tuple, torch.Tensor] = {}
 
 
 def megakernel_runs_device(p: int, q: int, batch: int, grid: int,
-                           device: torch.device) -> torch.Tensor:
-    """:func:`megakernel_runs` on ``device``: one upload per key."""
-    key = (p, q, batch, grid, str(device))
+                           device: torch.device, qe: Optional[int] = None
+                           ) -> torch.Tensor:
+    """:func:`megakernel_runs` (:func:`q_megakernel_runs` when ``qe`` is
+    given) on ``device``: one upload per key."""
+    key = (p, q, qe, batch, grid, str(device))
     if key not in _DEVICE_RUNS:
-        _DEVICE_RUNS[key] = torch.from_numpy(
-            megakernel_runs(p, q, batch, grid)).to(device)
+        runs = (megakernel_runs(p, q, batch, grid) if qe is None
+                else q_megakernel_runs(p, q, qe, batch, grid))
+        _DEVICE_RUNS[key] = torch.from_numpy(runs).to(device)
     return _DEVICE_RUNS[key]
 
 
@@ -347,6 +498,15 @@ def table_fits(p: int, q: int, budget: int) -> Tuple[bool, int]:
     if bound > budget:
         return False, bound
     nbytes = int(megakernel_task_table(p, q)[0].nbytes)
+    return nbytes <= budget, nbytes
+
+
+def q_table_fits(p: int, q: int, qe: int, budget: int) -> Tuple[bool, int]:
+    """:func:`table_fits` for Q formation's table."""
+    bound = q_task_count(p, q, qe) * _NCOLS * 4
+    if bound > budget:
+        return False, bound
+    nbytes = int(q_megakernel_task_table(p, q, qe)[0].nbytes)
     return nbytes <= budget, nbytes
 
 
@@ -458,11 +618,42 @@ def dispatch_counts(p: int, q: int, dispatch_mode: str = "wavefront",
     return counts
 
 
+def resolve_q_dispatch_mode(p: int, q: int, qe: int, mode: str,
+                            forced: bool = False) -> str:
+    """The lowering Q formation runs after a factorization that ran
+    ``mode``: the same, except that a megakernel picked by the auto rule
+    whose Q table exceeds :data:`DEFAULT_TABLE_BUDGET` forms Q by the
+    wavefront launches (a forced one raises, see :func:`check_table`)."""
+    if mode != "megakernel":
+        return "wavefront"
+    if forced:
+        check_table(p, q, qe=qe)
+        return mode
+    return mode if q_table_fits(p, q, qe, DEFAULT_TABLE_BUDGET)[0] \
+        else "wavefront"
+
+
+def q_dispatch_counts(p: int, q: int, qe: int,
+                      dispatch_mode: str = "wavefront",
+                      batch: int = 1) -> Dict[str, int]:
+    """Kernel launches of one Q formation on ``batch`` stacked grids,
+    keyed as ``macro_ops.LAUNCHES``: per Q kind for the wavefront lowering
+    (at most two a level, ``batch`` times), one megakernel launch over the
+    Q table for the megakernel lowering."""
+    if dispatch_mode == "megakernel":
+        return {"MEGAKERNEL_Q_BATCHED" if batch > 1 else "MEGAKERNEL_Q": 1}
+    counts = dict.fromkeys(Q_KINDS, 0)
+    for by_kind in q_task_arrays(p, q, qe):
+        for kind in by_kind:
+            counts[kind] += batch
+    return {k: v for k, v in counts.items() if v}
+
+
 # ---------------------------------------------------------------------------
 # device index arrays
 # ---------------------------------------------------------------------------
 
-_DEVICE_INDEX: Dict[Tuple[int, int, str], Tuple[Dict[str, torch.Tensor], ...]] = {}
+_DEVICE_INDEX: Dict[Tuple, Tuple[Dict[str, torch.Tensor], ...]] = {}
 
 
 def level_indices(p: int, q: int, device: torch.device
@@ -495,7 +686,7 @@ def level_indices(p: int, q: int, device: torch.device
     return _DEVICE_INDEX[key]
 
 
-_DEVICE_TABLE: Dict[Tuple[int, int, str], Tuple[torch.Tensor, int, int]] = {}
+_DEVICE_TABLE: Dict[Tuple, Tuple[torch.Tensor, int, int]] = {}
 
 
 def megakernel_table(p: int, q: int, device: torch.device
@@ -521,6 +712,42 @@ def megakernel_table(p: int, q: int, device: torch.device
                     other = writer.get(tile, t)
                     assert other == t or (t[0], other[0]) == ("LARFB", "TSQRT"), \
                         ("same-level read of a written tile", t, other)
+        _DEVICE_TABLE[key] = (torch.from_numpy(table).to(device), nlevels,
+                              nslots)
+    return _DEVICE_TABLE[key]
+
+
+def q_level_indices(p: int, q: int, qe: int, device: torch.device
+                    ) -> Tuple[Dict[str, torch.Tensor], ...]:
+    """Q formation's per-level ``(n, 3)`` int32 index arrays on
+    ``device``: one upload per ``(p, q, qe, device)``, then views into it
+    (:func:`q_task_arrays` asserts the levels' writes disjoint)."""
+    key = ("q", p, q, qe, str(device))
+    if key not in _DEVICE_INDEX:
+        levels = q_task_arrays(p, q, qe)
+        flat = [by_kind[kind] for by_kind in levels
+                for kind in Q_KINDS if kind in by_kind]
+        dev = torch.from_numpy(np.concatenate(flat)).to(device)
+        out, row = [], 0
+        for by_kind in levels:
+            views = {}
+            for kind in Q_KINDS:
+                if kind in by_kind:
+                    n = by_kind[kind].shape[0]
+                    views[kind] = dev[row:row + n]
+                    row += n
+            out.append(views)
+        _DEVICE_INDEX[key] = tuple(out)
+    return _DEVICE_INDEX[key]
+
+
+def q_megakernel_table(p: int, q: int, qe: int, device: torch.device
+                       ) -> Tuple[torch.Tensor, int, int]:
+    """``(table, nlevels, nslots)`` of :func:`q_megakernel_task_table`
+    with the table on ``device``: one upload per ``(p, q, qe, device)``."""
+    key = ("q", p, q, qe, str(device))
+    if key not in _DEVICE_TABLE:
+        table, nlevels, nslots = q_megakernel_task_table(p, q, qe)
         _DEVICE_TABLE[key] = (torch.from_numpy(table).to(device), nlevels,
                               nslots)
     return _DEVICE_TABLE[key]
@@ -597,14 +824,17 @@ def check_smem(nb: int, itemsize: int, mode: str = "wavefront",
             f"itemsize {itemsize}); shrink the tile")
 
 
-def check_table(p: int, q: int, batched: bool = False) -> None:
+def check_table(p: int, q: int, batched: bool = False,
+                qe: Optional[int] = None) -> None:
     """Raise when the ``(p, q)`` grid's megakernel task table exceeds
     :data:`DEFAULT_TABLE_BUDGET`, as the reference does for a forced
-    megakernel."""
-    fits, tbytes = table_fits(p, q, DEFAULT_TABLE_BUDGET)
+    megakernel; with ``qe``, Q formation's table of ``qe`` column tiles."""
+    fits, tbytes = (table_fits(p, q, DEFAULT_TABLE_BUDGET) if qe is None
+                    else q_table_fits(p, q, qe, DEFAULT_TABLE_BUDGET))
     if not fits:
         raise ValueError(
-            f"({p}, {q}) grid's {'batched ' * batched}megakernel task table "
+            f"({p}, {q}) grid's {'batched ' * batched}megakernel "
+            f"{'' if qe is None else f'Q ({qe} column tiles) '}task table "
             f"(>= {tbytes} bytes) exceeds the table budget "
             f"({DEFAULT_TABLE_BUDGET}); grow the tile or use "
             f"dispatch_mode='wavefront'")
@@ -667,3 +897,74 @@ def factor_tiles_batched(tiles: torch.Tensor, *, p: int, q: int, nb: int,
             run_levels(FactorState(*(x[b] for x in state)),
                        use_kernel=use_kernel)
     return state
+
+
+# ---------------------------------------------------------------------------
+# Q formation on the kernels
+# ---------------------------------------------------------------------------
+
+def q_workspace(lead: Tuple[int, ...], p: int, qe: int, nb: int,
+                dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """A ``(*lead, p, qe, nb, nb)`` Q workspace holding the identity: tile
+    (d, d) = I for d < min(p, qe), every other tile zero."""
+    e = torch.zeros(tuple(lead) + (p, qe, nb, nb), dtype=dtype, device=device)
+    d = torch.arange(min(p, qe), device=device)
+    e[..., d, d, :, :] = torch.eye(nb, dtype=dtype, device=device)
+    return e
+
+
+def run_q_levels(state: FactorState, e: torch.Tensor,
+                 levels: Optional[Iterable[int]] = None, *,
+                 use_kernel: bool = True) -> torch.Tensor:
+    """Run the given levels (default: all) of Q formation's schedule on
+    the ``(p, qe, nb, nb)`` Q workspace ``e``, in place, the factored
+    ``state`` read only: one launch per (level, kind) through the Q
+    kernels' wrappers (their plain versions on CPU tensors), or, with
+    ``use_kernel=False``, the plain versions everywhere."""
+    p, q = state.tiles.shape[:2]
+    per_level = q_level_indices(p, q, e.shape[1], e.device)
+    for lv in range(len(per_level)) if levels is None else levels:
+        for kind, idx in per_level[lv].items():
+            macro_ops.run_q_batch(kind, state, e, idx, use_kernel=use_kernel)
+    return e
+
+
+def form_q_tiles(state: FactorState, ncols: int, *,
+                 dispatch_mode: Optional[str] = None) -> torch.Tensor:
+    """Q's first ``ncols`` columns (a multiple of nb) from a factored
+    state — ``(p, q, nb, nb)`` or a ``(B, p, q, nb, nb)`` stack — as a
+    ``(*lead, p, ncols / nb, nb, nb)`` tile workspace, through the Q
+    kernels, by the lowering the factorization ran (``dispatch_mode`` as
+    given to it; :func:`resolve_q_dispatch_mode`): one megakernel launch
+    over the Q table (one batched launch for a stack of more than one),
+    or per slice one launch per (level, kind).  On a CPU state the
+    wrappers run their plain versions task by task; the plain lowering of
+    ``tilegraph._form_q_tiled`` is the reference they are held against."""
+    tiles = state.tiles
+    *lead, p, q, nb, _ = tiles.shape
+    if ncols % nb or len(lead) > 1:
+        raise ValueError(f"form_q_tiles: ncols must be a multiple of the "
+                         f"tile {nb} and the state (p, q, ...) or (B, p, q, "
+                         f"...), got ncols={ncols}, {tuple(tiles.shape)}")
+    qe = ncols // nb
+    batch = lead[0] if lead else 1
+    mode = _check_dispatch(tiles.dtype, p, q, nb, True, dispatch_mode,
+                           batched=batch > 1)
+    mode = resolve_q_dispatch_mode(p, q, qe, mode,
+                                   forced=dispatch_mode == "megakernel")
+    e = q_workspace(tuple(lead), p, qe, nb, tiles.dtype, tiles.device)
+    if mode == "megakernel":
+        table = q_megakernel_table(p, q, qe, tiles.device)
+        if batch > 1:
+            macro_ops.megakernel_q_batched(state, e, *table)
+        elif lead:
+            macro_ops.megakernel_q(FactorState(*(x[0] for x in state)), e[0],
+                                   *table)
+        else:
+            macro_ops.megakernel_q(state, e, *table)
+        return e
+    if not lead:
+        return run_q_levels(state, e)
+    for b in range(batch):
+        run_q_levels(FactorState(*(x[b] for x in state)), e[b])
+    return e

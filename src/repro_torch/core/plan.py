@@ -36,6 +36,7 @@ Deliberate differences from the reference, each recorded in ROADMAP §C:
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -697,7 +698,9 @@ class QRSolver:
         if a.ndim == 2:
             return self._solve2d(a)
         lead = tuple(a.shape[:-2])
-        stack = a.reshape((-1,) + self.shape)
+        # The leading dims' product, not -1: a stack of empty matrices has
+        # no elements to infer it from.
+        stack = a.reshape((math.prod(lead),) + self.shape)
         if self.spec.solve_batched is not None:
             out = self.spec.solve_batched(self._cast(stack), self.config)
         elif self.spec.solve is None:
@@ -719,7 +722,8 @@ class QRSolver:
         self._check(a)
         lead = tuple(a.shape[:-2])
         packed, taus = self.spec.factor(
-            self._cast(a.reshape((-1,) + self.shape)), self.config)
+            self._cast(a.reshape((math.prod(lead),) + self.shape)),
+            self.config)
         return (packed.reshape(lead + packed.shape[1:]),
                 taus.reshape(lead + taus.shape[1:]))
 

@@ -154,7 +154,9 @@ def _join_tiles(tiles: torch.Tensor) -> torch.Tensor:
 def _form_q_tiled(f: engine.FactorState, ncols: int) -> torch.Tensor:
     """Q columns from the factored state: the task transforms applied in
     reverse (TSQRT pairs bottom-up, then the GEQRT diagonal block), each
-    an in-place update of one or two nb-row blocks of ``e``."""
+    an in-place update of one or two nb-row blocks of ``e``.  The plain
+    lowering's Q, and the plain version the Q kernels
+    (:func:`engine.form_q_tiles`) are held against."""
     *lead, p, q, nb, _ = f.tiles.shape
     e = torch.eye(p * nb, ncols, dtype=f.tiles.dtype, device=f.tiles.device)
     e = e.expand(*lead, p * nb, ncols).clone()
@@ -177,7 +179,9 @@ def _factor_stack_padded(a_pad: torch.Tensor, *, p: int, q: int, nb: int,
     """Factor a tile-aligned ``(B, p*nb, q*nb)`` stack through one
     :func:`engine.factor_tiles_batched` call and return the full padded
     factors: ``(r_full,)`` for mode "r", else ``(q_full, r_full)``, both
-    with the batch leading."""
+    with the batch leading.  Q forms through :func:`engine.form_q_tiles`
+    (the Q kernels, by the factorization's lowering) on the kernel path,
+    through :func:`_form_q_tiled` on the plain one."""
     if mode not in ("reduced", "r", "full"):
         raise ValueError(f"unknown mode {mode!r}")
     f = engine.factor_tiles_batched(_split_tiles(a_pad, p, q, nb), p=p, q=q,
@@ -187,7 +191,11 @@ def _factor_stack_padded(a_pad: torch.Tensor, *, p: int, q: int, nb: int,
     if mode == "r":
         return (r_full,)
     ncols = min(p * nb, q * nb) if mode == "reduced" else p * nb
-    return _form_q_tiled(f, ncols), r_full
+    if not use_kernel:
+        return _form_q_tiled(f, ncols), r_full
+    # Q through the Q kernels, by the lowering the factorization ran.
+    e = engine.form_q_tiles(f, ncols, dispatch_mode=dispatch_mode)
+    return _join_tiles(e), r_full
 
 
 def tiled_qr_batched(a: torch.Tensor, *, tile: int = 32,

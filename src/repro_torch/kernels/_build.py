@@ -31,12 +31,17 @@ LINK_FLAGS = ("-shared", "-Xcompiler", "-fPIC")
 
 # (ws, aux0, aux1, idx, ntasks, p, q, nb, is_double, smem_bytes, stream)
 _MACRO_OP_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-# (ws, d_t, d_taus, t_t, t_taus, table, runs, nlevels, nslots, batch, p,
-#  q, nb, stages, grid, is_double, smem_bytes, barrier, stream, grid_out)
-_MEGAKERNEL_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 \
+# (kind, ws, aux, e, idx, ntasks, p, q, qe, nb, stages, is_double,
+#  smem_bytes, stream, grid_out)
+_WALK_ARGS = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 \
+    + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
+# (ws, d_t, d_taus, t_t, t_taus, e, table, runs, nlevels, nslots, batch,
+#  p, q, qe, nb, stages, grid, is_double, smem_bytes, barrier, stream,
+#  grid_out)
+_MEGAKERNEL_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 11 \
     + [ctypes.c_void_p] * 2 + [ctypes.POINTER(ctypes.c_int)]
-# (batched, is_double, smem_bytes, per_sm_out, resident_out)
-_MEGAKERNEL_RESIDENT_ARGS = [ctypes.c_int] * 3 \
+# (batched, q, is_double, smem_bytes, per_sm_out, resident_out)
+_MEGAKERNEL_RESIDENT_ARGS = [ctypes.c_int] * 4 \
     + [ctypes.POINTER(ctypes.c_int)] * 2
 # (a, a_bs, lda, m, b, kf, taus, batch, groups, rows, part, barriers,
 #  is_double, smem_bytes, stream, grid_out)
@@ -62,9 +67,8 @@ _WY_TRAILING_CLUSTER_ARGS = [ctypes.c_void_p, ctypes.c_longlong,
     + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
 _ENTRIES = {
     "repro_geqrt": _MACRO_OP_ARGS,
-    "repro_larfb": _MACRO_OP_ARGS,
     "repro_tsqrt": _MACRO_OP_ARGS,
-    "repro_ssrfb": _MACRO_OP_ARGS,
+    "repro_walk": _WALK_ARGS,
     "repro_megakernel": _MEGAKERNEL_ARGS,
     "repro_megakernel_batched": _MEGAKERNEL_ARGS,
     "repro_megakernel_resident": _MEGAKERNEL_RESIDENT_ARGS,

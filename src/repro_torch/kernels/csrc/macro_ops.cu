@@ -1,46 +1,55 @@
-// The four tile-DAG macro ops of tiled QR (GEQRT, LARFB, TSQRT, SSRFB) and
-// the persistent megakernel that runs a whole schedule of them, as
-// hand-written CUDA kernels for Hopper (sm_90a), with a plain C interface
-// loaded through ctypes by repro_torch/kernels/macro_ops.py.
+// The four tile-DAG macro ops of tiled QR (GEQRT, LARFB, TSQRT, SSRFB), the
+// two updates that form Q from the factored tiles (QLARFB, QSSRFB), and the
+// persistent megakernel that runs a whole schedule of them, as hand-written
+// CUDA kernels for Hopper (sm_90a), with a plain C interface loaded through
+// ctypes by repro_torch/kernels/macro_ops.py.
 //
-// Each macro op is a copy of the task's tiles into dynamic shared memory
-// and one __device__ __noinline__ compute function (geqrt_compute, ...)
-// that a CTA of kThreads threads runs there, writing its outputs back in
-// place.  A wavefront kernel's carve-up is its operands then the compute's
-// scratch; its size in elements is the op's MacroOp.smem_elems in
-// macro_ops.py, which the launch passes.  The
-// workspace is the (p, q, nb, nb) tile array, row-major inside a tile;
+// Each task is a copy of its operand tiles into dynamic shared memory and
+// one __device__ __noinline__ compute function (geqrt_compute, ...) that a
+// CTA of kThreads threads runs there, writing its outputs back in place.
+// The workspace is the (p, q, nb, nb) tile array, row-major inside a tile;
 // d_t is (r, nb, nb), d_taus (r, nb), t_t (p, r, nb, nb), t_taus
-// (p, r, nb) with r = min(p, q).  Two lowerings call the same bodies, so
-// the same machine code computes every task and the two agree bitwise:
+// (p, r, nb) with r = min(p, q); Q forms in a second tile workspace E,
+// (p, qe, nb, nb).  Every lowering calls the same bodies, so the same
+// machine code computes every task and the lowerings agree bitwise:
 //
-//  * wavefront kernels (geqrt_kernel, ...): one launch per (level, kind),
-//    one CTA per task; task b reads its (k, i, j) from idx[3 b .. 3 b + 2],
-//    an int32 array the engine uploads once per tile grid;
+//  * GEQRT and TSQRT wavefront kernels (geqrt_kernel, tsqrt_kernel): one
+//    launch per (level, kind), one CTA per task; task b reads its (k, i, j)
+//    from idx[3 b .. 3 b + 2], an int32 array the engine uploads once;
+//  * the update walk (walk_kernel): one launch per (level, kind) for the
+//    LARFB, SSRFB, QLARFB and QSSRFB batches, a persistent grid of the
+//    CTAs that fit the card at once, each walking a contiguous run of the
+//    level's task list (walk_run);
 //  * the megakernel (megakernel_kernel, megakernel_batched_kernel): one
-//    cooperative launch per factorization (or per stack of them) walks the
-//    engine's task table level by level.  Each CTA takes a contiguous run
-//    of the level's tasks — of every slice of the stack, in the batched
-//    kernel — keeping reused tiles and prefetching the next task's, and a
-//    grid-wide barrier separates the levels.
+//    cooperative launch per factorization, per Q formation, or per stack
+//    of them, walks the engine's task table level by level, each CTA a
+//    contiguous run of every level — the same walk_run — and a grid-wide
+//    barrier separates the levels.
 //
-// The tasks of one level run concurrently in both lowerings.  Their writes
+// The tasks of one level run concurrently in every lowering.  Their writes
 // are disjoint (asserted when the engine builds its index arrays and
-// table), and no task reads what another task of its level writes, with
+// tables), and no task reads what another task of its level writes, with
 // one exception: LARFB(k, j) reads the strictly-lower V1 of the diagonal
 // tile (k, k) while TSQRT(k, i) of the same level rewrites that tile.
 // TSQRT therefore writes back only the diagonal tile's upper triangle
 // (diagonal included) and never touches V1; no second barrier per level
-// is needed.  Global loads go through L2 only (__ldcg) so that a tile
-// written on another SM at an earlier level is never read stale from L1.
+// is needed.  Global loads go through L2 only (__ldcg, cp.async.cg and the
+// bulk copies) so that a tile written on another SM at an earlier level is
+// never read stale from L1.
 //
 // The megakernel raises rather than degrades: a grid that cannot be
 // resident at once (cudaLaunchCooperativeKernel refuses it) returns the
 // CUDA error, and the wrapper raises.
 //
-// No tensor cores: an fp32 product there is TF32, which would miss the
-// conformance bar.  Every product is an FMA loop on the CUDA cores, so the
-// compute bound is the FP32 (or FP64) SIMT rate.
+// The update bodies' products: fp64 on the tensor cores as DMMA
+// (mma.sync m8n8k4.f64, whose FMAs are IEEE fp64; the tiles are 32 x 32,
+// under wgmma's 64 rows), fp32 as register-blocked FMA passes on the CUDA
+// cores.  3xTF32 (each operand split hi + lo by cvt.rna.tf32, three
+// m16n8k8 products) met the fp32 accuracy bound with room to spare but ran
+// slower than the FMA passes at these tiles (PERF.md §6, PR 16), and one
+// pass of TF32 misses the bound.  Tiles the fragments do not divide run
+// the FMA passes in fp64 too.  GEQRT and TSQRT are column loops on the
+// CUDA cores.
 //
 // Each C entry returns the CUDA error of its launch; the Python wrapper
 // raises when it is not 0.
@@ -278,20 +287,36 @@ geqrt_kernel(T* ws, T* d_t, T* d_taus, const int* idx, int q, int nb) {
 
 // ---------------------------------------------------------------------------
 // LARFB — replaces src/repro/kernels/macro_ops.py: larfb_wavefront_kernel
-// (launched by src/repro/core/engine.py: _dispatch_larfb).
+// (launched by src/repro/core/engine.py: _dispatch_larfb); QLARFB is its
+// update with T for T^T, the diagonal step of src/repro/core/tilegraph.py:
+// _form_q_tiled.
 //
 // Bound: 3 nb^3 FLOP on 4 nb^2 elements moved, about 6 FLOP per byte in
-// fp32 at nb = 32, under the card's 20 FLOP/byte ridge: memory-bound on
-// paper; in practice one task is three dependent nb-term product passes,
-// and its latency is what a megakernel level waits for.
-// Design: C = C - V (T^T (V^T C)) as three register-blocked passes over
-// shared memory (rows_times): each thread carries a block of independent
-// sums that share its loads, so the passes run at the rate of the FMAs
-// instead of one load per term.  The intermediates never leave shared
-// memory.  V is the unit-lower V1 with explicit zeros above the diagonal,
-// so the sums run over whole rows.
+// fp32 at nb = 32, under the card's ridge: memory-bound on paper; one task
+// is three dependent nb-term product passes, so a batch is bound by how
+// well the copies of the next tasks hide behind the passes of this one.
+// Design: C = C - V (T' (V^T C)), T' = T^T (factorization) or T (Q), as
+// three product passes (tile_product: DMMA in fp64, FMA in fp32) over
+// shared memory; the walk (walk_run) keeps V and T across a same-k run
+// and brings the next task's C in while this one computes.  V is the
+// unit-lower V1 with explicit zeros above the diagonal, so the sums run
+// over whole rows.
 // ---------------------------------------------------------------------------
-// One product pass over nb x nb shared-memory operands: every output
+
+// Row pitch of the update bodies' operand tiles in shared memory: for the
+// fp64 tiles the DMMA products take (nb a multiple of 8, up to 64: past it
+// the padded buffers would crowd the budget), nb + 4, a pitch of 4 mod 16
+// doubles that puts the fragment loads in distinct banks; else nb (the
+// FMA passes' loads are conflict-free at nb, and such a tile arrives as
+// one bulk copy).  macro_ops.operand_pitch in Python is the same rule.
+template <typename T>
+__host__ __device__ __forceinline__ int operand_pitch(int nb) {
+  if (sizeof(T) == 4) return nb;
+  return nb % 8 == 0 && nb <= 64 ? nb + 4 : nb;
+}
+
+// One FMA product pass over nb x nb shared-memory operands at pitch nb
+// (fp32 tiles and the fp64 tiles DMMA does not take): every output
 // s(i, c) = sum_k X(i, k) Y[k][c], X(i, k) = X[k][i] when kXt, else
 // X[i][k], is one FMA chain over k = 0, 1, ..., nb - 1 from zero, and
 // emit(i, c, s) takes each result.  The chain is the same in both forms
@@ -374,46 +399,88 @@ __device__ __forceinline__ void rows_times(const T* X, const T* Y, int nb,
   }
 }
 
+// The fp64 tensor-core product (DMMA, mma.sync m8n8k4).  Warp w takes the
+// 8 x 8 output blocks w, w + 8, ... of the tile, K in steps of 4.
+// Fragment element (row g = lane / 4, column t = lane % 4) of A is
+// X(r0 + g, k0 + t), of B Y[k0 + t][c0 + g]: at the padded pitch every
+// fragment load falls in distinct banks.  The accumulator elements are
+// (g, 2 t) and (g, 2 t + 1).
+__device__ __forceinline__ void mma_f64(double (&d)[2], double a, double b) {
+  asm volatile(
+      "mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0, %1}, {%2}, {%3}, "
+      "{%0, %1};\n"
+      : "+d"(d[0]), "+d"(d[1])
+      : "d"(a), "d"(b));
+}
+
+// DMMA: two accumulators take alternate K steps (two independent chains)
+// and are added last.
+template <bool kXt, typename Emit>
+__device__ __forceinline__ void mma_product(const double* X, const double* Y,
+                                            int p, int nb, Emit emit) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int nt = nb >> 3, blocks = nt * nt;
+  for (int blk = threadIdx.x >> 5; blk < blocks; blk += blockDim.x >> 5) {
+    const int r0 = (blk / nt) * 8, c0 = (blk % nt) * 8;
+    double acc[2][2] = {{0.0, 0.0}, {0.0, 0.0}};
+    for (int k0 = 0; k0 < nb; k0 += 8) {
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+        const int k = k0 + 4 * s + t;
+        const double a = kXt ? X[k * p + r0 + g] : X[(r0 + g) * p + k];
+        mma_f64(acc[s], a, Y[k * p + c0 + g]);
+      }
+    }
+    emit(r0 + g, c0 + 2 * t, acc[0][0] + acc[1][0]);
+    emit(r0 + g, c0 + 2 * t + 1, acc[0][1] + acc[1][1]);
+  }
+}
+
+// One product pass of an update body over operands at pitch p
+// (operand_pitch): DMMA where the fragments divide an fp64 tile, else the
+// FMA passes (p is nb there).
+template <bool kXt, typename T, typename Emit>
+__device__ __forceinline__ void tile_product(const T* X, const T* Y, int p,
+                                             int nb, Emit emit) {
+  if constexpr (sizeof(T) == 8) {
+    if (nb % 8 == 0) {
+      mma_product<kXt>(X, Y, p, nb, emit);
+      return;
+    }
+  }
+  rows_times<kXt>(X, Y, nb, emit);
+}
+
+// The task bodies take their operands at element offsets into the dynamic
+// shared memory (see smem_at) and write their outputs to global memory.
 // V arrives as the raw diagonal tile (k, k) and becomes the unit-lower V1
 // in place (idempotent, so a reused V passes through unchanged); T and C
-// are read only; the scratch holds W1 and W2.
-template <typename T>
+// are read only; the scratch holds W1 and W2; `out` is C's tile in global
+// memory (the workspace's for LARFB, E's for QLARFB).  All at pitch
+// operand_pitch(nb) in shared memory, nb in global memory.
+template <bool kQ, typename T>
 __device__ __noinline__ void larfb_compute(int o_v, int o_t, int o_c, int o_s,
-                                           T* ws, int k, int j, int q,
-                                           int nb) {
-  const int nn = nb * nb;
+                                           T* out, int nb) {
+  const int pitch = operand_pitch<T>(nb);
   T* V = smem_at<T>(o_v);
   const T* Tm = smem_at<T>(o_t);
   const T* C = smem_at<T>(o_c);
   T* W1 = smem_at<T>(o_s);
-  T* W2 = W1 + nn;
-
-  T* tile = ws + ((size_t)k * q + j) * nn;
-  for (int e = threadIdx.x; e < nn; e += blockDim.x) {
+  T* W2 = W1 + nb * pitch;
+  for (int e = threadIdx.x; e < nb * nb; e += blockDim.x) {
     const int r = e / nb, c = e % nb;
-    if (r <= c) V[e] = r == c ? T(1) : T(0);
+    if (r <= c) V[r * pitch + c] = r == c ? T(1) : T(0);
   }
   __syncthreads();
-  rows_times<true>(V, C, nb, [&](int a, int c, T s) { W1[a * nb + c] = s; });
+  tile_product<true>(V, C, pitch, nb,
+                     [&](int a, int c, T s) { W1[a * pitch + c] = s; });
   __syncthreads();
-  rows_times<true>(Tm, W1, nb, [&](int a, int c, T s) { W2[a * nb + c] = s; });
+  tile_product<!kQ>(Tm, W1, pitch, nb,
+                    [&](int a, int c, T s) { W2[a * pitch + c] = s; });
   __syncthreads();
-  rows_times<false>(V, W2, nb, [&](int r, int c, T s) {
-    tile[r * nb + c] = C[r * nb + c] - s;
+  tile_product<false>(V, W2, pitch, nb, [&](int r, int c, T s) {
+    out[r * nb + c] = C[r * pitch + c] - s;
   });
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-larfb_kernel(T* ws, const T* d_t, const int* idx, int q, int nb) {
-  const int nn = nb * nb, k = idx[3 * blockIdx.x], j = idx[3 * blockIdx.x + 2];
-  copy_tile_async(smem_at<T>(0), ws + ((size_t)k * q + k) * nn, nn);
-  copy_tile_async(smem_at<T>(nn), d_t + (size_t)k * nn, nn);
-  copy_tile_async(smem_at<T>(2 * nn), ws + ((size_t)k * q + j) * nn, nn);
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-  larfb_compute(0, nn, 2 * nn, 3 * nn, ws, k, j, q, nb);
 }
 
 // ---------------------------------------------------------------------------
@@ -596,104 +663,99 @@ tsqrt_kernel(T* ws, T* t_t, T* t_taus, const int* idx, int p, int q, int nb) {
 
 // ---------------------------------------------------------------------------
 // SSRFB — replaces src/repro/kernels/macro_ops.py: ssrfb_wavefront_kernel
-// (launched by src/repro/core/engine.py: _dispatch_ssrfb).
+// (launched by src/repro/core/engine.py: _dispatch_ssrfb); QSSRFB is its
+// update with T for T^T, a TSQRT-pair step of src/repro/core/tilegraph.py:
+// _form_q_tiled.
 //
 // Bound: 5 nb^3 FLOP on 6 nb^2 elements moved, about 7 FLOP per byte in
 // fp32 at nb = 32: memory-bound by the roofline, and the kernel that
 // carries the main path's work (up to 1,113 tasks in one launch on the
-// 64 x 64 grid, enough CTAs to fill the 132 SMs several times over); in
-// the megakernel a level also waits for its slowest SSRFB.
-// Design: W = T^T (C_k + V2^T C_i), C_k -= W, C_i -= V2 W as LARFB's
-// register-blocked passes over shared memory, each tile read from and
-// written to global memory once.
+// 64 x 64 grid); in the megakernel the stack's levels are SSRFB
+// throughput.
+// Design: W = T' (C_k + V2^T C_i), C_k -= W, C_i -= V2 W as three product
+// passes (DMMA in fp64, FMA in fp32); C_k's update leaves in the second
+// pass's epilogue.  The walk keeps V2 and T across a same-(k, i) run and
+// brings the next task's C_k and C_i in while this one computes; every
+// tile is read from and written to global memory once.
 // ---------------------------------------------------------------------------
 // V2 and T are read only (a reused pair passes through unchanged); C_k and
-// C_i are read from shared memory and their updates written to global
-// memory; the scratch holds W and W2.
-template <typename T>
+// C_i are read from shared memory and their updates written to `out_k` /
+// `out_i` in global memory; the scratch holds W and W2.
+template <bool kQ, typename T>
 __device__ __noinline__ void ssrfb_compute(int o_v, int o_t, int o_ck,
-                                           int o_ci, int o_s, T* ws, int k,
-                                           int i, int j, int q, int nb) {
-  const int nn = nb * nb;
+                                           int o_ci, int o_s, T* out_k,
+                                           T* out_i, int nb) {
+  const int pitch = operand_pitch<T>(nb);
   const T* V2 = smem_at<T>(o_v);
   const T* Tm = smem_at<T>(o_t);
   const T* Ck = smem_at<T>(o_ck);
   const T* Ci = smem_at<T>(o_ci);
   T* W = smem_at<T>(o_s);
-  T* W2 = W + nn;
-
-  T* tile_k = ws + ((size_t)k * q + j) * nn;
-  T* tile_i = ws + ((size_t)i * q + j) * nn;
-  rows_times<true>(V2, Ci, nb, [&](int a, int c, T s) {
-    W[a * nb + c] = Ck[a * nb + c] + s;
+  T* W2 = W + nb * pitch;
+  tile_product<true>(V2, Ci, pitch, nb, [&](int a, int c, T s) {
+    W[a * pitch + c] = Ck[a * pitch + c] + s;
   });
   __syncthreads();
-  rows_times<true>(Tm, W, nb, [&](int a, int c, T s) { W2[a * nb + c] = s; });
-  __syncthreads();
-  for (int e = threadIdx.x; e < nn; e += blockDim.x) tile_k[e] = Ck[e] - W2[e];
-  rows_times<false>(V2, W2, nb, [&](int r, int c, T s) {
-    tile_i[r * nb + c] = Ci[r * nb + c] - s;
+  tile_product<!kQ>(Tm, W, pitch, nb, [&](int a, int c, T s) {
+    W2[a * pitch + c] = s;
+    out_k[a * nb + c] = Ck[a * pitch + c] - s;
   });
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-ssrfb_kernel(T* ws, const T* t_t, const int* idx, int p, int q, int nb) {
-  const int nn = nb * nb, r_steps = p < q ? p : q;
-  const int k = idx[3 * blockIdx.x], i = idx[3 * blockIdx.x + 1],
-            j = idx[3 * blockIdx.x + 2];
-  copy_tile_async(smem_at<T>(0), ws + ((size_t)i * q + k) * nn, nn);
-  copy_tile_async(smem_at<T>(nn), t_t + ((size_t)i * r_steps + k) * nn, nn);
-  copy_tile_async(smem_at<T>(2 * nn), ws + ((size_t)k * q + j) * nn, nn);
-  copy_tile_async(smem_at<T>(3 * nn), ws + ((size_t)i * q + j) * nn, nn);
-  cp_async_commit();
-  cp_async_wait<0>();
   __syncthreads();
-  ssrfb_compute(0, nn, 2 * nn, 3 * nn, 4 * nn, ws, k, i, j, q, nb);
+  tile_product<false>(V2, W2, pitch, nb, [&](int r, int c, T s) {
+    out_i[r * nb + c] = Ci[r * pitch + c] - s;
+  });
 }
 
 // ---------------------------------------------------------------------------
-// Megakernel — replaces src/repro/core/engine.py: megakernel_kernel (with
-// _megakernel_step and _op_copies; launched by _dispatch_megakernel) and
-// megakernel_batched_kernel (launched by _dispatch_megakernel_batched).
+// The walk: the megakernels and the update-walk kernel — replaces
+// src/repro/core/engine.py: megakernel_kernel (with _megakernel_step and
+// _op_copies; launched by _dispatch_megakernel) and
+// megakernel_batched_kernel (launched by _dispatch_megakernel_batched);
+// walk_kernel carries the LARFB / SSRFB wavefront batches (above) and the
+// Q formation's, which the reference computes in jnp
+// (src/repro/core/tilegraph.py: _form_q_tiled).
 //
-// The task table is the engine's megakernel_task_table: int32 rows of
-// kTableCols columns, nslots rows per level, (kind, k, i, j) in columns
-// 0..3, the level's tasks first and kNoop rows after them, and the
-// reference's chains in columns 10..15: FETCHED / PREFETCH mark the
-// one-ahead pairs (every slot and its successor), REUSE0..2 an operand
-// tile the slot shares with its predecessor, REUSET the block reflector.
-// The reference walks it as a sequential grid on one TPU core; here every
-// level's tasks run on concurrent CTAs — in the batched kernel the tasks
-// of all `batch` slices of the stacked state, work item w = (slice
-// w / n, slot w % n) — and a grid barrier follows each level.  Every
-// slice replays the same table, so a slice's result is the single run's,
-// bit for bit.
+// The task table is the engine's megakernel_task_table (or
+// q_megakernel_task_table): int32 rows of kTableCols columns, nslots rows
+// per level, (kind, k, i, j) in columns 0..3, the level's tasks first and
+// kNoop rows after them.  The reference walks it as a sequential grid on
+// one TPU core; here every level's tasks run on concurrent CTAs — in the
+// batched kernel the tasks of all `batch` slices of the stacked state,
+// work item w = (slice w / n, slot w % n) — and a grid barrier follows
+// each level.  Every slice replays the same table, so a slice's result is
+// the single run's, bit for bit.
 //
-// Bound: the whole factorization is ~5 nb^3 FLOP per SSRFB and the
-// workspace read and written once (6.6 us of FP32 work at 640^2), but the
-// schedule is a chain of levels with a grid barrier after each, and
-// almost every level holds a GEQRT or a TSQRT, so a call takes about
-// levels x (the slowest CTA's share of a level + the barrier).  On the
-// stack a level holds thousands of tasks over a few hundred resident
-// CTAs, and a task's serial copy-in, barrier, passes and store leave the
-// SM idle unless its loads overlap another task's arithmetic.
-// Design: one launch instead of ~3 per level removes the launch gaps.
-// Each CTA walks a contiguous run of its level's work list (`runs`, from
-// the engine: balanced over the grid, a same-(k, i) SSRFB group kept
-// whole where that costs little balance), so consecutive tasks of one
-// slice meet on one CTA: where the table's REUSE columns say the next
-// task reads the same V tile (REUSE0) or block reflector (REUSET), and it
-// is a LARFB after a LARFB or an SSRFB after an SSRFB, the CTA keeps the
-// tile in shared memory.  Every other operand of the next task streams
-// into a second buffer by cp.async while this task computes (the
-// reference's one-ahead double buffer); a CTA whose double buffers do not
-// fit (nb = 64 fp64) runs one buffer, reuse without prefetch.
+// Bound: a factorization is ~5 nb^3 FLOP per SSRFB and the workspace read
+// and written once (6.6 us of FP32 work at 640^2), but the schedule is a
+// chain of levels with a grid barrier after each, so a call takes about
+// levels x (the slowest CTA's share of a level + the barrier).  On a stack
+// a level holds thousands of tasks over a few hundred resident CTAs, and a
+// task's copy-in, passes and store leave the SM idle unless its loads
+// overlap another task's arithmetic.
+// Design (walk_run): each CTA walks a contiguous run of its level's work
+// list — `runs` from the engine for the megakernel (balanced over the
+// grid, a same-(k, i) SSRFB group kept whole where that costs little
+// balance), an even split for walk_kernel — so consecutive tasks of one
+// slice meet on one CTA.  An update after an update of the same kind with
+// the same V tile and block reflector (same k for LARFB, same (k, i) for
+// SSRFB) keeps both in shared memory.  Every other operand of the next
+// task comes in while the current one computes, into a second buffer (a
+// CTA whose double buffers do not fit runs one buffer: reuse, no
+// prefetch), completing on an mbarrier (issue_copies): a tile stored at
+// its own pitch as one bulk asynchronous copy (cp.async.bulk), an fp64
+// update tile row by row into the DMMA products' padded pitch.
 // ---------------------------------------------------------------------------
 constexpr int kTableCols = 16;
 constexpr int kNoop = 4;
-constexpr int kColReuse0 = 12;
-constexpr int kColReuseT = 15;
+constexpr int kQLarfb = 5;
+constexpr int kQSsrfb = 6;
+// The kinds an instantiation of the walk runs (bit k: table kind k): the
+// factorization's table, Q formation's, or one wavefront batch's kind.
+// Compiling out the other bodies' calls keeps their stack frames out of
+// the kernel (the column loops' frames cost every update task of a walk
+// that could call them; PERF.md §6, PR 16).
+constexpr unsigned kFactorKinds = 0xFu;
+constexpr unsigned kQKinds = (1u << kQLarfb) | (1u << kQSsrfb);
 // Resident CTAs per SM the batched megakernel is compiled for (the
 // register cap __launch_bounds__ sets): uncapped, the walk's state and the
 // calls' saved registers take the register file of one CTA, and a
@@ -703,165 +765,414 @@ constexpr int kColReuseT = 15;
 // GEQRT/TSQRT chain that sets its level time.
 constexpr int kMegaMinBlocks = 3;
 
-// Shared memory of a megakernel CTA (macro_ops.megakernel_launch_smem):
-// four operand slots (V / D / A tile, T, C / C_k / sub tile, C_i), each
-// `stages` tiles, then the largest compute scratch (2 nn + 2 nb +
-// kXchElems).  Slot o, buffer b at (o * stages + b) * nn.
+// Bulk copies (cp.async.bulk) into shared memory, completing their bytes
+// on an mbarrier (macro_ops.cuh) that one thread has armed with them; the
+// walk's barriers expect one arrival from every thread of the CTA.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          unsigned bytes,
+                                          unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)), "l"(src), "r"(bytes),
+      "r"(smem_u32(bar))
+      : "memory");
+}
 
-// Copy a task's operands into the buffers `buf` of its slots, skipping a
-// reused V (slot 0) and T (slot 1).  The caller commits.
+// Arm the current phase of `bar` with `bytes` more (no arrival).
+__device__ __forceinline__ void mbar_expect_tx(unsigned long long* bar,
+                                               unsigned bytes) {
+  asm volatile("mbarrier.expect_tx.relaxed.cta.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+// Order this thread's generic-proxy accesses before the async proxy's (the
+// bulk copies read global memory other CTAs wrote and overwrite shared
+// buffers the bodies wrote).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async;\n" ::: "memory");
+}
+
+// What a walk reads and writes: the factor state, E (Q formation), the
+// slice strides of a stacked state, and the carve-up of shared memory —
+// four operand slots (V / D / A tile, T, C / C_k / sub tile, C_i) of
+// `stages` buffers of `slot` elements each, slot o buffer b at
+// (o * stages + b) * slot, then the compute scratch.
 template <typename T>
-__device__ __forceinline__ void copy_operands(int kind, int k, int i, int j,
-                                              const T* wsb, const T* dtb,
-                                              const T* ttb, int q, int r,
-                                              int nb, int stages,
-                                              const int (&buf)[4], bool keep_v,
-                                              bool keep_t) {
-  const int nn = nb * nb;
-  auto slot = [&](int o) { return smem_at<T>((o * stages + buf[o]) * nn); };
-  auto tile = [&](int row, int col) { return wsb + ((size_t)row * q + col) * nn; };
-  switch (kind) {
+struct Walk {
+  T* ws;
+  T* d_t;
+  T* d_taus;
+  T* t_t;
+  T* t_taus;
+  T* e;
+  int p, q, qe, nb, stages, slot;
+  size_t s_ws, s_dt, s_dtaus, s_tt, s_ttaus, s_e;
+  bool bulk;  // bulk copies: 16-byte rows and bases; else warp 0 loads
+};
+
+template <typename T>
+__device__ __forceinline__ Walk<T> make_walk(T* ws, T* d_t, T* d_taus,
+                                             T* t_t, T* t_taus, T* e, int p,
+                                             int q, int qe, int nb,
+                                             int stages) {
+  const size_t nn = (size_t)nb * nb, r = p < q ? p : q;
+  auto al = [](const void* x) { return ((size_t)x & 15) == 0; };
+  Walk<T> st;
+  st.ws = ws; st.d_t = d_t; st.d_taus = d_taus; st.t_t = t_t;
+  st.t_taus = t_taus; st.e = e;
+  st.p = p; st.q = q; st.qe = qe; st.nb = nb; st.stages = stages;
+  st.slot = nb * operand_pitch<T>(nb);
+  st.s_ws = (size_t)p * q * nn; st.s_dt = r * nn; st.s_dtaus = r * nb;
+  st.s_tt = (size_t)p * r * nn; st.s_ttaus = (size_t)p * r * nb;
+  st.s_e = (size_t)p * qe * nn;
+  st.bulk = (nb * sizeof(T)) % 16 == 0 && al(ws) && al(d_t) && al(t_t) &&
+            al(e);
+  return st;
+}
+
+__host__ __device__ __forceinline__ bool is_update(int kind) {
+  return kind == 1 || kind == 3 || kind == kQLarfb || kind == kQSsrfb;
+}
+
+// The global tiles of a task's operand slots (nullptr: unused).  An
+// update's outputs are its slots 2 and 3 (C / C_k, C_i) in place.
+template <typename T>
+__device__ __forceinline__ void task_tiles(const Walk<T>& st, int b, int4 t,
+                                           T* (&src)[4]) {
+  const size_t nn = (size_t)st.nb * st.nb;
+  const int r = st.p < st.q ? st.p : st.q, k = t.y, i = t.z, j = t.w;
+  T* ws = st.ws + b * st.s_ws;
+  T* e = st.e + b * st.s_e;
+  T* dt = st.d_t + b * st.s_dt;
+  T* tt = st.t_t + b * st.s_tt;
+  auto tile = [&](int row, int col) { return ws + ((size_t)row * st.q + col) * nn; };
+  auto etile = [&](int row, int col) { return e + ((size_t)row * st.qe + col) * nn; };
+  src[0] = src[1] = src[2] = src[3] = nullptr;
+  switch (t.x) {
     case 0:
-      copy_tile_async(slot(0), tile(k, k), nn);
+      src[0] = tile(k, k);
       break;
     case 1:
-      if (!keep_v) copy_tile_async(slot(0), tile(k, k), nn);
-      if (!keep_t) copy_tile_async(slot(1), dtb + (size_t)k * nn, nn);
-      copy_tile_async(slot(2), tile(k, j), nn);
+      src[0] = tile(k, k); src[1] = dt + k * nn; src[2] = tile(k, j);
       break;
     case 2:
-      copy_tile_async(slot(0), tile(k, k), nn);
-      copy_tile_async(slot(2), tile(i, k), nn);
+      src[0] = tile(k, k); src[2] = tile(i, k);
       break;
     case 3:
-      if (!keep_v) copy_tile_async(slot(0), tile(i, k), nn);
-      if (!keep_t) copy_tile_async(slot(1), ttb + ((size_t)i * r + k) * nn, nn);
-      copy_tile_async(slot(2), tile(k, j), nn);
-      copy_tile_async(slot(3), tile(i, j), nn);
+      src[0] = tile(i, k); src[1] = tt + ((size_t)i * r + k) * nn;
+      src[2] = tile(k, j); src[3] = tile(i, j);
+      break;
+    case kQLarfb:
+      src[0] = tile(k, k); src[1] = dt + k * nn; src[2] = etile(k, j);
+      break;
+    case kQSsrfb:
+      src[0] = tile(i, k); src[1] = tt + ((size_t)i * r + k) * nn;
+      src[2] = etile(k, j); src[3] = etile(i, j);
       break;
     default:
       break;
   }
 }
 
+// Every thread: copy a task's operands into the buffers of its slots
+// (bit o of `buf`: slot o's buffer), skipping a kept V (slot 0) and T (slot 1), completing on `bar`
+// (one arrival per thread per task).  A tile that lands at its own pitch
+// nb (GEQRT's and TSQRT's, and the updates' where operand_pitch is nb)
+// goes as one bulk copy (cp.async.bulk) that thread 0 issues, its bytes
+// armed on the barrier; an update tile at the padded pitch goes row by
+// row as 16-byte cp.async copies spread over the CTA, each thread's
+// arrival triggered when its copies land (cp.async.mbarrier.arrive): one
+// bulk copy per row was bound by the copy engine's issue rate for such
+// small copies (PERF.md §6, PR 16).  Without 16-byte rows and bases the
+// threads load synchronously.
 template <typename T>
-__device__ __forceinline__ void megakernel_walk(
-    T* ws, T* d_t, T* d_taus, T* t_t, T* t_taus, const int* tab,
-    const int* runs, int nlevels, int nslots, int batch, int p, int q, int nb,
-    int stages, unsigned int* barrier) {
-  const int nn = nb * nb;
-  const int r = p < q ? p : q;
-  const size_t s_ws = (size_t)p * q * nn, s_dt = (size_t)r * nn,
-               s_dtaus = (size_t)r * nb, s_tt = (size_t)p * r * nn,
-               s_ttaus = (size_t)p * r * nb;
-  const int o_s = 4 * stages * nn;
-  // The runs carry, per (level, CTA), the run's [start, end), the level's
-  // task count, the table slot of the run's first task and that task's
-  // (kind, k, i, j), so a level needs no table scan and no dependent load:
-  // the next level's are read while this level's first tiles arrive.
-  const int4* run4 = reinterpret_cast<const int4*>(runs);
-  int4 run = __ldg(run4 + 2 * (size_t)blockIdx.x);
-  int4 first = __ldg(run4 + 2 * (size_t)blockIdx.x + 1);
-  for (int lv = 0; lv < nlevels; ++lv) {
-    const int* rows = tab + (size_t)lv * nslots * kTableCols;
-    const int w0 = run.x, w1 = run.y, ntasks = run.z;
-    int cur[4] = {0, 0, 0, 0};
-    if (w0 < w1) {
-      const int b = w0 / ntasks;
-      copy_operands(first.x, first.y, first.z, first.w, ws + b * s_ws,
-                    d_t + b * s_dt, t_t + b * s_tt, q, r, nb, stages, cur,
-                    false, false);
-      cp_async_commit();
+__device__ __forceinline__ void issue_copies(const Walk<T>& st,
+                                             T* const (&src)[4], unsigned buf,
+                                             bool keep, bool update,
+                                             unsigned long long* bar) {
+  const int nb = st.nb, nn = nb * nb;
+  const int pitch = update ? operand_pitch<T>(nb) : nb;
+  const bool whole = st.bulk && pitch == nb;
+  auto dst = [&](int o) {
+    return smem_at<T>((o * st.stages + ((buf >> o) & 1)) * st.slot);
+  };
+  if (whole) {
+    if (threadIdx.x == 0) {
+      unsigned bytes = 0;
+#pragma unroll
+      for (int o = 0; o < 4; ++o)
+        if (src[o] != nullptr && !(keep && o < 2)) bytes += nn * sizeof(T);
+      fence_proxy_async();
+      mbar_expect_tx(bar, bytes);
+#pragma unroll
+      for (int o = 0; o < 4; ++o)
+        if (src[o] != nullptr && !(keep && o < 2))
+          bulk_copy(dst(o), src[o], nn * sizeof(T), bar);
     }
-    if (lv + 1 < nlevels) {
-      const size_t nxt = 2 * ((size_t)(lv + 1) * gridDim.x + blockIdx.x);
-      run = __ldg(run4 + nxt);
-      first = __ldg(run4 + nxt + 1);
-    }
-    // The kind is uniform across the CTA, so the bodies' __syncthreads
-    // are reached by every thread.
-    for (int w = w0; w < w1; ++w) {
-      const int b = w / ntasks;
-      const int* row = rows + (w - b * ntasks) * kTableCols;
-      const int kind = __ldg(row), k = __ldg(row + 1), i = __ldg(row + 2),
-                j = __ldg(row + 3);
-      cp_async_wait<0>();
-      __syncthreads();  // this task's operands are in shared memory
-      // The next task of the run: which operands it keeps, and (with two
-      // buffers) the copy of the others, in flight during this task.
-      int nxt[4] = {cur[0], cur[1], cur[2], cur[3]};
-      int nkind = kNoop, nk = 0, ni = 0, nj = 0, nbb = 0;
-      bool keep_v = false, keep_t = false;
-      if (w + 1 < w1) {
-        nbb = (w + 1) / ntasks;
-        const int* nrow = rows + (w + 1 - nbb * ntasks) * kTableCols;
-        nkind = __ldg(nrow);
-        nk = __ldg(nrow + 1);
-        ni = __ldg(nrow + 2);
-        nj = __ldg(nrow + 3);
-        const bool chain = nbb == b && nkind == kind && (kind == 1 || kind == 3);
-        keep_v = chain && __ldg(nrow + kColReuse0) != 0;
-        keep_t = chain && __ldg(nrow + kColReuseT) != 0;
-        if (stages == 2) {
-          for (int o = 0; o < 4; ++o) nxt[o] = cur[o] ^ 1;
-          if (keep_v) nxt[0] = cur[0];
-          if (keep_t) nxt[1] = cur[1];
-          copy_operands(nkind, nk, ni, nj, ws + nbb * s_ws, d_t + nbb * s_dt,
-                        t_t + nbb * s_tt, q, r, nb, stages, nxt, keep_v,
-                        keep_t);
-          cp_async_commit();
-        }
+    mbar_arrive(bar);
+    return;
+  }
+#pragma unroll
+  for (int o = 0; o < 4; ++o) {
+    if (src[o] == nullptr || (keep && o < 2)) continue;
+    T* d = dst(o);
+    if (st.bulk) {
+      constexpr int kPer = 16 / sizeof(T);
+      const int cpr = nb / kPer;  // 16-byte chunks a row
+      for (int x = threadIdx.x; x < nb * cpr; x += blockDim.x) {
+        const int r = x / cpr, c = (x - r * cpr) * kPer;
+        cp_async16(d + r * pitch + c, src[o] + r * nb + c);
       }
-      T* wsb = ws + b * s_ws;
-      auto at = [&](int o) { return (o * stages + cur[o]) * nn; };
-      switch (kind) {
+    } else {
+      for (int x = threadIdx.x; x < nn; x += blockDim.x)
+        d[(x / nb) * pitch + x % nb] = __ldcg(src[o] + x);
+    }
+  }
+  if (st.bulk)
+    asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                     smem_u32(bar))
+                 : "memory");
+  else
+    mbar_arrive(bar);
+}
+
+// The task sources of a walk: a level of the task table (kind from the
+// row, slice w / n) or a wavefront batch's (k, i, j) index rows (one kind,
+// one slice).
+struct TableTasks {
+  const int* rows;
+  int n;
+  __device__ __forceinline__ int4 operator()(int w, int* b) const {
+    *b = w / n;
+    const int* row = rows + (w - *b * n) * kTableCols;
+    return make_int4(__ldg(row), __ldg(row + 1), __ldg(row + 2), __ldg(row + 3));
+  }
+};
+
+struct IndexTasks {
+  const int* idx;
+  int kind;
+  __device__ __forceinline__ int4 operator()(int w, int* b) const {
+    *b = 0;
+    return make_int4(kind, __ldg(idx + 3 * w), __ldg(idx + 3 * w + 1),
+                     __ldg(idx + 3 * w + 2));
+  }
+};
+
+// One CTA's run [w0, w1) of a level.  The run's first kRunStage tasks
+// are read into shared memory at its start (`stage`), so no task waits on
+// a global load of the next one.  Every task waits for its operands on
+// the mbarrier of its parity (`count` counts the CTA's tasks, `phase`
+// holds each barrier's next parity); the next task's copies go out before
+// this one computes (two buffers) or after it (one); the kind is uniform
+// across the CTA, so the bodies' barriers are reached by every thread.
+// `st` lies in shared memory and the tiles' addresses are recomputed
+// from it, so little of the walk's state is live across the bodies'
+// calls (which would save it to the stack).
+constexpr int kRunStage = 32;
+
+struct Staged {
+  int4 task[kRunStage];
+  int slice[kRunStage];
+};
+
+template <unsigned kKinds, typename T, typename Tasks>
+__device__ __forceinline__ void walk_run(const Walk<T>& st, const Tasks& tasks,
+                                         int w0, int w1,
+                                         unsigned long long* bars,
+                                         unsigned& count, unsigned& phase,
+                                         Staged& stage) {
+  if (w0 >= w1) return;
+  __syncthreads();  // the previous run's staged tasks are read
+  for (int x = threadIdx.x; x < w1 - w0 && x < kRunStage; x += blockDim.x)
+    stage.task[x] = tasks(w0 + x, &stage.slice[x]);
+  __syncthreads();
+  auto task_at = [&](int w, int* b) {
+    if (w - w0 < kRunStage) {
+      *b = stage.slice[w - w0];
+      return stage.task[w - w0];
+    }
+    return tasks(w, b);
+  };
+  unsigned cur = 0;  // bit o: the buffer that holds slot o's operand
+  int b;
+  int4 t = task_at(w0, &b);
+  {
+    T* src[4];
+    task_tiles(st, b, t, src);
+    issue_copies(st, src, cur, false, is_update(t.x), bars + (count & 1));
+  }
+  for (int w = w0; w < w1; ++w) {
+    const unsigned par = count & 1;
+    mbar_wait(bars + par, (phase >> par) & 1);
+    phase ^= 1u << par;
+    unsigned nxt = cur;
+    int nb_ = b;
+    int4 n = t;
+    bool keep = false;
+    const bool more = w + 1 < w1;
+    if (more) {
+      n = task_at(w + 1, &nb_);
+      const bool same_vt = n.y == t.y && (n.x == 1 || n.x == kQLarfb || n.z == t.z);
+      keep = nb_ == b && n.x == t.x && is_update(t.x) && same_vt;
+      if (st.stages == 2) {
+        nxt = cur ^ (keep ? 0xCu : 0xFu);  // a kept V and T stay put
+        T* nsrc[4];
+        task_tiles(st, nb_, n, nsrc);
+        issue_copies(st, nsrc, nxt, keep, is_update(n.x), bars + ((count + 1) & 1));
+      }
+    }
+    {
+      T* src[4];
+      task_tiles(st, b, t, src);
+      const int o_s = 4 * st.stages * st.slot;
+      auto at = [&](int o) { return (o * st.stages + ((cur >> o) & 1)) * st.slot; };
+      switch (t.x) {
         case 0:
-          geqrt_compute(at(0), o_s, wsb, d_t + b * s_dt, d_taus + b * s_dtaus,
-                        k, q, nb);
+          if constexpr ((kKinds >> 0) & 1)
+            geqrt_compute(at(0), o_s, st.ws + b * st.s_ws,
+                          st.d_t + b * st.s_dt, st.d_taus + b * st.s_dtaus,
+                          t.y, st.q, st.nb);
           break;
         case 1:
-          larfb_compute(at(0), at(1), at(2), o_s, wsb, k, j, q, nb);
+          if constexpr ((kKinds >> 1) & 1)
+            larfb_compute<false>(at(0), at(1), at(2), o_s, src[2], st.nb);
           break;
         case 2:
-          tsqrt_compute(at(0), at(2), o_s, wsb, t_t + b * s_tt,
-                        t_taus + b * s_ttaus, k, i, p, q, nb);
+          if constexpr ((kKinds >> 2) & 1)
+            tsqrt_compute(at(0), at(2), o_s, st.ws + b * st.s_ws,
+                          st.t_t + b * st.s_tt, st.t_taus + b * st.s_ttaus,
+                          t.y, t.z, st.p, st.q, st.nb);
           break;
         case 3:
-          ssrfb_compute(at(0), at(1), at(2), at(3), o_s, wsb, k, i, j, q, nb);
+          if constexpr ((kKinds >> 3) & 1)
+            ssrfb_compute<false>(at(0), at(1), at(2), at(3), o_s, src[2],
+                                 src[3], st.nb);
+          break;
+        case kQLarfb:
+          if constexpr ((kKinds >> kQLarfb) & 1)
+            larfb_compute<true>(at(0), at(1), at(2), o_s, src[2], st.nb);
+          break;
+        case kQSsrfb:
+          if constexpr ((kKinds >> kQSsrfb) & 1)
+            ssrfb_compute<true>(at(0), at(1), at(2), at(3), o_s, src[2],
+                                src[3], st.nb);
           break;
         default:
           break;
       }
-      __syncthreads();  // this task's buffers and the scratch are free
-      if (w + 1 < w1 && stages == 1) {
-        copy_operands(nkind, nk, ni, nj, ws + nbb * s_ws, d_t + nbb * s_dt,
-                      t_t + nbb * s_tt, q, r, nb, stages, nxt, keep_v, keep_t);
-        cp_async_commit();
-      }
-      for (int o = 0; o < 4; ++o) cur[o] = nxt[o];
     }
-    if (lv + 1 < nlevels) grid_barrier(barrier, gridDim.x);
+    __syncthreads();  // this task's buffers and the scratch are free
+    if (more && st.stages == 1) {
+      T* nsrc[4];
+      task_tiles(st, nb_, n, nsrc);
+      issue_copies(st, nsrc, nxt, keep, is_update(n.x), bars + ((count + 1) & 1));
+    }
+    cur = nxt;
+    t = n;
+    b = nb_;
+    ++count;
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-megakernel_kernel(T* ws, T* d_t, T* d_taus, T* t_t, T* t_taus,
-                  const int* tab, const int* runs, int nlevels, int nslots,
-                  int batch, int p, int q, int nb, int stages,
-                  unsigned int* barrier) {
-  megakernel_walk(ws, d_t, d_taus, t_t, t_taus, tab, runs, nlevels, nslots,
-                  1, p, q, nb, stages, barrier);
+// The walk's two mbarriers, each expecting an arrival from every thread.
+__device__ __forceinline__ void walk_barriers_init(unsigned long long* bars) {
+  if (threadIdx.x == 0)
+    for (int i = 0; i < 2; ++i)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                       smem_u32(bars + i)), "r"(kThreads)
+                   : "memory");
+  __syncthreads();
 }
 
-template <typename T>
+template <unsigned kKinds, typename T>
+__device__ __forceinline__ void megakernel_walk(const Walk<T>& st,
+                                                const int* tab,
+                                                const int* runs, int nlevels,
+                                                int nslots,
+                                                unsigned int* barrier) {
+  __shared__ unsigned long long bars[2];
+  __shared__ Staged stage;
+  walk_barriers_init(bars);  // also publishes `st`
+  unsigned count = 0, phase = 0;
+  // The runs carry, per (level, CTA), the run's [start, end) and the
+  // level's task count (and the run's first task, which the walk reads
+  // from the table); the next level's are read while this level's run
+  // goes.
+  const int4* run4 = reinterpret_cast<const int4*>(runs);
+  int4 run = __ldg(run4 + 2 * (size_t)blockIdx.x);
+  for (int lv = 0; lv < nlevels; ++lv) {
+    const TableTasks tasks{tab + (size_t)lv * nslots * kTableCols, run.z};
+    const int w0 = run.x, w1 = run.y;
+    if (lv + 1 < nlevels)
+      run = __ldg(run4 + 2 * ((size_t)(lv + 1) * gridDim.x + blockIdx.x));
+    walk_run<kKinds>(st, tasks, w0, w1, bars, count, phase, stage);
+    if (lv + 1 < nlevels) {
+      // This level's global writes reach the next level's bulk copies.
+      asm volatile("fence.proxy.async.global;\n" ::: "memory");
+      grid_barrier(barrier, gridDim.x);
+    }
+  }
+}
+
+template <typename T, unsigned kKinds>
+__global__ void __launch_bounds__(kThreads)
+megakernel_kernel(T* ws, T* d_t, T* d_taus, T* t_t, T* t_taus, T* e,
+                  const int* tab, const int* runs, int nlevels, int nslots,
+                  int p, int q, int qe, int nb, int stages,
+                  unsigned int* barrier) {
+  __shared__ Walk<T> st;
+  if (threadIdx.x == 0)
+    st = make_walk(ws, d_t, d_taus, t_t, t_taus, e, p, q, qe, nb, stages);
+  megakernel_walk<kKinds>(st, tab, runs, nlevels, nslots, barrier);
+}
+
+template <typename T, unsigned kKinds>
 __global__ void __launch_bounds__(kThreads, kMegaMinBlocks)
-megakernel_batched_kernel(T* ws, T* d_t, T* d_taus, T* t_t, T* t_taus,
+megakernel_batched_kernel(T* ws, T* d_t, T* d_taus, T* t_t, T* t_taus, T* e,
                           const int* tab, const int* runs, int nlevels,
-                          int nslots, int batch, int p, int q, int nb,
+                          int nslots, int p, int q, int qe, int nb,
                           int stages, unsigned int* barrier) {
-  megakernel_walk(ws, d_t, d_taus, t_t, t_taus, tab, runs, nlevels, nslots,
-                  batch, p, q, nb, stages, barrier);
+  __shared__ Walk<T> st;
+  if (threadIdx.x == 0)
+    st = make_walk(ws, d_t, d_taus, t_t, t_taus, e, p, q, qe, nb, stages);
+  megakernel_walk<kKinds>(st, tab, runs, nlevels, nslots, barrier);
+}
+
+// Resident CTAs per SM the update walk is compiled for (the register cap
+// __launch_bounds__ sets): three in fp32, two in fp64, whose
+// double-buffered padded slots fit two an SM.  Of one to four fp32 CTAs
+// an SM, three ran a 2,048^2 SSRFB batch fastest (more spilled, fewer
+// left the SM idle; PERF.md §6, PR 16).
+template <typename T>
+constexpr int kWalkMinBlocks = sizeof(T) == 4 ? 3 : 2;
+
+// One wavefront batch of updates of kind kKind (LARFB, SSRFB, QLARFB or
+// QSSRFB; `aux` is d_t or t_t): a persistent grid, CTA c walking tasks
+// [c n / G, (c + 1) n / G) of the batch's index rows.
+template <typename T, int kKind>
+__global__ void __launch_bounds__(kThreads, kWalkMinBlocks<T>)
+walk_kernel(T* ws, T* aux, T* e, const int* idx, int n, int p, int q, int qe,
+            int nb, int stages) {
+  __shared__ unsigned long long bars[2];
+  __shared__ Staged stage;
+  __shared__ Walk<T> st;
+  constexpr bool kLarfb = kKind == 1 || kKind == kQLarfb;
+  if (threadIdx.x == 0)
+    st = make_walk<T>(ws, kLarfb ? aux : nullptr, nullptr,
+                      kLarfb ? nullptr : aux, nullptr, e, p, q, qe, nb, stages);
+  walk_barriers_init(bars);  // also publishes `st`
+  const int w0 = (int)((long long)blockIdx.x * n / gridDim.x);
+  const int w1 = (int)((long long)(blockIdx.x + 1) * n / gridDim.x);
+  unsigned count = 0, phase = 0;
+  walk_run<(1u << kKind)>(st, IndexTasks{idx, kKind}, w0, w1, bars, count,
+                          phase, stage);
 }
 
 // ---------------------------------------------------------------------------
@@ -874,34 +1185,71 @@ static int launch(int kind, void* ws, void* aux0, void* aux1, const int* idx,
                   cudaStream_t stream) {
   T* w = static_cast<T*>(ws);
   cudaError_t err = cudaSuccess;
-  switch (kind) {
-    case 0:
-      err = prepare(geqrt_kernel<T>, bytes);
-      if (err == cudaSuccess)
-        geqrt_kernel<T><<<ntasks, kThreads, bytes, stream>>>(
-            w, static_cast<T*>(aux0), static_cast<T*>(aux1), idx, q, nb);
-      break;
-    case 1:
-      err = prepare(larfb_kernel<T>, bytes);
-      if (err == cudaSuccess)
-        larfb_kernel<T><<<ntasks, kThreads, bytes, stream>>>(
-            w, static_cast<const T*>(aux0), idx, q, nb);
-      break;
-    case 2:
-      err = prepare(tsqrt_kernel<T>, bytes);
-      if (err == cudaSuccess)
-        tsqrt_kernel<T><<<ntasks, kThreads, bytes, stream>>>(
-            w, static_cast<T*>(aux0), static_cast<T*>(aux1), idx, p, q, nb);
-      break;
-    default:
-      err = prepare(ssrfb_kernel<T>, bytes);
-      if (err == cudaSuccess)
-        ssrfb_kernel<T><<<ntasks, kThreads, bytes, stream>>>(
-            w, static_cast<const T*>(aux0), idx, p, q, nb);
-      break;
+  if (kind == 0) {
+    err = prepare(geqrt_kernel<T>, bytes);
+    if (err == cudaSuccess)
+      geqrt_kernel<T><<<ntasks, kThreads, bytes, stream>>>(
+          w, static_cast<T*>(aux0), static_cast<T*>(aux1), idx, q, nb);
+  } else {
+    err = prepare(tsqrt_kernel<T>, bytes);
+    if (err == cudaSuccess)
+      tsqrt_kernel<T><<<ntasks, kThreads, bytes, stream>>>(
+          w, static_cast<T*>(aux0), static_cast<T*>(aux1), idx, p, q, nb);
   }
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// The update walk's grid: the CTAs that fit the card at once at this
+// shared-memory size (the occupancy query of the kind's instantiation,
+// cached per kind, size and device), at most one per task.
+template <typename T>
+static int launch_walk(int kind, void* ws, void* aux, void* e, const int* idx,
+                       int n, int p, int q, int qe, int nb, int stages,
+                       size_t bytes, cudaStream_t stream, int* grid_out) {
+  static size_t cached_bytes[8] = {};
+  static int cached_dev[8] = {-1, -1, -1, -1, -1, -1, -1, -1};
+  static long cached_resident[8] = {};
+  auto kernel = kind == 1   ? walk_kernel<T, 1>
+                : kind == 3 ? walk_kernel<T, 3>
+                : kind == kQLarfb ? walk_kernel<T, kQLarfb>
+                                  : walk_kernel<T, kQSsrfb>;
+  *grid_out = 0;
+  cudaError_t err = prepare(kernel, bytes);
+  int dev = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess &&
+      (bytes != cached_bytes[kind] || dev != cached_dev[kind])) {
+    int per_sm = 0, sms = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kThreads, bytes);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess) {
+      cached_bytes[kind] = bytes;
+      cached_dev[kind] = dev;
+      cached_resident[kind] = (long)per_sm * sms;
+    }
+  }
+  if (err != cudaSuccess) return (int)err;
+  const long resident = cached_resident[kind];
+  const int grid = (int)(n < resident ? n : resident);
+  if (grid < 1) return (int)cudaErrorInvalidConfiguration;
+  kernel<<<grid, kThreads, bytes, stream>>>(
+      static_cast<T*>(ws), static_cast<T*>(aux), static_cast<T*>(e), idx, n,
+      p, q, qe, nb, stages);
+  *grid_out = grid;
+  return (int)cudaGetLastError();
+}
+
+// The megakernel instantiation: batched or not, over the factorization's
+// table or Q formation's.
+template <typename T>
+static auto megakernel_fn(bool batched, bool q) {
+  return batched ? (q ? megakernel_batched_kernel<T, kQKinds>
+                      : megakernel_batched_kernel<T, kFactorKinds>)
+                 : (q ? megakernel_kernel<T, kQKinds>
+                      : megakernel_kernel<T, kFactorKinds>);
 }
 
 // The megakernel's grid is chosen by the engine (macro_ops.py), from
@@ -909,11 +1257,10 @@ static int launch(int kind, void* ws, void* aux0, void* aux1, const int* idx,
 // be resident at once (a cooperative launch needs all of them resident
 // for the grid barrier), the most a launch may take.
 template <typename T>
-static int megakernel_resident(bool batched, size_t bytes, int* per_sm,
-                               int* resident) {
-  auto kernel = batched ? megakernel_batched_kernel<T> : megakernel_kernel<T>;
+static int megakernel_resident(bool batched, bool q, size_t bytes,
+                               int* per_sm, int* resident) {
   long total = 0;
-  cudaError_t err = resident_ctas(kernel, bytes, &total);
+  cudaError_t err = resident_ctas(megakernel_fn<T>(batched, q), bytes, &total);
   *resident = (int)total;
   int sms = 0, dev = 0;
   if (err == cudaSuccess) err = cudaGetDevice(&dev);
@@ -925,12 +1272,12 @@ static int megakernel_resident(bool batched, size_t bytes, int* per_sm,
 
 template <typename T>
 static int launch_megakernel(bool batched, void* ws, void* d_t, void* d_taus,
-                             void* t_t, void* t_taus, const int* tab,
-                             const int* runs, int nlevels, int nslots,
-                             int batch, int p, int q, int nb, int stages,
-                             int grid, unsigned int* barrier, size_t bytes,
+                             void* t_t, void* t_taus, void* e, const int* tab,
+                             const int* runs, int nlevels, int nslots, int p,
+                             int q, int qe, int nb, int stages, int grid,
+                             unsigned int* barrier, size_t bytes,
                              cudaStream_t stream, int* grid_out) {
-  auto kernel = batched ? megakernel_batched_kernel<T> : megakernel_kernel<T>;
+  auto kernel = megakernel_fn<T>(batched, e != nullptr);
   if (grid_out != nullptr) *grid_out = 0;
   cudaError_t err = prepare(kernel, bytes);
   if (err != cudaSuccess) return (int)err;
@@ -941,8 +1288,9 @@ static int launch_megakernel(bool batched, void* ws, void* d_t, void* d_taus,
   T* a2 = static_cast<T*>(d_taus);
   T* a3 = static_cast<T*>(t_t);
   T* a4 = static_cast<T*>(t_taus);
-  void* args[] = {&a0, &a1, &a2, &a3, &a4, &tab, &runs, &nlevels, &nslots,
-                  &batch, &p, &q, &nb, &stages, &barrier};
+  T* a5 = static_cast<T*>(e);
+  void* args[] = {&a0, &a1, &a2, &a3, &a4, &a5, &tab, &runs, &nlevels,
+                  &nslots, &p, &q, &qe, &nb, &stages, &barrier};
   err = cudaLaunchCooperativeKernel((const void*)kernel, dim3(grid),
                                     dim3(kThreads), args, bytes, stream);
   if (err != cudaSuccess) return (int)err;
@@ -950,9 +1298,9 @@ static int launch_megakernel(bool batched, void* ws, void* d_t, void* d_taus,
 }
 
 static int dispatch_megakernel(bool batched, void* ws, void* d_t,
-                               void* d_taus, void* t_t, void* t_taus,
+                               void* d_taus, void* t_t, void* t_taus, void* e,
                                const void* tab, const void* runs, int nlevels,
-                               int nslots, int batch, int p, int q, int nb,
+                               int nslots, int p, int q, int qe, int nb,
                                int stages, int grid, int is_double,
                                int smem_bytes, void* barrier, void* stream,
                                int* grid_out) {
@@ -965,11 +1313,11 @@ static int dispatch_megakernel(bool batched, void* ws, void* d_t,
   const size_t bytes = (size_t)smem_bytes;
   return is_double
              ? launch_megakernel<double>(batched, ws, d_t, d_taus, t_t, t_taus,
-                                         tb, rn, nlevels, nslots, batch, p, q,
+                                         e, tb, rn, nlevels, nslots, p, q, qe,
                                          nb, stages, grid, bar, bytes, s,
                                          grid_out)
              : launch_megakernel<float>(batched, ws, d_t, d_taus, t_t, t_taus,
-                                        tb, rn, nlevels, nslots, batch, p, q,
+                                        e, tb, rn, nlevels, nslots, p, q, qe,
                                         nb, stages, grid, bar, bytes, s,
                                         grid_out);
 }
@@ -990,21 +1338,15 @@ static int dispatch(int kind, void* ws, void* aux0, void* aux1, const void* idx,
 
 extern "C" {
 
-// Uniform signature: (workspace, aux0, aux1, idx, ntasks, p, q, nb,
+// GEQRT / TSQRT: (workspace, aux0, aux1, idx, ntasks, p, q, nb,
 // is_double, smem_bytes, stream).  aux0/aux1 are d_t/d_taus (GEQRT),
-// d_t/- (LARFB), t_t/t_taus (TSQRT), t_t/- (SSRFB).  smem_bytes is the
-// dynamic shared memory per CTA: the caller computes it from the
-// kernel's layout (MacroOp.smem_elems in macro_ops.py), so the size the
-// budget checks read and the size launched are one number.
+// t_t/t_taus (TSQRT).  smem_bytes is the dynamic shared memory per CTA:
+// the caller computes it from the kernel's layout (MacroOp.smem_elems in
+// macro_ops.py), so the size the budget checks read and the size
+// launched are one number.
 int repro_geqrt(void* ws, void* a0, void* a1, const void* idx, int n, int p,
                 int q, int nb, int is_double, int smem_bytes, void* stream) {
   return repro::dispatch(0, ws, a0, a1, idx, n, p, q, nb, is_double,
-                         smem_bytes, stream);
-}
-
-int repro_larfb(void* ws, void* a0, void* a1, const void* idx, int n, int p,
-                int q, int nb, int is_double, int smem_bytes, void* stream) {
-  return repro::dispatch(1, ws, a0, a1, idx, n, p, q, nb, is_double,
                          smem_bytes, stream);
 }
 
@@ -1014,58 +1356,80 @@ int repro_tsqrt(void* ws, void* a0, void* a1, const void* idx, int n, int p,
                          smem_bytes, stream);
 }
 
-int repro_ssrfb(void* ws, void* a0, void* a1, const void* idx, int n, int p,
-                int q, int nb, int is_double, int smem_bytes, void* stream) {
-  return repro::dispatch(3, ws, a0, a1, idx, n, p, q, nb, is_double,
-                         smem_bytes, stream);
+// The update walk: (kind, ws, aux, e, idx, ntasks, p, q, qe, nb, stages,
+// is_double, smem_bytes, stream, grid_out) for kind 1 (LARFB, aux = d_t),
+// 3 (SSRFB, aux = t_t), 5 (QLARFB, d_t) or 6 (QSSRFB, t_t); e is the
+// (p, qe, nb, nb) Q workspace (unused by LARFB / SSRFB); stages the
+// operand buffers per slot (1 or 2); *grid_out receives the CTAs launched.
+int repro_walk(int kind, void* ws, void* aux, void* e, const void* idx, int n,
+               int p, int q, int qe, int nb, int stages, int is_double,
+               int smem_bytes, void* stream, int* grid_out) {
+  if (!repro::is_update(kind) || nb < 1 || nb > 32 * repro::kSlots ||
+      stages < 1 || stages > 2)
+    return (int)cudaErrorInvalidValue;
+  const int* ix = static_cast<const int*>(idx);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t bytes = (size_t)smem_bytes;
+  return is_double
+             ? repro::launch_walk<double>(kind, ws, aux, e, ix, n, p, q, qe,
+                                          nb, stages, bytes, s, grid_out)
+             : repro::launch_walk<float>(kind, ws, aux, e, ix, n, p, q, qe,
+                                         nb, stages, bytes, s, grid_out);
 }
 
-// Megakernel entries: (ws, d_t, d_taus, t_t, t_taus, table, runs,
-// nlevels, nslots, batch, p, q, nb, stages, grid, is_double, smem_bytes,
-// barrier, stream, grid_out).  The state pointers are a single (p, q, ...)
-// state for repro_megakernel (batch must be 1) and a stacked (batch, p,
-// q, ...) state for repro_megakernel_batched; table is the engine's int32
-// (nlevels * nslots, 16) task table on the device; runs the int32
-// (nlevels, grid, 8) [start, end, level's task count, first task's slot,
-// its kind, k, i, j] of each CTA's run of each level's work list
-// (engine.megakernel_runs); stages the operand buffers per slot (1
-// or 2); grid at most the resident CTAs (repro_megakernel_resident);
+// Megakernel entries: (ws, d_t, d_taus, t_t, t_taus, e, table, runs,
+// nlevels, nslots, batch, p, q, qe, nb, stages, grid, is_double,
+// smem_bytes, barrier, stream, grid_out).  The state pointers are a
+// single (p, q, ...) state for repro_megakernel (batch must be 1) and a
+// stacked (batch, p, q, ...) state for repro_megakernel_batched; e is the
+// (p, qe, nb, nb) Q workspace (stacked likewise) the Q table's tasks
+// update (the factorization's table does not read it); table is the
+// engine's int32 (nlevels * nslots, 16) task table on the device; runs
+// the int32 (nlevels, grid, 8) [start, end, level's task count, first
+// task's slot, its kind, k, i, j] of each CTA's run of each level's work
+// list (engine.megakernel_runs); stages the operand buffers per slot (1
+// or 2); grid at most the resident CTAs (repro_megakernel_resident, q
+// set for a Q table: a non-null e selects Q formation's instantiation);
 // barrier is one zeroed uint32 on the device, the grid barrier's counter;
 // *grid_out receives the number of CTAs launched (0 if none could be).
 int repro_megakernel(void* ws, void* d_t, void* d_taus, void* t_t,
-                     void* t_taus, const void* tab, const void* runs,
-                     int nlevels, int nslots, int batch, int p, int q, int nb,
-                     int stages, int grid, int is_double, int smem_bytes,
-                     void* barrier, void* stream, int* grid_out) {
+                     void* t_taus, void* e, const void* tab, const void* runs,
+                     int nlevels, int nslots, int batch, int p, int q, int qe,
+                     int nb, int stages, int grid, int is_double,
+                     int smem_bytes, void* barrier, void* stream,
+                     int* grid_out) {
   if (batch != 1) return (int)cudaErrorInvalidValue;
-  return repro::dispatch_megakernel(false, ws, d_t, d_taus, t_t, t_taus, tab,
-                                    runs, nlevels, nslots, 1, p, q, nb, stages,
-                                    grid, is_double, smem_bytes, barrier,
-                                    stream, grid_out);
-}
-
-int repro_megakernel_batched(void* ws, void* d_t, void* d_taus, void* t_t,
-                             void* t_taus, const void* tab, const void* runs,
-                             int nlevels, int nslots, int batch, int p, int q,
-                             int nb, int stages, int grid, int is_double,
-                             int smem_bytes, void* barrier, void* stream,
-                             int* grid_out) {
-  return repro::dispatch_megakernel(true, ws, d_t, d_taus, t_t, t_taus, tab,
-                                    runs, nlevels, nslots, batch, p, q, nb,
+  return repro::dispatch_megakernel(false, ws, d_t, d_taus, t_t, t_taus, e,
+                                    tab, runs, nlevels, nslots, p, q, qe, nb,
                                     stages, grid, is_double, smem_bytes,
                                     barrier, stream, grid_out);
 }
 
-// (batched, is_double, smem_bytes, per_sm_out, resident_out): the
-// megakernel's CTAs per SM and resident CTAs at this shared-memory size.
-int repro_megakernel_resident(int batched, int is_double, int smem_bytes,
-                              int* per_sm, int* resident) {
+int repro_megakernel_batched(void* ws, void* d_t, void* d_taus, void* t_t,
+                             void* t_taus, void* e, const void* tab,
+                             const void* runs, int nlevels, int nslots,
+                             int batch, int p, int q, int qe, int nb,
+                             int stages, int grid, int is_double,
+                             int smem_bytes, void* barrier, void* stream,
+                             int* grid_out) {
+  if (batch < 1) return (int)cudaErrorInvalidValue;
+  return repro::dispatch_megakernel(true, ws, d_t, d_taus, t_t, t_taus, e,
+                                    tab, runs, nlevels, nslots, p, q, qe, nb,
+                                    stages, grid, is_double, smem_bytes,
+                                    barrier, stream, grid_out);
+}
+
+// (batched, q, is_double, smem_bytes, per_sm_out, resident_out): the
+// megakernel's CTAs per SM and resident CTAs at this shared-memory size,
+// for the factorization's instantiation or (q) Q formation's.
+int repro_megakernel_resident(int batched, int q, int is_double,
+                              int smem_bytes, int* per_sm, int* resident) {
   const size_t bytes = (size_t)smem_bytes;
   return is_double
-             ? repro::megakernel_resident<double>(batched != 0, bytes, per_sm,
-                                                  resident)
-             : repro::megakernel_resident<float>(batched != 0, bytes, per_sm,
-                                                 resident);
+             ? repro::megakernel_resident<double>(batched != 0, q != 0, bytes,
+                                                  per_sm, resident)
+             : repro::megakernel_resident<float>(batched != 0, q != 0, bytes,
+                                                 per_sm, resident);
 }
 
 const char* repro_error_string(int code) {

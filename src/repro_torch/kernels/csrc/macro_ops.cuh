@@ -272,6 +272,26 @@ __device__ __forceinline__ unsigned long long global_ns() {
   return t;
 }
 
+// mbarriers: one thread arms a phase with the bytes it expects (one
+// arrival), asynchronous copies or remote stores complete them, and every
+// thread waits on the phase.
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(unsigned long long* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+// The one arrival of a phase, with the bytes it will receive.
+__device__ __forceinline__ void mbar_expect(unsigned long long* bar,
+                                            unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_u32(bar)), "r"(bytes)
+               : "memory");
+}
+
 // Barrier of n CTAs of a cooperative launch (every CTA resident): the
 // whole grid, or one group of CTAs that shares a counter.  One 32-bit
 // counter, zero before the launch: the leader adds 2^31 - (n - 1) and
@@ -303,6 +323,25 @@ __device__ __forceinline__ void group_barrier(unsigned int* arrived,
 __device__ __forceinline__ void grid_barrier(unsigned int* arrived,
                                              unsigned int nblocks) {
   group_barrier(arrived, nblocks, blockIdx.x == 0);
+}
+
+// Wait for phase `parity` of `bar` to complete (every expected byte has
+// landed); acquire at cluster scope, which also covers stores from a
+// cluster's peers; traps after kBarrierTimeoutNs, as group_barrier does.
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
+                                          unsigned parity) {
+  const unsigned a = smem_u32(bar);
+  const unsigned long long start = global_ns();
+  for (;;) {
+    unsigned done;
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(a), "r"(parity) : "memory");
+    if (done) return;
+    if (global_ns() - start > kBarrierTimeoutNs) __trap();
+  }
 }
 
 // ---------------------------------------------------------------------------

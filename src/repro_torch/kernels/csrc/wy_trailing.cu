@@ -72,10 +72,8 @@ constexpr int kPad = 4;
 // Pushes into a peer's shared memory by st.async, each completing its
 // bytes on an mbarrier in the receiving CTA; the receiver arms the barrier
 // with the bytes it expects and waits on its phase.  No cluster barrier
-// and no release fence sits between a pass and the next.
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
+// and no release fence sits between a pass and the next (the mbarrier
+// helpers are in macro_ops.cuh).
 
 // The address `a` of this CTA's shared memory in CTA `rank`'s.
 __device__ __forceinline__ unsigned peer_u32(unsigned a, int rank) {
@@ -121,37 +119,6 @@ __device__ __forceinline__ void push4(unsigned raddr, const double (&x)[4],
         "l"(__double_as_longlong(x[2 * h])),
         "l"(__double_as_longlong(x[2 * h + 1])), "r"(rbar)
         : "memory");
-}
-
-__device__ __forceinline__ void mbar_init(unsigned long long* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar))
-               : "memory");
-}
-
-// The receiver's one arrival of a phase, with the bytes it will receive.
-__device__ __forceinline__ void mbar_expect(unsigned long long* bar,
-                                            unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   smem_u32(bar)), "r"(bytes)
-               : "memory");
-}
-
-// Wait for phase `parity` of `bar` to complete (every expected byte has
-// landed); traps after kBarrierTimeoutNs, as group_barrier does.
-__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
-                                          unsigned parity) {
-  const unsigned a = smem_u32(bar);
-  const unsigned long long start = global_ns();
-  for (;;) {
-    unsigned done;
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
-        "%2;\n selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(a), "r"(parity) : "memory");
-    if (done) return;
-    if (global_ns() - start > kBarrierTimeoutNs) __trap();
-  }
 }
 
 // Shared memory (kernels/wy_trailing.py: layout(), "cluster"), with

@@ -1,5 +1,6 @@
-"""The four tile-DAG macro ops of tiled QR and the megakernel that runs a
-whole schedule of them: plain bodies and Hopper kernels.
+"""The four tile-DAG macro ops of tiled QR, the two updates that form Q
+from the factored tiles, and the megakernel that runs a whole schedule of
+them: plain bodies and Hopper kernels.
 
 Counterpart of the reference's ``repro.kernels.macro_ops`` and of the
 megakernels of its ``repro.core.engine``.  Three layers:
@@ -7,14 +8,17 @@ megakernels of its ``repro.core.engine``.  Three layers:
   * **value-level bodies** — :func:`reflector_coeffs`, :func:`panel_body`,
     :func:`wy_body`, :func:`stacked_larft`, :func:`tsqrt_factor` and the
     four macro ops :func:`geqrt_body` / :func:`larfb_body` /
-    :func:`tsqrt_body` / :func:`ssrfb_body`.  Each takes tiles with a
-    leading task-batch dimension ``(B, nb, nb)`` and is the plain PyTorch
-    version of one kernel.  They keep the reference's LAPACK reflector
+    :func:`tsqrt_body` / :func:`ssrfb_body`, and Q formation's
+    :func:`qlarfb_body` / :func:`qssrfb_body` (LARFB's and SSRFB's
+    updates with T for T^T, the steps of ``tilegraph._form_q_tiled``).
+    Each takes tiles with a leading task-batch dimension ``(B, nb, nb)``
+    and is the plain PyTorch version of one kernel.  They keep the reference's LAPACK reflector
     convention exactly (``tau = 0`` and ``beta = x0`` when the tail is
     exactly zero), so packed tiles, T factors and taus compare element by
     element with the JAX package.
   * **workspace wrappers** — :func:`geqrt`, :func:`larfb`, :func:`tsqrt`,
-    :func:`ssrfb`: one launch runs a batch of same-kind tasks against the
+    :func:`ssrfb`, and :func:`qlarfb`, :func:`qssrfb` on a Q workspace E:
+    one launch runs a batch of same-kind tasks against the
     ``(p, q, nb, nb)`` tile workspace **in place**, reading each task's
     ``(k, i, j)`` from an ``(n, 3)`` int32 index tensor on the workspace's
     device.  On a CUDA tensor a wrapper launches its hand-written kernel
@@ -25,7 +29,9 @@ megakernels of its ``repro.core.engine``.  Three layers:
   * **megakernel wrappers** — :func:`megakernel` and
     :func:`megakernel_batched`: one cooperative launch walks the engine's
     whole task table (``engine.megakernel_task_table``) over a factor
-    state, or over a stacked ``(B, ...)`` state, in place; each CTA takes
+    state, or over a stacked ``(B, ...)`` state, in place; :func:`megakernel_q`
+    and :func:`megakernel_q_batched` walk the Q table
+    (``engine.q_megakernel_task_table``) over E the same way; each CTA takes
     the contiguous runs ``engine.megakernel_runs`` gives it, sized here
     from the occupancy query (:func:`megakernel_resident`).  Their plain
     versions :func:`megakernel_plain` / :func:`megakernel_batched_plain`
@@ -61,6 +67,8 @@ __all__ = [
     "tsqrt_factor",
     "tsqrt_body",
     "ssrfb_body",
+    "qlarfb_body",
+    "qssrfb_body",
     "geqrt",
     "larfb",
     "tsqrt",
@@ -69,10 +77,22 @@ __all__ = [
     "larfb_plain",
     "tsqrt_plain",
     "ssrfb_plain",
+    "qlarfb",
+    "qssrfb",
+    "qlarfb_plain",
+    "qssrfb_plain",
+    "Q_OPS",
+    "run_q_batch",
     "megakernel",
     "megakernel_batched",
     "megakernel_plain",
     "megakernel_batched_plain",
+    "megakernel_q",
+    "megakernel_q_batched",
+    "megakernel_q_plain",
+    "megakernel_q_batched_plain",
+    "operand_pitch",
+    "walk_stages",
     "reset_launch_counts",
     "run_batch",
     "smem_bytes",
@@ -234,6 +254,19 @@ def ssrfb_body(v2: Tensor, t: Tensor, ck: Tensor, ci: Tensor
     return (ck_a - w).to(ck.dtype), (ci_a - v_a @ w).to(ci.dtype)
 
 
+def qlarfb_body(diag_packed: Tensor, t: Tensor, c: Tensor) -> Tensor:
+    """QLARFB, the diagonal step of forming Q: ``C - V1 (T (V1^T C))``,
+    LARFB's update with T for T^T."""
+    return larfb_body(diag_packed, t.mT, c)
+
+
+def qssrfb_body(v2: Tensor, t: Tensor, ek: Tensor, ei: Tensor
+                ) -> Tuple[Tensor, Tensor]:
+    """QSSRFB, a TSQRT-pair step of forming Q: ``W = T (E_k + V2^T E_i)``,
+    ``E_k -= W``, ``E_i -= V2 W`` — SSRFB's update with T for T^T."""
+    return ssrfb_body(v2, t.mT, ek, ei)
+
+
 # ---------------------------------------------------------------------------
 # workspace-level plain versions (gather -> body -> scatter)
 # ---------------------------------------------------------------------------
@@ -274,22 +307,44 @@ def ssrfb_plain(tiles: Tensor, t_t: Tensor, idx: Tensor) -> None:
     tiles[ii, jj] = ci
 
 
+def qlarfb_plain(tiles: Tensor, d_t: Tensor, e: Tensor, idx: Tensor) -> None:
+    kk, jj = idx[:, 0].long(), idx[:, 2].long()
+    e[kk, jj] = qlarfb_body(tiles[kk, kk], d_t[kk], e[kk, jj])
+
+
+def qssrfb_plain(tiles: Tensor, t_t: Tensor, e: Tensor, idx: Tensor) -> None:
+    kk, ii, jj = idx[:, 0].long(), idx[:, 1].long(), idx[:, 2].long()
+    ek, ei = qssrfb_body(tiles[ii, kk], t_t[ii, kk], e[kk, jj], e[ii, jj])
+    e[kk, jj] = ek
+    e[ii, jj] = ei
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
 #: Kernel launches per kernel since the last :func:`reset_launch_counts`,
-#: for every kernel of the port: the macro ops and megakernels here, the
-#: panel and trailing kernels of :mod:`.ops` (``WY_TRAILING_Q`` counts the
-#: trailing kernel's launches that form Q apart from the factorization's)
-#: and the single-tile entry points of :mod:`.tile_ops`.
+#: for every kernel of the port: the macro ops, the Q updates and the
+#: megakernels here (``MEGAKERNEL_Q`` / ``MEGAKERNEL_Q_BATCHED``: the
+#: megakernels' launches over a Q table), the panel and trailing kernels of
+#: :mod:`.ops` (``WY_TRAILING_Q`` counts the trailing kernel's launches
+#: that form Q apart from the factorization's) and the single-tile entry
+#: points of :mod:`.tile_ops`.
 LAUNCHES: Dict[str, int] = {"GEQRT": 0, "LARFB": 0, "TSQRT": 0, "SSRFB": 0,
+                            "QLARFB": 0, "QSSRFB": 0,
                             "MEGAKERNEL": 0, "MEGAKERNEL_BATCHED": 0,
+                            "MEGAKERNEL_Q": 0, "MEGAKERNEL_Q_BATCHED": 0,
                             "MHT_PANEL": 0, "WY_TRAILING": 0,
                             "WY_TRAILING_Q": 0, "TSQRT_TILE": 0,
                             "SSRFB_TILE": 0}
 #: CTAs of the last launch of each megakernel (the resident grid).
-MEGAKERNEL_GRID: Dict[str, int] = {"MEGAKERNEL": 0, "MEGAKERNEL_BATCHED": 0}
+MEGAKERNEL_GRID: Dict[str, int] = {"MEGAKERNEL": 0, "MEGAKERNEL_BATCHED": 0,
+                                   "MEGAKERNEL_Q": 0,
+                                   "MEGAKERNEL_Q_BATCHED": 0}
+#: CTAs of the last launch of the update walk for each kind (the resident
+#: grid, at most one CTA per task).
+WALK_GRID: Dict[str, int] = {"LARFB": 0, "SSRFB": 0, "QLARFB": 0,
+                             "QSSRFB": 0}
 
 
 def reset_launch_counts() -> None:
@@ -297,8 +352,8 @@ def reset_launch_counts() -> None:
         LAUNCHES[kind] = 0
 
 
-def _check(kind: str, tiles: Tensor, aux: Tuple[Tensor, ...], idx: Tensor
-           ) -> None:
+def _check(kind: str, tiles: Tensor, aux: Tuple[Tensor, ...], idx: Tensor,
+           e: Tensor = None) -> None:
     """Device, dtype, shape and contiguity checks shared by the wrappers."""
     if tiles.ndim != 4 or tiles.shape[2] != tiles.shape[3]:
         raise ValueError(f"{kind}: expected a (p, q, nb, nb) workspace, "
@@ -307,11 +362,16 @@ def _check(kind: str, tiles: Tensor, aux: Tuple[Tensor, ...], idx: Tensor
     r = min(p, q)
     want = {"d_t": (r, nb, nb), "d_taus": (r, nb),
             "t_t": (p, r, nb, nb), "t_taus": (p, r, nb)}
-    for name, x in zip(MACRO_OPS[kind].state, aux):
+    state = Q_OPS[kind].state if kind in Q_OPS else MACRO_OPS[kind].state
+    for name, x in zip(state, aux):
         if tuple(x.shape) != want[name]:
             raise ValueError(f"{kind}: {name} must be {want[name]}, "
                              f"got {tuple(x.shape)}")
-    for x in (tiles,) + aux:
+    if e is not None and (e.ndim != 4 or e.shape[0] != p
+                          or tuple(e.shape[2:]) != (nb, nb)):
+        raise ValueError(f"{kind}: E must be a ({p}, qe, {nb}, {nb}) Q "
+                         f"workspace, got {tuple(e.shape)}")
+    for x in (tiles,) + aux + (() if e is None else (e,)):
         if x.device != tiles.device or x.dtype != tiles.dtype:
             raise ValueError(f"{kind}: state tensors must share the "
                              f"workspace's device and dtype")
@@ -323,13 +383,15 @@ def _check(kind: str, tiles: Tensor, aux: Tuple[Tensor, ...], idx: Tensor
 
 
 def _launch(kind: str, tiles: Tensor, aux: Tuple[Tensor, ...],
-            idx: Tensor, tally: str = None) -> None:
+            idx: Tensor, tally: str = None, e: Tensor = None) -> None:
     """Launch ``kind``'s kernel on a batch of tasks and add one to
-    ``LAUNCHES[tally]`` (default: the kind's own count)."""
+    ``LAUNCHES[tally]`` (default: the kind's own count).  GEQRT and TSQRT
+    launch a CTA per task; the updates launch the walk kernel's persistent
+    grid."""
     if tiles.dtype not in KERNEL_DTYPES:
         raise TypeError(f"{kind} kernel takes float32 or float64, "
                         f"got {tiles.dtype}")
-    for x in (tiles, idx) + aux:
+    for x in (tiles, idx) + aux + (() if e is None else (e,)):
         if not x.is_contiguous():
             raise ValueError(f"{kind} kernel needs contiguous tensors")
     if idx.shape[0] == 0:
@@ -338,13 +400,25 @@ def _launch(kind: str, tiles: Tensor, aux: Tuple[Tensor, ...],
 
     lib = _build.library()
     p, q, nb, _ = tiles.shape
-    ptrs = [x.data_ptr() for x in aux] + [None] * (2 - len(aux))
+    itemsize = tiles.element_size()
+    is_double = int(tiles.dtype == torch.float64)
     with torch.cuda.device(tiles.device):
         stream = torch.cuda.current_stream(tiles.device).cuda_stream
-        rc = getattr(lib, f"repro_{kind.lower()}")(
-            tiles.data_ptr(), ptrs[0], ptrs[1], idx.data_ptr(),
-            int(idx.shape[0]), p, q, nb, int(tiles.dtype == torch.float64),
-            smem_bytes(kind, nb, tiles.element_size()), stream)
+        if kind in WALK_KINDS:
+            grid = ctypes.c_int(0)
+            rc = lib.repro_walk(
+                WALK_KINDS[kind], tiles.data_ptr(), aux[0].data_ptr(),
+                None if e is None else e.data_ptr(), idx.data_ptr(),
+                int(idx.shape[0]), p, q, 0 if e is None else e.shape[1], nb,
+                walk_stages(nb, itemsize), is_double,
+                walk_smem_bytes(nb, itemsize), stream, ctypes.byref(grid))
+            WALK_GRID[kind] = grid.value
+        else:
+            ptrs = [x.data_ptr() for x in aux]
+            rc = getattr(lib, f"repro_{kind.lower()}")(
+                tiles.data_ptr(), ptrs[0], ptrs[1], idx.data_ptr(),
+                int(idx.shape[0]), p, q, nb, is_double,
+                smem_bytes(kind, nb, itemsize), stream)
     if rc != 0:
         raise RuntimeError(f"{kind} kernel launch failed: CUDA error {rc} "
                            f"({_build.error_string(rc)})")
@@ -352,12 +426,13 @@ def _launch(kind: str, tiles: Tensor, aux: Tuple[Tensor, ...],
 
 
 def _run(kind: str, plain: Callable, tiles: Tensor, aux: Tuple[Tensor, ...],
-         idx: Tensor) -> None:
-    _check(kind, tiles, aux, idx)
+         idx: Tensor, e: Tensor = None) -> None:
+    _check(kind, tiles, aux, idx, e)
+    extra = () if e is None else (e,)
     if tiles.device.type == "cpu":
-        plain(tiles, *aux, idx)
+        plain(tiles, *aux, *extra, idx)
     elif tiles.device.type == "cuda":
-        _launch(kind, tiles, aux, idx)
+        _launch(kind, tiles, aux, idx, e=e)
     else:
         raise ValueError(f"{kind}: no kernel for device {tiles.device}")
 
@@ -382,22 +457,50 @@ def ssrfb(tiles: Tensor, t_t: Tensor, idx: Tensor) -> None:
     _run("SSRFB", ssrfb_plain, tiles, (t_t,), idx)
 
 
+def qlarfb(tiles: Tensor, d_t: Tensor, e: Tensor, idx: Tensor) -> None:
+    """QLARFB of E tiles ``(k, j)`` in place, V1 from the factored tile
+    ``(k, k)``, T from ``d_t[k]``; the factored state is read only."""
+    _run("QLARFB", qlarfb_plain, tiles, (d_t,), idx, e)
+
+
+def qssrfb(tiles: Tensor, t_t: Tensor, e: Tensor, idx: Tensor) -> None:
+    """QSSRFB of E tile pairs ``(k, j)`` / ``(i, j)`` in place, V2 from the
+    factored tile ``(i, k)``, T from ``t_t[i, k]``."""
+    _run("QSSRFB", qssrfb_plain, tiles, (t_t,), idx, e)
+
+
 # ---------------------------------------------------------------------------
 # the megakernel: one launch walks the whole task table
 # ---------------------------------------------------------------------------
 #
-# The table is the engine's ``megakernel_task_table``: int32 rows of
-# TABLE_COLS columns, ``nslots`` rows per level, (kind, k, i, j) first,
-# kind an index into MACRO_OPS's order and NOOP past it.
+# The table is the engine's ``megakernel_task_table`` (or
+# ``q_megakernel_task_table``): int32 rows of TABLE_COLS columns,
+# ``nslots`` rows per level, (kind, k, i, j) first, kind an index into
+# MACRO_OPS's order, NOOP past it, and Q formation's kinds Q_KIND_ID.
 
 TABLE_COLS = 16
+#: The table id of an empty slot: past the four macro ops' ids (0..3, in
+#: MACRO_OPS's order, the reference's).
+NOOP = 4
+#: Table ids of Q formation's kinds, past NOOP.
+Q_KIND_ID = {"QLARFB": 5, "QSSRFB": 6}
+#: The update kinds the walk kernel (``repro_walk``) runs, by their table
+#: ids (LARFB and SSRFB at their MACRO_OPS positions).
+WALK_KINDS = {"LARFB": 1, "SSRFB": 3, **Q_KIND_ID}
 
 
-def _task_plain(st, kind: str, k: int, i: int, j: int) -> None:
+def _task_plain(st, kind: str, k: int, i: int, j: int, e: Tensor = None
+                ) -> None:
     """One task on every slice of a stacked state (fields with a leading
-    slice dimension), in place, through the value-level bodies."""
+    slice dimension) and Q workspace ``e``, in place, through the
+    value-level bodies."""
     tl = st.tiles
-    if kind == "GEQRT":
+    if kind == "QLARFB":
+        e[:, k, j] = qlarfb_body(tl[:, k, k], st.d_t[:, k], e[:, k, j])
+    elif kind == "QSSRFB":
+        e[:, k, j], e[:, i, j] = qssrfb_body(tl[:, i, k], st.t_t[:, i, k],
+                                             e[:, k, j], e[:, i, j])
+    elif kind == "GEQRT":
         tl[:, k, k], st.d_t[:, k], st.d_taus[:, k] = geqrt_body(tl[:, k, k])
     elif kind == "LARFB":
         tl[:, k, j] = larfb_body(tl[:, k, k], st.d_t[:, k], tl[:, k, j])
@@ -421,6 +524,28 @@ def megakernel_batched_plain(state, table: Tensor, nlevels: int,
             _task_plain(state, kinds[kind], k, i, j)
 
 
+_Q_KINDS = {v: k for k, v in Q_KIND_ID.items()}
+
+
+def megakernel_q_batched_plain(state, e: Tensor, table: Tensor, nlevels: int,
+                               nslots: int) -> None:
+    """Plain version of :func:`megakernel_q_batched`: the Q table's rows in
+    order, one task at a time, each on every slice of the stacked state
+    and Q workspace."""
+    del nlevels, nslots
+    for kind, k, i, j in table[:, :4].tolist():
+        if kind in _Q_KINDS:
+            _task_plain(state, _Q_KINDS[kind], k, i, j, e)
+
+
+def megakernel_q_plain(state, e: Tensor, table: Tensor, nlevels: int,
+                       nslots: int) -> None:
+    """Plain version of :func:`megakernel_q`: the Q table's rows in order,
+    one task at a time."""
+    megakernel_q_batched_plain(type(state)(*(x[None] for x in state)),
+                               e[None], table, nlevels, nslots)
+
+
 def megakernel_plain(state, table: Tensor, nlevels: int, nslots: int
                      ) -> None:
     """Plain version of :func:`megakernel`: the table's rows in order, one
@@ -430,7 +555,7 @@ def megakernel_plain(state, table: Tensor, nlevels: int, nslots: int
 
 
 def _check_megakernel(name: str, state, table: Tensor, nlevels: int,
-                      nslots: int, batched: bool) -> None:
+                      nslots: int, batched: bool, e: Tensor = None) -> None:
     tiles = state.tiles
     lead = 1 if batched else 0
     if tiles.ndim != 4 + lead or tiles.shape[-1] != tiles.shape[-2]:
@@ -444,7 +569,11 @@ def _check_megakernel(name: str, state, table: Tensor, nlevels: int,
         if tuple(x.shape) != shape:
             raise ValueError(f"{name}: {name_} must be {shape}, "
                              f"got {tuple(x.shape)}")
-    for x in state:
+    if e is not None and (e.ndim != 4 + lead or e.shape[:lead + 1] != b + (p,)
+                          or tuple(e.shape[-2:]) != (nb, nb)):
+        raise ValueError(f"{name}: E must be a {b + (p,)} + (qe, {nb}, "
+                         f"{nb}) Q workspace, got {tuple(e.shape)}")
+    for x in tuple(state) + (() if e is None else (e,)):
         if x.device != tiles.device or x.dtype != tiles.dtype:
             raise ValueError(f"{name}: state tensors must share the "
                              f"workspace's device and dtype")
@@ -457,8 +586,7 @@ def _check_megakernel(name: str, state, table: Tensor, nlevels: int,
 
 #: Resident CTAs per SM and in all of each megakernel's last launch.
 MEGAKERNEL_OCCUPANCY: Dict[str, Dict[str, int]] = {
-    "MEGAKERNEL": {"per_sm": 0, "resident": 0},
-    "MEGAKERNEL_BATCHED": {"per_sm": 0, "resident": 0}}
+    name: {"per_sm": 0, "resident": 0} for name in MEGAKERNEL_GRID}
 _RESIDENT: Dict[Tuple, Tuple[int, int]] = {}
 
 
@@ -467,7 +595,8 @@ def megakernel_resident(name: str, nb: int, dtype: torch.dtype,
     """``(CTAs per SM, resident CTAs)`` of the ``name`` megakernel at its
     launch's shared memory for tile ``nb`` on ``device``: the occupancy
     query, once per key.  The grid of a launch is at most the resident
-    count (a cooperative launch needs every CTA resident)."""
+    count (a cooperative launch needs every CTA resident).  The Q names
+    launch the megakernels' instantiations for a Q table."""
     itemsize = torch.finfo(dtype).bits // 8
     smem = megakernel_launch_smem_bytes(nb, itemsize)
     key = (name, smem, itemsize, str(device))
@@ -478,8 +607,9 @@ def megakernel_resident(name: str, nb: int, dtype: torch.dtype,
         per_sm, resident = ctypes.c_int(0), ctypes.c_int(0)
         with torch.cuda.device(device):
             rc = lib.repro_megakernel_resident(
-                int(name == "MEGAKERNEL_BATCHED"), int(itemsize == 8), smem,
-                ctypes.byref(per_sm), ctypes.byref(resident))
+                int(name.endswith("BATCHED")), int("_Q" in name),
+                int(itemsize == 8), smem, ctypes.byref(per_sm),
+                ctypes.byref(resident))
         if rc != 0:
             raise RuntimeError(f"{name} occupancy query failed: CUDA error "
                                f"{rc} ({_build.error_string(rc)})")
@@ -488,14 +618,14 @@ def megakernel_resident(name: str, nb: int, dtype: torch.dtype,
 
 
 def _launch_megakernel(name: str, state, table: Tensor, nlevels: int,
-                       nslots: int, batch: int) -> None:
+                       nslots: int, batch: int, e: Tensor = None) -> None:
     from repro_torch.core import engine
 
     tiles = state.tiles
     if tiles.dtype not in KERNEL_DTYPES:
         raise TypeError(f"{name} kernel takes float32 or float64, "
                         f"got {tiles.dtype}")
-    for x in tuple(state) + (table,):
+    for x in tuple(state) + (table,) + (() if e is None else (e,)):
         if not x.is_contiguous():
             raise ValueError(f"{name} kernel needs contiguous tensors")
     from repro_torch.kernels import _build
@@ -510,14 +640,19 @@ def _launch_megakernel(name: str, state, table: Tensor, nlevels: int,
         raise RuntimeError(f"{name}: not one CTA of "
                            f"{megakernel_launch_smem_bytes(nb, itemsize)} B "
                            f"of shared memory fits the device")
-    runs = engine.megakernel_runs_device(p, q, batch, grid_ctas, tiles.device)
+    qe = None if e is None else e.shape[-3]
+    runs = engine.megakernel_runs_device(p, q, batch, grid_ctas, tiles.device,
+                                         qe=qe)
     barrier = torch.zeros(1, dtype=torch.int32, device=tiles.device)
     grid = ctypes.c_int(0)
+    entry = "repro_megakernel_batched" if name.endswith("BATCHED") \
+        else "repro_megakernel"
     with torch.cuda.device(tiles.device):
         stream = torch.cuda.current_stream(tiles.device).cuda_stream
-        rc = getattr(lib, f"repro_{name.lower()}")(
-            *(x.data_ptr() for x in state), table.data_ptr(), runs.data_ptr(),
-            nlevels, nslots, batch, p, q, nb,
+        rc = getattr(lib, entry)(
+            *(x.data_ptr() for x in state), None if e is None else e.data_ptr(),
+            table.data_ptr(), runs.data_ptr(),
+            nlevels, nslots, batch, p, q, qe or 0, nb,
             megakernel_stages(nb, itemsize), grid_ctas,
             int(tiles.dtype == torch.float64),
             megakernel_launch_smem_bytes(nb, itemsize),
@@ -531,14 +666,16 @@ def _launch_megakernel(name: str, state, table: Tensor, nlevels: int,
 
 
 def _run_megakernel(name: str, plain: Callable, state, table: Tensor,
-                    nlevels: int, nslots: int, batched: bool) -> None:
-    _check_megakernel(name, state, table, nlevels, nslots, batched)
+                    nlevels: int, nslots: int, batched: bool,
+                    e: Tensor = None) -> None:
+    _check_megakernel(name, state, table, nlevels, nslots, batched, e)
     device = state.tiles.device
     if device.type == "cpu":
-        plain(state, table, nlevels, nslots)
+        plain(*((state,) if e is None else (state, e)), table, nlevels,
+              nslots)
     elif device.type == "cuda":
         batch = state.tiles.shape[0] if batched else 1
-        _launch_megakernel(name, state, table, nlevels, nslots, batch)
+        _launch_megakernel(name, state, table, nlevels, nslots, batch, e)
     else:
         raise ValueError(f"{name}: no kernel for device {device}")
 
@@ -560,6 +697,26 @@ def megakernel_batched(state, table: Tensor, nlevels: int, nslots: int
                     table, nlevels, nslots, batched=True)
 
 
+def megakernel_q(state, e: Tensor, table: Tensor, nlevels: int,
+                 nslots: int) -> None:
+    """Q formation's whole schedule (``table`` from
+    ``engine.q_megakernel_task_table``) over a ``(p, qe, nb, nb)`` Q
+    workspace ``e``, in place, the factored ``state`` read only: one
+    cooperative launch of the megakernel on CUDA tensors, the plain walk
+    on CPU tensors."""
+    _run_megakernel("MEGAKERNEL_Q", megakernel_q_plain, state, table,
+                    nlevels, nslots, batched=False, e=e)
+
+
+def megakernel_q_batched(state, e: Tensor, table: Tensor, nlevels: int,
+                         nslots: int) -> None:
+    """:func:`megakernel_q` over every slice of a stacked state and
+    ``(B, p, qe, nb, nb)`` Q workspace: one launch of the batched
+    megakernel."""
+    _run_megakernel("MEGAKERNEL_Q_BATCHED", megakernel_q_batched_plain,
+                    state, table, nlevels, nslots, batched=True, e=e)
+
+
 # ---------------------------------------------------------------------------
 # registry + shared-memory accounting
 # ---------------------------------------------------------------------------
@@ -577,10 +734,11 @@ class MacroOp:
     vmem_tiles:  the reference's modeled on-chip tile count per task; read
                  only by ``engine.schedule_stats``, which reports the
                  reference's numbers
-    smem_elems:  ``nb -> elements`` of dynamic shared memory the kernel
-                 carves up per task (its layout is in ``csrc/macro_ops.cu``);
-                 the launch passes exactly this size, and the budget
-                 checks of the planner and the engine read it too
+    smem_elems:  ``(nb, itemsize) -> elements`` of dynamic shared memory
+                 the kernel's launch takes (its layout is in
+                 ``csrc/macro_ops.cu``); the launch passes exactly this
+                 size, and the budget checks of the planner and the engine
+                 read it too
     """
 
     name: str
@@ -591,7 +749,7 @@ class MacroOp:
     tile_reads: int
     tile_writes: int
     vmem_tiles: int
-    smem_elems: Callable[[int], int]
+    smem_elems: Callable[[int, int], int]
 
 
 #: The GEQRT/TSQRT column loops' exchange buffer (``kXchElems`` in
@@ -599,27 +757,84 @@ class MacroOp:
 #: 32-wide pivot row, and 32 denominators.
 XCH_ELEMS = 2 * (8 * 32 + 32) + 32
 
+
+def operand_pitch(nb: int, itemsize: int = 4) -> int:
+    """Row pitch of the update bodies' operand tiles in shared memory
+    (``operand_pitch`` in ``csrc/macro_ops.cu``): nb + 4 for the fp64
+    tiles the DMMA products take (nb a multiple of 8, up to 64), a pad
+    that puts their fragment loads in distinct banks; else nb."""
+    if itemsize == 8 and nb % 8 == 0 and nb <= 64:
+        return nb + 4
+    return nb
+
+
+def _walk_elems(nb: int, itemsize: int, stages: int) -> int:
+    # Four operand slots of `stages` buffers, then W and W2.
+    slot = nb * operand_pitch(nb, itemsize)
+    return 4 * stages * slot + 2 * slot
+
+
+def walk_stages(nb: int, itemsize: int = 4) -> int:
+    """Operand buffers per slot of the update walk's CTAs: 2 (the next
+    task's tiles stream in while one computes) where they fit the
+    shared-memory budget, else 1."""
+    from repro_torch.core.engine import DEFAULT_SMEM_BUDGET
+
+    return 2 if _walk_elems(nb, itemsize, 2) * itemsize <= DEFAULT_SMEM_BUDGET \
+        else 1
+
+
+def walk_smem_bytes(nb: int, itemsize: int = 4) -> int:
+    """Dynamic shared memory of one update-walk CTA (LARFB, SSRFB and the Q
+    updates): four operand slots of :func:`walk_stages` buffers at
+    :func:`operand_pitch`, and the two scratch tiles."""
+    return _walk_elems(nb, itemsize, walk_stages(nb, itemsize)) * itemsize
+
+
+def _walk_smem_elems(nb: int, itemsize: int) -> int:
+    return _walk_elems(nb, itemsize, walk_stages(nb, itemsize))
+
+
 MACRO_OPS: Dict[str, MacroOp] = {
     # A and the transposed Gram matrix (pitch nb), T (pitch nb + 1), taus,
     # the column loop's exchange buffer.
     "GEQRT": MacroOp("GEQRT", geqrt_body, geqrt, geqrt_plain,
                      ("d_t", "d_taus"), tile_reads=1, tile_writes=1,
                      vmem_tiles=4,
-                     smem_elems=lambda nb: 3 * nb * nb + 2 * nb + XCH_ELEMS),
-    # V, T, C, W1, W2 tiles.
+                     smem_elems=lambda nb, _: 3 * nb * nb + 2 * nb + XCH_ELEMS),
+    # The update walk's carve-up (walk_smem_bytes).
     "LARFB": MacroOp("LARFB", larfb_body, larfb, larfb_plain, ("d_t",),
                      tile_reads=2, tile_writes=1, vmem_tiles=5,
-                     smem_elems=lambda nb: 5 * nb * nb),
+                     smem_elems=_walk_smem_elems),
     # D, A (-> V2) and the transposed Gram matrix (pitch nb), T (pitch
     # nb + 1), taus, the column loop's exchange buffer.
     "TSQRT": MacroOp("TSQRT", tsqrt_body, tsqrt, tsqrt_plain,
                      ("t_t", "t_taus"), tile_reads=2, tile_writes=2,
                      vmem_tiles=6,
-                     smem_elems=lambda nb: 4 * nb * nb + 2 * nb + XCH_ELEMS),
-    # V2, T, C_k, C_i, W, W2 tiles.
+                     smem_elems=lambda nb, _: 4 * nb * nb + 2 * nb + XCH_ELEMS),
+    # The update walk's carve-up.
     "SSRFB": MacroOp("SSRFB", ssrfb_body, ssrfb, ssrfb_plain, ("t_t",),
                      tile_reads=3, tile_writes=2, vmem_tiles=7,
-                     smem_elems=lambda nb: 6 * nb * nb),
+                     smem_elems=_walk_smem_elems),
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class QOp:
+    """Capability card for one Q-formation update: its value-level body,
+    the wrapper that launches the walk kernel over a Q workspace E, its
+    plain version, and the factor-state field that holds its T."""
+
+    name: str
+    body: Callable
+    kernel: Callable
+    plain: Callable
+    state: Tuple[str, ...]
+
+
+Q_OPS: Dict[str, QOp] = {
+    "QLARFB": QOp("QLARFB", qlarfb_body, qlarfb, qlarfb_plain, ("d_t",)),
+    "QSSRFB": QOp("QSSRFB", qssrfb_body, qssrfb, qssrfb_plain, ("t_t",)),
 }
 
 
@@ -632,14 +847,24 @@ def run_batch(kind: str, state, idx: Tensor, *, use_kernel: bool) -> None:
     fn(state.tiles, *(getattr(state, name) for name in op.state), idx)
 
 
+def run_q_batch(kind: str, state, e: Tensor, idx: Tensor, *,
+                use_kernel: bool) -> None:
+    """One same-kind batch of Q-formation updates on the Q workspace ``e``
+    (the factored ``state`` read only), in place: the kernel wrapper when
+    ``use_kernel``, else the plain version."""
+    op = Q_OPS[kind]
+    fn = op.kernel if use_kernel else op.plain
+    fn(state.tiles, *(getattr(state, name) for name in op.state), e, idx)
+
+
 def smem_bytes(kind: str, nb: int, itemsize: int = 4) -> int:
-    """Dynamic shared memory one macro op's kernel takes per task at tile
+    """Dynamic shared memory one macro op's kernel takes per CTA at tile
     size nb: the size its launch passes."""
-    return MACRO_OPS[kind].smem_elems(nb) * itemsize
+    return MACRO_OPS[kind].smem_elems(nb, itemsize) * itemsize
 
 
 def engine_smem_bytes(nb: int, itemsize: int = 4) -> int:
-    """Largest per-task shared memory of the four kernels at tile size nb:
+    """Largest per-CTA shared memory of the four kernels at tile size nb:
     what the planner and the engine hold against the budget."""
     return max(smem_bytes(k, nb, itemsize) for k in MACRO_OPS)
 
@@ -661,31 +886,35 @@ def megakernel_smem_bytes(nb: int, itemsize: int = 4) -> int:
     return MEGAKERNEL_SMEM_TILES * nb * nb * itemsize
 
 
-def megakernel_scratch_elems(nb: int) -> int:
-    """The largest compute scratch of the four bodies (``csrc/macro_ops.cu``):
-    GEQRT's and TSQRT's transposed Gram matrix, T at pitch nb + 1, taus and
-    the column exchange; LARFB's and SSRFB's two tiles fit inside it."""
-    return 2 * nb * nb + 2 * nb + XCH_ELEMS
+def megakernel_scratch_elems(nb: int, itemsize: int = 4) -> int:
+    """The largest compute scratch of the bodies (``csrc/macro_ops.cu``):
+    GEQRT's and TSQRT's transposed Gram matrix, T at pitch nb + 1, taus
+    and the column exchange, or the updates' two tiles at
+    :func:`operand_pitch`."""
+    return max(2 * nb * nb + 2 * nb + XCH_ELEMS,
+               2 * nb * operand_pitch(nb, itemsize))
 
 
-def _megakernel_elems(nb: int, stages: int) -> int:
-    return 4 * stages * nb * nb + megakernel_scratch_elems(nb)
+def _megakernel_elems(nb: int, stages: int, itemsize: int) -> int:
+    return (4 * stages * nb * operand_pitch(nb, itemsize)
+            + megakernel_scratch_elems(nb, itemsize))
 
 
 def megakernel_stages(nb: int, itemsize: int = 4) -> int:
     """Operand buffers per slot of a megakernel CTA: 2 (the next task's
     tiles stream in while one computes) where four double-buffered slots
     and the scratch fit the shared-memory budget, else 1 (reuse, no
-    prefetch: e.g. nb = 64 fp64, whose double buffers alone are 256 KiB)."""
+    prefetch: e.g. nb = 64 fp64, whose double buffers alone are 272 KiB)."""
     from repro_torch.core.engine import DEFAULT_SMEM_BUDGET
 
-    fits = _megakernel_elems(nb, 2) * itemsize <= DEFAULT_SMEM_BUDGET
+    fits = _megakernel_elems(nb, 2, itemsize) * itemsize <= DEFAULT_SMEM_BUDGET
     return 2 if fits else 1
 
 
 def megakernel_launch_smem_bytes(nb: int, itemsize: int = 4) -> int:
     """Dynamic shared memory of one megakernel CTA, the size its launch
     passes and the engine's guard reads: four operand slots (V, T, C,
-    C_i) of :func:`megakernel_stages` tiles each, then the largest compute
-    scratch."""
-    return _megakernel_elems(nb, megakernel_stages(nb, itemsize)) * itemsize
+    C_i) of :func:`megakernel_stages` buffers of nb rows at
+    :func:`operand_pitch`, then the largest compute scratch."""
+    return _megakernel_elems(nb, megakernel_stages(nb, itemsize),
+                             itemsize) * itemsize

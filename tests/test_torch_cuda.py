@@ -1,7 +1,8 @@
 """The port's CUDA kernels on a Hopper card, against their plain
 versions: the four wavefront macro-op kernels (their task bodies at
-several tile sizes), both megakernels, the MHT panel kernel on each of
-its paths, the WY trailing kernel, and the single-tile TSQRT / SSRFB
+several tile sizes), the Q-formation updates, both megakernels over the
+factorization's and Q formation's tables, the MHT panel kernel on each
+of its paths, the WY trailing kernel, and the single-tile TSQRT / SSRFB
 entry points.
 
 Every test is marked ``cuda`` and skips without an sm_90 device.  The
@@ -23,6 +24,7 @@ import torch
 
 import repro_torch
 from repro_torch.core import blocked, engine
+from repro_torch.core import tilegraph as ttg
 from repro_torch.kernels import macro_ops as tmo
 from repro_torch.kernels import ops, tile_ops
 
@@ -209,14 +211,15 @@ def test_megakernel_at_nb64_on_hopper(dtype):
 @pytest.mark.cuda
 def test_qr_on_a_stack_is_one_launch_on_hopper():
     """``repro_torch.qr`` on a (4, 256, 256) stack: one batched megakernel
-    launch, every slice inside the conformance bar."""
+    launch factors it and one over the Q table forms Q, every slice inside
+    the conformance bar."""
     _need_hopper()
     a = torch.from_numpy(_workspace((4, 256, 256), 61, "float32")).cuda()
     tmo.reset_launch_counts()
     q, r = repro_torch.qr(a)
     torch.cuda.synchronize()
     assert {k: v for k, v in tmo.LAUNCHES.items() if v} == {
-        "MEGAKERNEL_BATCHED": 1}
+        "MEGAKERNEL_BATCHED": 1, "MEGAKERNEL_Q_BATCHED": 1}
     bar = 100 * np.finfo(np.float32).eps * 256
     q64, r64, a64 = q.double(), r.double(), a.double()
     eye = torch.eye(256, dtype=torch.float64, device="cuda")
@@ -366,3 +369,161 @@ def test_qr_off_the_tiled_route_on_hopper(shape):
     assert float((q64.mT @ q64 - eye).abs().max()) <= bar
     assert float((torch.linalg.matrix_norm(a64 - q64 @ r64)
                   / torch.linalg.matrix_norm(a64)).max()) <= bar
+
+
+# ---------------------------------------------------------------------------
+# Q formation and the update walk (DMMA products in fp64, FMA in fp32)
+# ---------------------------------------------------------------------------
+
+def _state(p, q, nb, dt, seed):
+    rng = np.random.default_rng(seed)
+    r = min(p, q)
+    return engine.FactorState(*(
+        torch.from_numpy(rng.standard_normal(s)).to("cuda", dt)
+        for s in [(p, q, nb, nb), (r, nb, nb), (r, nb), (p, r, nb, nb),
+                  (p, r, nb)]))
+
+
+def _tf32_round(x):
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("nb", [16, 32, 64])
+@pytest.mark.parametrize("kind", ["QLARFB", "QSSRFB"])
+def test_q_kernels_match_plain_on_hopper(kind, nb, dtype):
+    """Each Q update's walk kernel against its plain version on the Q
+    schedule's largest batch of its kind (a 5 x 5 grid, qe = 5), within
+    4 * eps * nb * max(1, max |plain|); the factored state is not
+    written."""
+    _need_hopper()
+    p = q = qe = 5
+    dt = getattr(torch, dtype)
+    state = _state(p, q, nb, dt, 90 + nb)
+    before = [x.clone() for x in state]
+    idx = torch.from_numpy(max((lv[kind] for lv in engine.q_task_arrays(p, q, qe)
+                                if kind in lv), key=len)).cuda()
+    e0 = torch.from_numpy(_workspace((p, qe, nb, nb), 91, dtype)).cuda()
+    got, want = e0.clone(), e0.clone()
+    launched = tmo.LAUNCHES[kind]
+    tmo.run_q_batch(kind, state, got, idx, use_kernel=True)
+    tmo.run_q_batch(kind, state, want, idx, use_kernel=False)
+    torch.cuda.synchronize()
+    assert tmo.LAUNCHES[kind] == launched + 1
+    _within((got,), (want,), nb, dt)
+    assert all(torch.equal(x, y) for x, y in zip(state, before))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("kind", ["LARFB", "SSRFB"])
+def test_updates_beat_the_one_pass_tf32_control_on_hopper(kind, dtype):
+    """The redesigned LARFB / SSRFB (the update walk: FMA passes in fp32,
+    DMMA in fp64) within 4 * eps * nb * max(1, max |plain|) of the plain
+    version on a 6 x 6 grid's largest batch, while the control misses
+    that bound: in fp32 the plain version on inputs rounded to TF32 (one
+    pass of TF32 products), in fp64 the kernel's outputs rounded to
+    fp32."""
+    _need_hopper()
+    p = q = 6
+    nb = 32
+    dt = getattr(torch, dtype)
+    state = _state(p, q, nb, dt, 95)
+    idx = torch.from_numpy(max((lv[kind] for lv in engine.wavefront_task_arrays(p, q)
+                                if kind in lv), key=len)).cuda()
+    got = engine.FactorState(*(x.clone() for x in state))
+    want = engine.FactorState(*(x.clone() for x in state))
+    tmo.run_batch(kind, got, idx, use_kernel=True)
+    tmo.run_batch(kind, want, idx, use_kernel=False)
+    torch.cuda.synchronize()
+    _within(got, want, nb, dt)
+    if dt == torch.float32:
+        ctrl = engine.FactorState(*(_tf32_round(x) for x in state))
+        tmo.run_batch(kind, ctrl, idx, use_kernel=False)
+        torch.cuda.synchronize()
+    else:
+        ctrl = [torch.where(g != s, g.float().double(), g)
+                for g, s in zip(got, state)]
+    scale = max(1.0, max(float(w.abs().max()) for w in want))
+    tol = 4 * torch.finfo(dt).eps * nb * scale
+    assert max(float((c - w).abs().max()) for c, w in zip(ctrl, want)) > tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("p,q", [(8, 8), (5, 3), (3, 5)])
+def test_q_megakernel_equals_wavefront_on_hopper(p, q, dtype):
+    """Q formation by one megakernel launch over the Q table equals the
+    wavefront walk bitwise (both run the same update bodies on the same
+    operands), reduced and full, and lies within 10 eps max(m, n) of the
+    plain Q loop."""
+    _need_hopper()
+    nb = 32
+    dt = getattr(torch, dtype)
+    tiles = torch.from_numpy(_workspace((p, q, nb, nb), 93, dtype)).cuda()
+    f = engine.factor_tiles(tiles, p=p, q=q, nb=nb, use_kernel=True,
+                            dispatch_mode="wavefront")
+    for ncols in (min(p, q) * nb, p * nb):
+        tmo.reset_launch_counts()
+        mega = engine.form_q_tiles(f, ncols, dispatch_mode="megakernel")
+        torch.cuda.synchronize()
+        assert {k: v for k, v in tmo.LAUNCHES.items() if v} == {"MEGAKERNEL_Q": 1}
+        wave = engine.form_q_tiles(f, ncols, dispatch_mode="wavefront")
+        plain = ttg._form_q_tiled(f, ncols)
+        torch.cuda.synchronize()
+        assert torch.equal(mega, wave)
+        tol = 10 * torch.finfo(dt).eps * max(p, q) * nb
+        assert float((ttg._join_tiles(mega) - plain).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_q_batched_slices_equal_single_runs_on_hopper(dtype):
+    """A 7-slice (ragged) stack's Q by one batched megakernel launch:
+    every slice equals the single megakernel's Q of it, bitwise."""
+    _need_hopper()
+    p, q, nb, batch = 5, 3, 32, 7
+    dt = getattr(torch, dtype)
+    tiles = torch.from_numpy(_ragged(_workspace((batch, p, q, nb, nb), 94,
+                                                dtype))).cuda()
+    f = engine.factor_tiles_batched(tiles, p=p, q=q, nb=nb, use_kernel=True,
+                                    dispatch_mode="megakernel")
+    tmo.reset_launch_counts()
+    stacked = engine.form_q_tiles(f, p * nb, dispatch_mode="megakernel")
+    torch.cuda.synchronize()
+    assert {k: v for k, v in tmo.LAUNCHES.items() if v} == {
+        "MEGAKERNEL_Q_BATCHED": 1}
+    for b in range(batch):
+        single = engine.form_q_tiles(engine.FactorState(*(x[b] for x in f)),
+                                     p * nb, dispatch_mode="megakernel")
+        assert torch.equal(stacked[b], single)
+
+
+@pytest.mark.cuda
+def test_qr_forms_q_on_the_kernels_on_hopper():
+    """``repro_torch.qr`` at 640^2 forms Q in one megakernel launch and at
+    1024^2 (wavefront) in at most two launches a Q level, no eager loop;
+    each Q within 4 sqrt(N) eps of the plain lowering's and inside the
+    conformance bar."""
+    _need_hopper()
+    eps = float(np.finfo(np.float32).eps)
+    for n, want in ((640, {"MEGAKERNEL": 1, "MEGAKERNEL_Q": 1}), (1024, None)):
+        a = torch.from_numpy(_workspace((n, n), 96, "float32")).cuda()
+        tmo.reset_launch_counts()
+        qk, rk = repro_torch.qr(a)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in tmo.LAUNCHES.items() if v}
+        g = n // 32
+        if want is None:
+            want = dict(engine.dispatch_counts(g, g),
+                        **engine.q_dispatch_counts(g, g, g))
+            assert launches["QLARFB"] + launches["QSSRFB"] <= \
+                2 * len(engine.q_task_arrays(g, g, g))
+        assert launches == want
+        q0, _ = repro_torch.qr(a, config=repro_torch.QRConfig(use_kernel=False))
+        assert float((qk - q0).abs().max()) <= 4 * n ** 0.5 * eps
+        q64 = qk.double()
+        eye = torch.eye(n, dtype=torch.float64, device="cuda")
+        assert float((q64.mT @ q64 - eye).abs().max()) <= 100 * eps * n

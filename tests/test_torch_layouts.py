@@ -138,8 +138,11 @@ def test_megakernel_smem_and_auto_rule(nb, itemsize):
             teng.check_smem(nb, itemsize, "megakernel")
     if mode == "megakernel":
         assert need <= BUDGET
-    # nb = 64 fp64: the double buffers alone would be 8 tiles = 256 KiB.
-    two = (10 * nb * nb + 2 * nb + tmo.XCH_ELEMS) * itemsize
+    # nb = 64 fp64: the double buffers alone would be 8 tiles of 64 rows
+    # at pitch 68 = 272 KiB.
+    pitch = tmo.operand_pitch(nb, itemsize)
+    two = (8 * nb * pitch + max(2 * nb * nb + 2 * nb + tmo.XCH_ELEMS,
+                                2 * nb * pitch)) * itemsize
     assert tmo.megakernel_stages(nb, itemsize) == (2 if two <= BUDGET else 1)
 
 

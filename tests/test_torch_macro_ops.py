@@ -156,16 +156,24 @@ def test_macro_op_cards_match_reference():
 
 def test_kernel_shared_memory_is_what_the_budget_checks_read():
     """The launch size and the budget checks read one number per kind:
-    the kernel's layout in elements (SSRFB's six tiles are the largest;
-    GEQRT and TSQRT carry T at pitch nb + 1 and the column loop's exchange
-    buffer)."""
+    the kernel's layout in elements.  GEQRT and TSQRT carry T at pitch
+    nb + 1 and the column loop's exchange buffer; LARFB and SSRFB run the
+    update walk: four operand slots of two buffers (one where two do not
+    fit) and two scratch tiles, nb rows at the operand pitch (nb in fp32,
+    nb + 4 in fp64 at nb = 32, where the DMMA fragments need it) — the
+    largest."""
     nb = 32
     xch = 2 * (8 * 32 + 32) + 32
     assert tmo.XCH_ELEMS == xch
+    assert (tmo.operand_pitch(nb, 4), tmo.operand_pitch(nb, 8)) == (32, 36)
     assert [tmo.smem_bytes(k, nb, 4) for k in tmo.MACRO_OPS] == [
-        (3 * nb * nb + 2 * nb + xch) * 4, 5 * nb * nb * 4,
-        (4 * nb * nb + 2 * nb + xch) * 4, 6 * nb * nb * 4]
-    assert tmo.engine_smem_bytes(nb, 8) == 6 * nb * nb * 8
+        (3 * nb * nb + 2 * nb + xch) * 4, 10 * nb * nb * 4,
+        (4 * nb * nb + 2 * nb + xch) * 4, 10 * nb * nb * 4]
+    assert tmo.smem_bytes("SSRFB", nb, 4) == tmo.walk_smem_bytes(nb, 4)
+    assert tmo.engine_smem_bytes(nb, 8) == 10 * nb * 36 * 8
+    # At nb = 98 only one buffer fits.
+    assert tmo.walk_stages(98, 4) == 1
+    assert tmo.engine_smem_bytes(98, 4) == 6 * 98 * 98 * 4
     budget = engine.DEFAULT_SMEM_BUDGET
     fits = [nb for nb in range(1, 129) if tmo.engine_smem_bytes(nb, 4) <= budget]
     assert max(fits) == 98

@@ -228,14 +228,18 @@ def test_megakernel_table_upload_and_wrapper_checks():
 
 def test_launch_shared_memory_is_the_largest_body():
     """The megakernel's launch takes four operand slots (two buffers each
-    wherever they fit the budget, else one) and the largest body's
-    compute scratch, which holds every wavefront kernel's carve-up; the
-    auto rule keeps the reference's 15-tile model."""
+    wherever they fit the budget, else one) of nb rows at the update
+    bodies' padded pitch and the largest body's compute scratch (GEQRT's
+    and TSQRT's, or the updates' two padded tiles); it holds every
+    wavefront kernel's carve-up; the auto rule keeps the reference's
+    15-tile model."""
     for nb, itemsize in ((8, 4), (32, 4), (32, 8), (64, 4), (64, 8)):
         stages = tmo.megakernel_stages(nb, itemsize)
         need = tmo.megakernel_launch_smem_bytes(nb, itemsize)
-        assert need == (4 * stages * nb * nb + 2 * nb * nb + 2 * nb
-                        + tmo.XCH_ELEMS) * itemsize
+        pitch = tmo.operand_pitch(nb, itemsize)
+        assert need == (4 * stages * nb * pitch
+                        + max(2 * nb * nb + 2 * nb + tmo.XCH_ELEMS,
+                              2 * nb * pitch)) * itemsize
         assert need <= teng.DEFAULT_SMEM_BUDGET
         assert need >= max(tmo.smem_bytes(k, nb, itemsize)
                            for k in tmo.MACRO_OPS)

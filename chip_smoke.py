@@ -158,11 +158,27 @@ def log(*args):
     print(*args, flush=True)
 
 
-def bound(kind, ntasks, nb, dtype_name):
-    """Least time the card could take: max(FLOPs / peak, bytes / HBM rate)."""
+def batch_elems(kind, idx_np, nb):
+    """Elements a batch must move, each distinct tile read once and each
+    output written once.  An update batch's tasks that share their V tile
+    and block reflector (LARFB, QLARFB: tile (k, k) and D_k, one pair per
+    k; SSRFB, QSSRFB: tile (i, k) and T_ik, one per (k, i)) need that pair
+    once; every C tile is read and written (a level's writes are disjoint).
+    GEQRT and TSQRT tasks share no tile."""
+    n = len(idx_np)
+    if kind not in ("LARFB", "SSRFB", "QLARFB", "QSSRFB"):
+        return n * ELEMS[kind](nb)
+    pairs = len({(int(k), int(i)) for k, i, _ in idx_np})
+    c_tiles = 1 if kind in ("LARFB", "QLARFB") else 2
+    return (2 * pairs + 2 * c_tiles * n) * nb * nb
+
+
+def bound(kind, idx_np, nb, dtype_name):
+    """Least time the card could take for the batch ``idx_np``:
+    max(FLOPs / peak, bytes / HBM rate), bytes from :func:`batch_elems`."""
     itemsize = 4 if dtype_name == "float32" else 8
-    t_ops = ntasks * FLOPS[kind](nb) / PEAK_FLOPS[dtype_name]
-    t_bytes = ntasks * ELEMS[kind](nb) * itemsize / PEAK_BYTES
+    t_ops = len(idx_np) * FLOPS[kind](nb) / PEAK_FLOPS[dtype_name]
+    t_bytes = batch_elems(kind, idx_np, nb) * itemsize / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
 
 
@@ -282,7 +298,7 @@ def check_kernel(torch, engine, macro_ops, kind, idx_np, dtype, seed,
         res["plain_ms"] = time_ms(torch, lambda: macro_ops.run_batch(
             kind, work, idx, use_kernel=False), reset, reps=5, warmup=1)
         res["library_ms"] = library_ms(torch, kind, base, idx_np)
-        res["bound_ms"], res["bound_by"] = bound(kind, idx_np.shape[0], NB,
+        res["bound_ms"], res["bound_by"] = bound(kind, idx_np, NB,
                                                  res["dtype"])
     return res, got, want
 
@@ -385,8 +401,8 @@ def phase_kernels(torch, engine, macro_ops):
                 w_.copy_(b_)
         rows[kind]["fp64_ms"] = time_ms(torch, lambda: macro_ops.run_batch(
             kind, work, idx, use_kernel=True), reset)
-        rows[kind]["fp64_bound_ms"] = bound(kind, idx.shape[0], NB,
-                                            "float64")[0]
+        rows[kind]["fp64_bound_ms"] = bound(
+            kind, largest_batch(engine, kind), NB, "float64")[0]
         log(f"{kind} fp64 ms:", rows[kind]["fp64_ms"])
     return rows, results
 
@@ -450,7 +466,7 @@ def phase_q_kernels(torch, engine, macro_ops):
                     lambda: work.copy_(e0), reps=5, warmup=1)
                 res["library_ms"] = q_library_ms(torch, kind, st, e0, idx_np)
                 res["bound_ms"], res["bound_by"] = bound(
-                    kind, idx_np.shape[0], NB, res["dtype"])
+                    kind, idx_np, NB, res["dtype"])
                 rows[kind] = res
             res["ok"] = res["ok"] and res["state_untouched"]
             log("Q kernel check:", json.dumps(res))

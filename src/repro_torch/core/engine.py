@@ -424,9 +424,12 @@ def megakernel_runs(p: int, q: int, batch: int, grid: int) -> np.ndarray:
 def q_megakernel_runs(p: int, q: int, qe: int, batch: int, grid: int
                       ) -> np.ndarray:
     """:func:`megakernel_runs` of Q formation's table
-    (:func:`q_megakernel_task_table`): a same-(k, i) QSSRFB group and a
-    same-k QLARFB group are kept on one CTA as the factorization's
-    groups are."""
+    (:func:`q_megakernel_task_table`).  A Q level holds two tasks that
+    share V and T only where Q has more column tiles than the factored
+    grid (qe > q, full Q of a tall matrix): a same-(k, i) QSSRFB group or
+    a same-k QLARFB group is then kept on one CTA as the factorization's
+    groups are.  With qe <= q a task's level rises with j for a fixed (k,
+    i) or k, so no level holds such a group."""
     return _runs(*q_megakernel_task_table(p, q, qe), batch, grid)
 
 
@@ -656,6 +659,29 @@ def q_dispatch_counts(p: int, q: int, qe: int,
 _DEVICE_INDEX: Dict[Tuple, Tuple[Dict[str, torch.Tensor], ...]] = {}
 
 
+def _upload_levels(key: Tuple, levels, kinds: Tuple[str, ...],
+                   device: torch.device
+                   ) -> Tuple[Dict[str, torch.Tensor], ...]:
+    """``levels`` (per level, kind -> ``(n, 3)`` int32 array) on
+    ``device``: one upload per ``key``, then per-level views into it, in
+    ``kinds``' order within a level."""
+    if key not in _DEVICE_INDEX:
+        flat = [by_kind[kind] for by_kind in levels
+                for kind in kinds if kind in by_kind]
+        dev = torch.from_numpy(np.concatenate(flat)).to(device)
+        out, row = [], 0
+        for by_kind in levels:
+            views = {}
+            for kind in kinds:
+                if kind in by_kind:
+                    n = by_kind[kind].shape[0]
+                    views[kind] = dev[row:row + n]
+                    row += n
+            out.append(views)
+        _DEVICE_INDEX[key] = tuple(out)
+    return _DEVICE_INDEX[key]
+
+
 def level_indices(p: int, q: int, device: torch.device
                    ) -> Tuple[Dict[str, torch.Tensor], ...]:
     """The schedule's per-level ``(n, 3)`` int32 index arrays on
@@ -670,19 +696,7 @@ def level_indices(p: int, q: int, device: torch.device
                       for k, i, j in idx.tolist()
                       for w in _task_writes(kind, k, i, j)]
             assert len(writes) == len(set(writes)), "same-level write overlap"
-        flat = [by_kind[kind] for by_kind in levels
-                for kind in _KIND_ORDER if kind in by_kind]
-        dev = torch.from_numpy(np.concatenate(flat)).to(device)
-        out, row = [], 0
-        for by_kind in levels:
-            views = {}
-            for kind in _KIND_ORDER:
-                if kind in by_kind:
-                    n = by_kind[kind].shape[0]
-                    views[kind] = dev[row:row + n]
-                    row += n
-            out.append(views)
-        _DEVICE_INDEX[key] = tuple(out)
+        _upload_levels(key, levels, _KIND_ORDER, device)
     return _DEVICE_INDEX[key]
 
 
@@ -722,23 +736,8 @@ def q_level_indices(p: int, q: int, qe: int, device: torch.device
     """Q formation's per-level ``(n, 3)`` int32 index arrays on
     ``device``: one upload per ``(p, q, qe, device)``, then views into it
     (:func:`q_task_arrays` asserts the levels' writes disjoint)."""
-    key = ("q", p, q, qe, str(device))
-    if key not in _DEVICE_INDEX:
-        levels = q_task_arrays(p, q, qe)
-        flat = [by_kind[kind] for by_kind in levels
-                for kind in Q_KINDS if kind in by_kind]
-        dev = torch.from_numpy(np.concatenate(flat)).to(device)
-        out, row = [], 0
-        for by_kind in levels:
-            views = {}
-            for kind in Q_KINDS:
-                if kind in by_kind:
-                    n = by_kind[kind].shape[0]
-                    views[kind] = dev[row:row + n]
-                    row += n
-            out.append(views)
-        _DEVICE_INDEX[key] = tuple(out)
-    return _DEVICE_INDEX[key]
+    return _upload_levels(("q", p, q, qe, str(device)),
+                          q_task_arrays(p, q, qe), Q_KINDS, device)
 
 
 def q_megakernel_table(p: int, q: int, qe: int, device: torch.device

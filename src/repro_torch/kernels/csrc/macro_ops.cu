@@ -791,9 +791,16 @@ __device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
                : "memory");
 }
 
-// Order this thread's generic-proxy accesses before the async proxy's (the
-// bulk copies read global memory other CTAs wrote and overwrite shared
-// buffers the bodies wrote).
+// Order this thread's generic-proxy accesses before the async proxy's:
+// every thread fences its shared-memory writes (the bodies write their
+// operand buffers and scratch, which later bulk copies overwrite) before
+// the barrier that frees them; the thread that issues the bulk copies
+// fences all state spaces, since they read global memory that other CTAs
+// wrote.
+__device__ __forceinline__ void fence_proxy_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async;\n" ::: "memory");
 }
@@ -1068,6 +1075,7 @@ __device__ __forceinline__ void walk_run(const Walk<T>& st, const Tasks& tasks,
           break;
       }
     }
+    fence_proxy_async_shared();
     __syncthreads();  // this task's buffers and the scratch are free
     if (more && st.stages == 1) {
       T* nsrc[4];

@@ -362,7 +362,7 @@ def _check(kind: str, tiles: Tensor, aux: Tuple[Tensor, ...], idx: Tensor,
     r = min(p, q)
     want = {"d_t": (r, nb, nb), "d_taus": (r, nb),
             "t_t": (p, r, nb, nb), "t_taus": (p, r, nb)}
-    state = Q_OPS[kind].state if kind in Q_OPS else MACRO_OPS[kind].state
+    state = (Q_OPS[kind][2],) if kind in Q_OPS else MACRO_OPS[kind].state
     for name, x in zip(state, aux):
         if tuple(x.shape) != want[name]:
             raise ValueError(f"{kind}: {name} must be {want[name]}, "
@@ -819,22 +819,11 @@ MACRO_OPS: Dict[str, MacroOp] = {
 }
 
 
-@dataclasses.dataclass(frozen=True)
-class QOp:
-    """Capability card for one Q-formation update: its value-level body,
-    the wrapper that launches the walk kernel over a Q workspace E, its
-    plain version, and the factor-state field that holds its T."""
-
-    name: str
-    body: Callable
-    kernel: Callable
-    plain: Callable
-    state: Tuple[str, ...]
-
-
-Q_OPS: Dict[str, QOp] = {
-    "QLARFB": QOp("QLARFB", qlarfb_body, qlarfb, qlarfb_plain, ("d_t",)),
-    "QSSRFB": QOp("QSSRFB", qssrfb_body, qssrfb, qssrfb_plain, ("t_t",)),
+#: Q formation's updates: kind -> (kernel wrapper, plain version, the
+#: factor-state field that holds its T).  Both take (tiles, T, E, idx).
+Q_OPS: Dict[str, Tuple[Callable, Callable, str]] = {
+    "QLARFB": (qlarfb, qlarfb_plain, "d_t"),
+    "QSSRFB": (qssrfb, qssrfb_plain, "t_t"),
 }
 
 
@@ -852,9 +841,9 @@ def run_q_batch(kind: str, state, e: Tensor, idx: Tensor, *,
     """One same-kind batch of Q-formation updates on the Q workspace ``e``
     (the factored ``state`` read only), in place: the kernel wrapper when
     ``use_kernel``, else the plain version."""
-    op = Q_OPS[kind]
-    fn = op.kernel if use_kernel else op.plain
-    fn(state.tiles, *(getattr(state, name) for name in op.state), e, idx)
+    kernel, plain, t_name = Q_OPS[kind]
+    (kernel if use_kernel else plain)(state.tiles, getattr(state, t_name), e,
+                                      idx)
 
 
 def smem_bytes(kind: str, nb: int, itemsize: int = 4) -> int:

@@ -17,6 +17,7 @@ tests/test_torch_cuda.py.
 """
 
 import contextlib
+import itertools
 
 import jax
 import numpy as np
@@ -126,20 +127,52 @@ def test_q_schedule_at_the_main_paths():
         "MEGAKERNEL_Q_BATCHED": 1}
 
 
+@pytest.mark.parametrize("p,q,qe", GRIDS)
+def test_q_levels_share_v_and_t_only_past_the_factored_columns(p, q, qe):
+    """A Q level holds two tasks with the same V tile and T (a same-(k, i)
+    QSSRFB pair or a same-k QLARFB pair) exactly when Q has more column
+    tiles than the factored grid (qe > q: full Q of a tall matrix); the
+    megakernel table's reuse columns mark such pairs and nothing else."""
+    shared = 0
+    for by_kind in teng.q_task_arrays(p, q, qe):
+        for idx in by_kind.values():
+            keys = [(k, i) for k, i, _ in idx.tolist()]
+            shared += len(keys) - len(set(keys))
+    assert (shared > 0) == (qe > q)
+    table = teng.q_megakernel_task_table(p, q, qe)[0]
+    assert int(table[:, teng._COL_REUSE0].sum()) == shared
+    assert int(table[:, teng._COL_REUSET].sum()) == shared
+
+
 def test_q_megakernel_runs_keep_groups():
     """The Q table's runs cover every level's work list once, in order,
-    and keep a same-(k, i) QSSRFB group on one CTA where that costs
-    little balance (as the factorization's do)."""
-    p = q = qe = 6
-    table, nlevels, nslots = teng.q_megakernel_task_table(p, q, qe)
-    for batch, grid in ((1, 4), (3, 5), (2, 64)):
+    and split a same-(k, i) QSSRFB or same-k QLARFB group only where
+    both of its ends lie more than a sixteenth of an even run away, as
+    the factorization's runs do (such groups exist only for qe > q)."""
+    for (p, q, qe), (batch, grid) in itertools.product(
+            ((6, 6, 6), (6, 4, 6), (8, 3, 8)), ((1, 4), (3, 5), (2, 64))):
+        table, nlevels, nslots = teng.q_megakernel_task_table(p, q, qe)
         runs = teng.q_megakernel_runs(p, q, qe, batch, grid)
         assert runs.shape == (nlevels, grid, 8)
         for lv in range(nlevels):
-            n = int((table[lv * nslots:(lv + 1) * nslots, 0] != tmo.NOOP).sum())
+            rows = table[lv * nslots:(lv + 1) * nslots]
+            n = int((rows[:, 0] != tmo.NOOP).sum())
             starts, ends = runs[lv, :, 0], runs[lv, :, 1]
             assert starts[0] == 0 and ends[-1] == batch * n
             assert (starts[1:] == ends[:-1]).all() and (ends >= starts).all()
+            chained = teng._chained(rows[:n])
+            slack = batch * n // grid // 16
+            for x in starts[1:].tolist():
+                t = x % n
+                if x >= batch * n or not chained[t]:
+                    continue
+                g0 = t
+                while chained[g0]:
+                    g0 -= 1
+                g1 = t
+                while g1 < n and chained[g1]:
+                    g1 += 1
+                assert min(t - g0, g1 - t) > slack
 
 
 @pytest.mark.parametrize("dtype", ["float32", "float64"])

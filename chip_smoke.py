@@ -66,7 +66,28 @@ Phases, each of which exits non-zero when it fails:
      (one wide panel): route, launch counts, conformance, agreement with
      the plain lowering, timed beside ``torch.linalg.qr``;
  12. break the panel path's time down (panel kernel, trailing kernel,
-     other device work, Q formation, host) with ``torch.profiler``.
+     other device work, Q formation, host) with ``torch.profiler``;
+ 13. the QR service (``repro_torch.serving.QRService``) on the card:
+     (a) the serving benchmark's mix, 16-request waves of 64^2 to 130 x
+     120 fp32 (one warm-up wave, 8 timed waves, one wave in mode "r", one
+     in fp64): no plan built after the warm-up, each bucket on the engine
+     auto rule's rung (the batched megakernel), one batched megakernel
+     launch a bucket and one over its Q table, no escalation, every answer
+     inside the bar of its own shape and within 4 sqrt(N) eps of the plain
+     lowering on the same padded stack (the TF32 control failing); p50 /
+     p99 wave latency, matrices/s, bucket fill and plan-cache hit rate,
+     beside the same requests served one flush per request and
+     ``torch.linalg.qr`` request by request; (b) one optimizer step's
+     attention momenta of SmolLM-135M, 60 x (576, 576) and 60 x (576,
+     192): a 768^2 bucket of batch 64 on the wavefront kernels and a 768 x
+     192 one on the batched megakernel, the same checks, the padding waste
+     of each bucket; (c) one fault of each site (compile, dispatch, output,
+     vmem, input) with the reference's hops and counters, every recovered
+     answer inside the bar, and the circuit breaker; (d) ``qr(verify=True)``
+     at 2048^2 and on the (60, 576, 576) stack, no escalation, its cost
+     beside the unverified ``qr``; (e) ``observability.capture`` around a
+     service wave names the ``serving.*`` spans and the megakernel labels,
+     and a disabled span costs under 1% of a 2048^2 ``qr``.
 
 Each correctness check is shown to reject a control whose answer is only
 TF32-grade: the kernels' written outputs rounded to TF32 (fp64: to fp32),
@@ -76,7 +97,8 @@ lowering run with TF32 products.
 Every phase prints its seconds.
 
 The second-to-last line of output is a JSON object with one record per
-kernel; the last is ``{"ok": true, "device": {...}}``.  Without a CUDA
+kernel (``service_launches``: its launches on phase 13's service paths);
+the last is ``{"ok": true, "device": {...}}``.  Without a CUDA
 device the script exits with status 1 and prints no result.
 """
 
@@ -1586,6 +1608,491 @@ def phase_panel_breakdown(torch, repro_torch, blocked):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the QR service on the card
+# ---------------------------------------------------------------------------
+
+# benchmarks/bench_qr_serving.py's full mix: 16-request waves, 64^2 to
+# 130 x 120, which bucket into 128^2 (10), 96 x 64 (2), 64^2 (2) and
+# 160 x 128 (2) under the default policy (tile 32, waste cap 0.25).
+SERVICE_MIX = [(128, 128), (128, 128), (120, 110), (96, 64), (128, 128),
+               (64, 64), (130, 120), (128, 128)] * 2
+SERVICE_WAVES = 8
+# One optimizer step's attention momenta of SmolLM-135M
+# (src/repro/configs/smollm_135m.py: 30 layers, d_model 576, 3 kv heads
+# x 64): the q/o projections (576, 576) and the k/v ones (576, 192).
+SMOLLM_MOMENTA = [(576, 576)] * 60 + [(576, 192)] * 60
+# The plain lowering is held against the service on the first slices of
+# each chunk: this many (slices are independent, and the plain lowering,
+# a column loop of small ops a GEQRT/TSQRT batch, runs slice by slice at
+# ~8 ms a batch on the card), and one for the TF32 control.
+PLAIN_SLICES = 2
+SERVICE_KINDS = ("GEQRT", "LARFB", "TSQRT", "SSRFB", "QLARFB", "QSSRFB",
+                 "MEGAKERNEL", "MEGAKERNEL_BATCHED", "MEGAKERNEL_Q",
+                 "MEGAKERNEL_Q_BATCHED")
+
+
+def wave_of(shapes, seed, dtype=np.float32):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(s).astype(dtype) for s in shapes]
+
+
+def service_chunks(serving, engine, policy, wave, mode):
+    """The dispatch chunks a service flush makes of ``wave`` — ``(key,
+    [(index, array)], batch, p, q, nb, rung)`` with the engine's auto rule
+    as the rung — and the launches that factoring them (and forming Q
+    unless ``mode`` is "r") takes."""
+    groups = serving.bucketize(
+        list(enumerate(wave)), policy,
+        key_fn=lambda t: (t[1].shape[0], t[1].shape[1], t[1].dtype, mode))
+    chunks, launches = [], {}
+    for key, members in groups.items():
+        for c in range(0, len(members), policy.max_batch):
+            part = members[c:c + policy.max_batch]
+            batch = serving.pad_batch(len(part), max_batch=policy.max_batch)
+            nb = min(policy.tile, key.m, key.n)
+            p, q = key.m // nb, key.n // nb
+            rung = engine.resolve_dispatch_mode(
+                p, q, nb, np.dtype(key.dtype).itemsize)
+            chunks.append((key, part, batch, p, q, nb, rung))
+            counts = dict(engine.dispatch_counts(p, q, rung, batch))
+            if mode != "r":
+                qe = min(p, q)
+                qmode = engine.resolve_q_dispatch_mode(p, q, qe, rung,
+                                                       forced=True)
+                counts.update(engine.q_dispatch_counts(p, q, qe, qmode,
+                                                       batch))
+            for k, v in counts.items():
+                launches[k] = launches.get(k, 0) + v
+    return chunks, {k: v for k, v in launches.items() if v}
+
+
+def bar_ratio(torch, wave, results, mode):
+    """The worst of each result's conformance measures over its own bar
+    ``100 * eps * max(m, n)`` (ratio <= 1 passes): orthogonality and
+    residual, or for mode "r" the Gram residual; a non-finite or missing
+    result counts as inf."""
+    worst = 0.0
+    for a, res in zip(wave, results):
+        if not res.ok or not torch.isfinite(res.r).all() or (
+                res.q is not None and not torch.isfinite(res.q).all()):
+            return float("inf")
+        eps = float(np.finfo(a.dtype).eps)
+        bar = 100 * eps * max(a.shape)
+        a64 = torch.from_numpy(a).to("cuda", torch.float64)
+        r = res.r.double()
+        if mode == "r":
+            gram = (torch.linalg.norm(a64.T @ a64 - r.T @ r)
+                    / torch.linalg.norm(a64) ** 2)
+            worst = max(worst, float(gram) / bar)
+            continue
+        q = res.q.double()
+        eye = torch.eye(q.shape[1], dtype=torch.float64, device="cuda")
+        ortho = float((q.T @ q - eye).abs().max())
+        resid = float(torch.linalg.norm(a64 - q @ r) / torch.linalg.norm(a64))
+        worst = max(worst, ortho / bar, resid / bar)
+    return worst
+
+
+def plain_ratio(torch, tilegraph, chunks, results, mode, limit=None,
+                tf32=False):
+    """The worst disagreement between the service's answers and the plain
+    lowering's on the same padded stacks (the chunks' first ``limit``
+    slices), over the agreement bound ``4 * sqrt(N) * eps``, N the padded
+    max(m, n): max |Q - Q0| and max |R - R0| / max |R0|.  With ``tf32`` the
+    plain lowering runs with TF32 products, the control that must fail."""
+    worst = 0.0
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    try:
+        for key, part, _, p, q, nb, _ in chunks:
+            part = part[:limit]
+            dtype = getattr(torch, key.dtype)
+            stack = torch.zeros((len(part), key.m, key.n), dtype=dtype,
+                                device="cuda")
+            for s, (_, a) in enumerate(part):
+                stack[s, :a.shape[0], :a.shape[1]] = torch.from_numpy(a)
+            out = tilegraph._factor_stack_padded(stack, p=p, q=q, nb=nb,
+                                                 mode=mode, use_kernel=False)
+            torch.cuda.synchronize()
+            tol = 4 * max(key.m, key.n) ** 0.5 * float(torch.finfo(dtype).eps)
+            for s, (i, a) in enumerate(part):
+                m, n = a.shape
+                k = min(m, n)
+                r0 = out[-1][s, :k, :n]
+                res = results[i]
+                dr = float((res.r - r0).abs().max() / r0.abs().max())
+                worst = max(worst, dr / tol)
+                if mode != "r":
+                    dq = float((res.q - out[0][s, :m, :k]).abs().max())
+                    worst = max(worst, dq / tol)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    return worst
+
+
+def escalation_counts(metrics):
+    """``robustness.escalations`` as {(from, to, reason): count}."""
+    fam = metrics.snapshot()["counters"].get("robustness.escalations", [])
+    return {(s["labels"]["from"], s["labels"]["to"], s["labels"]["reason"]):
+            s["value"] for s in fam}
+
+
+def counter_delta(before, after):
+    return {k: v - before.get(k, 0) for k, v in after.items()
+            if v != before.get(k, 0)}
+
+
+def serve_waves(torch, svc, waves, mode="reduced"):
+    """Serve each wave through ``submit_many``; returns the last wave's
+    results and each wave's seconds (a request's latency is its wave's:
+    the wave is submitted at once and its flush returns when the card is
+    done)."""
+    secs, results = [], None
+    for w in waves:
+        t0 = time.perf_counter()
+        results = svc.submit_many(w, mode=mode)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    return results, secs
+
+
+def percentile(xs, q):
+    return float(np.percentile(np.asarray(xs), q))
+
+
+def service_mix(torch, engine, macro_ops, tilegraph, serving, metrics,
+                service_launches):
+    """(a) The serving mix: one warm-up wave, 8 timed waves, then one wave
+    in mode "r" and one in fp64; the checks and timings of the phase doc."""
+    policy = serving.BucketingPolicy()
+    svc = serving.QRService(policy=policy)
+    esc0 = escalation_counts(metrics)
+    serve_waves(torch, svc, [wave_of(SERVICE_MIX, 1000)])
+    warm = svc.stats()
+    waves = [wave_of(SERVICE_MIX, 1001 + w) for w in range(SERVICE_WAVES)]
+    # The chunks of the last wave (every wave buckets alike), whose
+    # answers the checks hold against the plain lowering.
+    chunks, per_wave = service_chunks(serving, engine, policy, waves[-1],
+                                      "reduced")
+    macro_ops.reset_launch_counts()
+    results, secs = serve_waves(torch, svc, waves)
+    launches = launch_counts(macro_ops)
+    for k, v in launches.items():
+        service_launches[k] = service_launches.get(k, 0) + v
+    stats = svc.stats()
+    expected = {k: v * SERVICE_WAVES for k, v in per_wave.items()}
+    rungs = {f"{k.m}x{k.n}": rung for k, _, rung, _ in svc._plans}
+    auto = {f"{key.m}x{key.n}": rung for key, _, _, _, _, _, rung in chunks}
+    checks = dict(
+        buckets={f"{key.m}x{key.n}": [len(part), batch]
+                 for key, part, batch, *_ in chunks},
+        rungs=rungs, auto_rule=auto,
+        plan_builds_after_warmup=stats["compiles"] - warm["compiles"],
+        launches=launches, expected=expected,
+        bar_ratio=bar_ratio(torch, waves[-1], results, "reduced"),
+        plain_ratio=plain_ratio(torch, tilegraph, chunks, results,
+                                "reduced", limit=PLAIN_SLICES),
+        tf32_control_ratio=plain_ratio(torch, tilegraph, chunks, results,
+                                       "reduced", limit=1, tf32=True))
+    total = sum(secs)
+    timing = dict(
+        wave_ms=[s * 1e3 for s in secs],
+        p50_ms=percentile(secs, 50) * 1e3, p99_ms=percentile(secs, 99) * 1e3,
+        matrices_per_s=len(SERVICE_MIX) * SERVICE_WAVES / total,
+        bucket_fill_ratio=stats["bucket_fill_ratio"],
+        cache_hit_rate=stats["cache_hit_rate"])
+
+    # The same requests served one flush per request (each a bucket of
+    # one: the single megakernel and its Q table), after a warm-up wave.
+    single = serving.QRService(policy=policy)
+    for a in wave_of(SERVICE_MIX, 1000):
+        single.submit_many([a])
+    macro_ops.reset_launch_counts()
+    per_req = []
+    for w in waves:
+        t0 = time.perf_counter()
+        for a in w:
+            single.submit_many([a])
+        torch.cuda.synchronize()
+        per_req.append(time.perf_counter() - t0)
+    for k, v in launch_counts(macro_ops).items():
+        service_launches[k] = service_launches.get(k, 0) + v
+    timing.update(per_request_flush_wave_ms=[s * 1e3 for s in per_req],
+                  per_request_flush_matrices_per_s=len(SERVICE_MIX)
+                  * SERVICE_WAVES / sum(per_req))
+    # torch.linalg.qr request by request, each uploaded as the service's.
+    lib = []
+    for w in [wave_of(SERVICE_MIX, 1000)] + waves:
+        t0 = time.perf_counter()
+        for a in w:
+            torch.linalg.qr(torch.from_numpy(a).cuda())
+        torch.cuda.synchronize()
+        lib.append(time.perf_counter() - t0)
+    lib = lib[1:]
+    timing.update(torch_linalg_qr_wave_ms=[s * 1e3 for s in lib],
+                  torch_linalg_qr_matrices_per_s=len(SERVICE_MIX)
+                  * SERVICE_WAVES / sum(lib))
+
+    # One wave in mode "r" and one in fp64 (their plans build here).
+    extra = {}
+    for label, wave, mode in (
+            ("mode_r", wave_of(SERVICE_MIX, 1100), "r"),
+            ("fp64", wave_of(SERVICE_MIX, 1101, np.float64), "reduced")):
+        ch, want = service_chunks(serving, engine, policy, wave, mode)
+        macro_ops.reset_launch_counts()
+        res, sec = serve_waves(torch, svc, [wave], mode)
+        got = launch_counts(macro_ops)
+        for k, v in got.items():
+            service_launches[k] = service_launches.get(k, 0) + v
+        extra[label] = dict(
+            launches=got, expected=want, wave_ms=sec[0] * 1e3,
+            rungs={f"{k.m}x{k.n}": r for k, _, r, _ in svc._plans
+                   if k.mode == mode and k.dtype == str(wave[0].dtype)},
+            auto_rule={f"{key.m}x{key.n}": rung
+                       for key, _, _, _, _, _, rung in ch},
+            bar_ratio=bar_ratio(torch, wave, res, mode),
+            plain_ratio=plain_ratio(torch, tilegraph, ch, res, mode,
+                                    limit=PLAIN_SLICES))
+    escalated = counter_delta(esc0, escalation_counts(metrics))
+    log("service mix checks:", json.dumps(checks))
+    log("service mix timing:", json.dumps(timing))
+    log("service mix mode r / fp64:", json.dumps(extra))
+    assert checks["plan_builds_after_warmup"] == 0, checks
+    assert rungs == auto and set(auto.values()) == {"megakernel"}, checks
+    assert launches == expected, checks
+    assert checks["bar_ratio"] <= 1 and checks["plain_ratio"] <= 1, checks
+    assert checks["tf32_control_ratio"] > 1, ("TF32 control passed", checks)
+    for label, e in extra.items():
+        assert e["launches"] == e["expected"], (label, e)
+        assert e["rungs"] == e["auto_rule"], (label, e)
+        assert e["bar_ratio"] <= 1 and e["plain_ratio"] <= 1, (label, e)
+    assert not escalated, ("escalations on healthy traffic", escalated)
+    return dict(checks=checks, timing=timing, extra=extra)
+
+
+def service_smollm(torch, engine, macro_ops, tilegraph, serving, metrics,
+                   service_launches):
+    """(b) One optimizer step's attention momenta of SmolLM-135M as one
+    wave, after a warm-up wave: a 768^2 bucket of batch 64 on the
+    wavefront rung, a 768 x 192 one on the batched megakernel."""
+    policy = serving.BucketingPolicy()
+    svc = serving.QRService(policy=policy)
+    esc0 = escalation_counts(metrics)
+    serve_waves(torch, svc, [wave_of(SMOLLM_MOMENTA, 2000)])
+    warm = svc.stats()["compiles"]
+    wave = wave_of(SMOLLM_MOMENTA, 2001)
+    chunks, expected = service_chunks(serving, engine, policy, wave,
+                                      "reduced")
+    macro_ops.reset_launch_counts()
+    results, secs = serve_waves(torch, svc, [wave])
+    launches = launch_counts(macro_ops)
+    for k, v in launches.items():
+        service_launches[k] = service_launches.get(k, 0) + v
+    checks = dict(
+        buckets={f"{key.m}x{key.n}": [len(part), batch, rung]
+                 for key, part, batch, _, _, _, rung in chunks},
+        rungs={f"{k.m}x{k.n}": r for k, _, r, _ in svc._plans},
+        padding_waste={f"{key.m}x{key.n}": 1.0 - sum(
+            a.size for _, a in part) / (batch * key.m * key.n)
+            for key, part, batch, *_ in chunks},
+        input_mb=sum(a.nbytes for a in wave) / 1e6,
+        plan_builds_after_warmup=svc.stats()["compiles"] - warm,
+        launches=launches, expected=expected,
+        bar_ratio=bar_ratio(torch, wave, results, "reduced"),
+        plain_ratio=plain_ratio(torch, tilegraph, chunks, results,
+                                "reduced", limit=PLAIN_SLICES),
+        tf32_control_ratio=plain_ratio(torch, tilegraph, chunks, results,
+                                       "reduced", limit=1, tf32=True),
+        wave_ms=secs[0] * 1e3)
+    escalated = counter_delta(esc0, escalation_counts(metrics))
+    log("service SmolLM momenta:", json.dumps(checks))
+    assert checks["buckets"] == {"768x768": [60, 64, "wavefront"],
+                                 "768x192": [60, 64, "megakernel"]}, checks
+    assert checks["rungs"] == {"768x768": "wavefront",
+                               "768x192": "megakernel"}, checks
+    assert checks["plan_builds_after_warmup"] == 0, checks
+    assert launches == expected, checks
+    assert checks["bar_ratio"] <= 1 and checks["plain_ratio"] <= 1, checks
+    assert checks["tf32_control_ratio"] > 1, ("TF32 control passed", checks)
+    assert not escalated, ("escalations on healthy traffic", escalated)
+    return checks
+
+
+def service_faults(torch, serving, metrics, inject):
+    """(c) One fault of each site on the card, each on a fresh service
+    with verification on, with the hops and counters the reference's
+    TestServiceChaos expects; then the circuit breaker."""
+    wave = wave_of(SERVICE_MIX[:8], 3000)
+    cases = [
+        ("compile", inject.Fault(site="compile", match="128x128"),
+         [("megakernel", "wavefront", "injected_compile")]),
+        ("dispatch", inject.Fault(site="dispatch", match="128x128"),
+         [("megakernel", "per-request", "injected_dispatch")]),
+        ("output", inject.Fault(site="output", match="128x128",
+                                slice_index=1),
+         [("megakernel", "per-request", "health_check_failed")]),
+        ("vmem", inject.Fault(site="vmem", match="megakernel"),
+         [("megakernel", "wavefront", "injected_vmem")]),
+        ("input", inject.Fault(site="input", match="120x110"), []),
+    ]
+    out = {}
+    for name, fault, hops in cases:
+        svc = serving.QRService(verify=True)
+        esc0 = escalation_counts(metrics)
+        quar0 = metrics.counter_value("robustness.quarantined",
+                                      reason="nonfinite_input")
+        with inject.active(fault):
+            results = svc.submit_many(wave)
+        torch.cuda.synchronize()
+        got = [(e.rung_from, e.rung_to, e.rule) for e in svc.escalations]
+        delta = counter_delta(esc0, escalation_counts(metrics))
+        errors = [r.error for r in results if not r.ok]
+        clean = [(a, r) for a, r in zip(wave, results) if r.ok]
+        out[name] = dict(
+            hops=got, fired=fault.fired, errors=errors,
+            escalation_counters={"|".join(k): v for k, v in delta.items()},
+            quarantined=metrics.counter_value(
+                "robustness.quarantined", reason="nonfinite_input") - quar0,
+            bar_ratio=bar_ratio(torch, [a for a, _ in clean],
+                                [r for _, r in clean], "reduced"),
+            stats={k: svc.stats()[k] for k in (
+                "escalations", "health_check_failures", "quarantined")})
+        assert got == hops, (name, out[name])
+        assert delta == {h: 1 for h in hops}, (name, out[name])
+        assert fault.fired == 1 and out[name]["bar_ratio"] <= 1, out[name]
+        if name == "input":
+            assert errors == ["quarantined:nonfinite_input"], out[name]
+            assert out[name]["quarantined"] == 1, out[name]
+        else:
+            assert errors == [], out[name]
+    # The breaker: a dispatch fault that stays armed trips it after
+    # breaker_threshold escalations of the bucket; the bucket is then
+    # served by torch.linalg.qr request by request.
+    svc = serving.QRService(verify=True, breaker_threshold=3)
+    trips = []
+    with inject.active(inject.Fault(site="dispatch",
+                                    match="128x128:megakernel", times=None)):
+        for w in range(4):
+            results = svc.submit_many(wave)
+            trips.append(svc.stats()["breaker_trips"])
+    torch.cuda.synchronize()
+    st = svc.stats()
+    out["breaker"] = dict(
+        trips_after_each_wave=trips, breaker_open=st["breaker_open"],
+        escalations=st["escalations"],
+        last_hop=[svc.escalations[-1].rung_from, svc.escalations[-1].rung_to,
+                  svc.escalations[-1].rule],
+        bar_ratio=bar_ratio(torch, wave, results, "reduced"))
+    log("service faults:", json.dumps(out))
+    assert trips == [0, 0, 1, 1] and st["breaker_open"] == 1, out["breaker"]
+    assert st["escalations"] == 3, out["breaker"]
+    assert out["breaker"]["last_hop"] == ["per-request", "lapack",
+                                          "breaker_open"], out["breaker"]
+    assert out["breaker"]["bar_ratio"] <= 1, out["breaker"]
+    return out
+
+
+def service_verify(torch, repro_torch, metrics):
+    """(d) ``qr(a, config=QRConfig(verify=True))`` at 2048^2 and on the
+    (60, 576, 576) stack: no escalation, the unverified answer, and the
+    cost of verification beside the unverified ``qr``."""
+    out = {}
+    cfg = repro_torch.QRConfig(verify=True)
+    for label, shape in (("2048", (N, N)), ("stack", STACK)):
+        a = seeded(torch, shape, 4000, torch.float32)
+        esc0 = escalation_counts(metrics)
+        q, r = repro_torch.qr(a, config=cfg)
+        q0, r0 = repro_torch.qr(a)
+        torch.cuda.synchronize()
+        out[label] = dict(
+            escalations=counter_delta(esc0, escalation_counts(metrics)),
+            same_answer=bool(torch.equal(q, q0) and torch.equal(r, r0)),
+            qr_ms=host_ms(lambda: (repro_torch.qr(a),
+                                   torch.cuda.synchronize()), reps=3),
+            verified_qr_ms=host_ms(lambda: (repro_torch.qr(a, config=cfg),
+                                            torch.cuda.synchronize()),
+                                   reps=3))
+    log("service verify:", json.dumps(out))
+    for label, v in out.items():
+        assert not v["escalations"] and v["same_answer"], (label, v)
+    return out
+
+
+def service_capture(torch, repro_torch, serving, observability):
+    """(e) ``observability.capture`` around one warm service wave: the
+    exported trace names the ``serving.*`` spans and the megakernel
+    labels; and a disabled span costs under 1% of a 2048^2 ``qr``."""
+    import tempfile
+
+    svc = serving.QRService()
+    wave = wave_of(SERVICE_MIX, 5000)
+    svc.submit_many(wave)
+    with tempfile.TemporaryDirectory() as logdir:
+        with observability.capture(logdir):
+            svc.submit_many(wave)
+            torch.cuda.synchronize()
+        path = os.path.join(logdir, observability.profiler.PROFILE_FILE)
+        with open(path) as f:
+            doc = json.load(f)
+    names = {e.get("name", "") for e in doc.get("traceEvents", [])}
+    serving_spans = sorted(n for n in names if n.startswith("serving."))
+    mega = sorted(n for n in names if "megakernel[" in n)
+    device_kernels = sorted({e.get("name", "")[:40]
+                             for e in doc.get("traceEvents", [])
+                             if e.get("cat") == "kernel"})
+    a = seeded(torch, (N, N), 4001, torch.float32)
+    qr_ms = host_ms(lambda: (repro_torch.qr(a), torch.cuda.synchronize()),
+                    reps=3)
+    n = 20000
+    t0 = time.perf_counter()
+    for _ in range(n):
+        with observability.span("overhead.probe", mode="megakernel") as sp:
+            sp.sync(None)
+    span_us = (time.perf_counter() - t0) / n * 1e6
+    out = dict(serving_spans=serving_spans, megakernel_labels=mega,
+               device_kernels=device_kernels, events=len(names),
+               disabled_span_us=span_us, qr_2048_ms=qr_ms,
+               span_share_of_qr=span_us / (qr_ms * 1e3),
+               capture_errors=observability.metrics.counter_total(
+                   "profiler.capture_errors"))
+    log("service capture:", json.dumps(out))
+    assert {"serving.bucketize", "serving.plan", "serving.dispatch",
+            "serving.unpad"} <= set(serving_spans), out
+    assert any(m.startswith("megakernel[") for m in mega), out
+    assert out["span_share_of_qr"] < 0.01, out
+    return out
+
+
+def phase_service(torch, engine, macro_ops, tilegraph, repro_torch):
+    """The QR service on the card (a)-(e); returns the results and the
+    launches each kernel made on the service's paths ((a), its
+    per-request baseline and (b))."""
+    from repro_torch import observability, serving
+    from repro_torch.observability import metrics
+    from repro_torch.robustness import inject
+
+    service_launches = {}
+    parts = (
+        ("mix", service_mix, (torch, engine, macro_ops, tilegraph, serving,
+                              metrics, service_launches)),
+        ("smollm", service_smollm, (torch, engine, macro_ops, tilegraph,
+                                    serving, metrics, service_launches)),
+        ("faults", service_faults, (torch, serving, metrics, inject)),
+        ("verify", service_verify, (torch, repro_torch, metrics)),
+        ("capture", service_capture, (torch, repro_torch, serving,
+                                      observability)))
+    out = {}
+    for name, fn, args in parts:
+        t0 = time.perf_counter()
+        out[name] = fn(*args)
+        log(f"service {name}: {time.perf_counter() - t0:.2f} s")
+    log("service path launches:", json.dumps(service_launches))
+    missing = [k for k in SERVICE_KINDS if not service_launches.get(k)]
+    assert not missing, ("kernels the service path never launched", missing)
+    return out, service_launches
+
+
 def host_ms(fn, reps, warmup=1):
     for _ in range(warmup):
         fn()
@@ -1661,6 +2168,9 @@ def main() -> int:
                   repro_torch)
     breakdown = phase("panel breakdown", phase_panel_breakdown, torch,
                       repro_torch, blocked)
+    service, service_launches = phase("service", phase_service, torch,
+                                      engine, macro_ops, tilegraph,
+                                      repro_torch)
     # Each panel-path kernel's device time summed over one call of each
     # traced path (the profiler's spans), beside launches x one launch.
     summed = {}
@@ -1681,6 +2191,7 @@ def main() -> int:
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"], ntasks=r["ntasks"],
+            service_launches=service_launches.get(kind, 0),
             **({"fp64_ms": r["fp64_ms"]} if "fp64_ms" in r else {}),
             **({"computes": Q_FORMATION} if kind.startswith("Q") else {})))
     for name, path_launches in (("MEGAKERNEL", mega_launches),
@@ -1696,6 +2207,7 @@ def main() -> int:
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"], shape=r["shape"],
+            service_launches=service_launches.get(name, 0),
             **({"computes": Q_FORMATION} if "_Q" in name else {})))
     path_launches = {
         "MHT_PANEL": {k: p["launches"].get("MHT_PANEL", 0)
@@ -1714,6 +2226,7 @@ def main() -> int:
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"],
+            service_launches=service_launches.get(kind, 0),
             **({"launches_by_path": path_launches[kind],
                 "summed_device_ms_by_path": summed[kind]}
                if kind in path_launches else {})))
@@ -1747,6 +2260,22 @@ def main() -> int:
     log("card:", card, "| panel paths qr_ms / torch.linalg.qr ms:",
         json.dumps({k: [p["qr_ms"], p["torch_linalg_qr_ms"]]
                     for k, p in paths.items()}))
+    mix, smollm = service["mix"], service["smollm"]
+    log("card:", card, "| service mix p50 / p99 wave ms",
+        mix["timing"]["p50_ms"], mix["timing"]["p99_ms"], "| matrices/s",
+        mix["timing"]["matrices_per_s"], "| one flush per request",
+        mix["timing"]["per_request_flush_matrices_per_s"],
+        "| torch.linalg.qr per request",
+        mix["timing"]["torch_linalg_qr_matrices_per_s"], "| fill",
+        mix["timing"]["bucket_fill_ratio"], "| plan hit rate",
+        mix["timing"]["cache_hit_rate"])
+    log("card:", card, "| service SmolLM momenta wave ms", smollm["wave_ms"],
+        "| padding waste", json.dumps(smollm["padding_waste"]),
+        "| qr verify ms:", json.dumps({
+            k: [v["qr_ms"], v["verified_qr_ms"]]
+            for k, v in service["verify"].items()}),
+        "| disabled span share of a 2048^2 qr",
+        service["capture"]["span_share_of_qr"])
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,9 +7,10 @@ passes ``device="cpu"``.
 """
 
 from repro_torch.core import (QRConfig, QRSolver, geqr2, geqr2_ht, geqrf,
-                              lstsq, orthogonalize, plan, qr, select_method,
-                              tsqr_qr, tsqr_r)
+                              lstsq, orthogonalize, plan, qr,
+                              qr_algorithm_eig, select_method, tsqr_qr,
+                              tsqr_r)
 
-__all__ = ["qr", "orthogonalize", "lstsq", "QRConfig", "QRSolver", "plan",
-           "select_method", "geqr2", "geqr2_ht", "geqrf", "tsqr_r",
-           "tsqr_qr"]
+__all__ = ["qr", "orthogonalize", "lstsq", "qr_algorithm_eig", "QRConfig",
+           "QRSolver", "plan", "select_method", "geqr2", "geqr2_ht", "geqrf",
+           "tsqr_r", "tsqr_qr"]

@@ -1,7 +1,7 @@
 """Core of the PyTorch port: planner, tile-DAG engine, tiled QR, the
 classical/MHT/blocked/TSQR factorizations, API."""
 
-from repro_torch.core.api import lstsq, orthogonalize, qr
+from repro_torch.core.api import lstsq, orthogonalize, qr, qr_algorithm_eig
 from repro_torch.core.blocked import geqrf, geqrf_fori, larft
 from repro_torch.core.householder import (apply_q, form_q, geqr2, house_vector,
                                           unpack_r, unpack_v)
@@ -9,7 +9,7 @@ from repro_torch.core.mht import geqr2_ht, mht_update
 from repro_torch.core.plan import QRConfig, QRSolver, plan, select_method
 from repro_torch.core.tsqr import tsqr_qr, tsqr_r
 
-__all__ = ["qr", "orthogonalize", "lstsq", "QRConfig", "QRSolver", "plan",
-           "select_method", "geqr2", "geqr2_ht", "geqrf", "geqrf_fori",
-           "larft", "house_vector", "apply_q", "form_q", "unpack_r",
-           "unpack_v", "mht_update", "tsqr_r", "tsqr_qr"]
+__all__ = ["qr", "orthogonalize", "lstsq", "qr_algorithm_eig", "QRConfig",
+           "QRSolver", "plan", "select_method", "geqr2", "geqr2_ht", "geqrf",
+           "geqrf_fori", "larft", "house_vector", "apply_q", "form_q",
+           "unpack_r", "unpack_v", "mht_update", "tsqr_r", "tsqr_qr"]

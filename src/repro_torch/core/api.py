@@ -3,6 +3,7 @@
     qr(a, config=QRConfig(...))  -> (Q, R) or R
     orthogonalize(m)             -> sign-fixed thin Q (optimizer primitive)
     lstsq(a, b)                  -> QR-based least-squares solve
+    qr_algorithm_eig(a, iters)   -> eigenvalues via the QR algorithm (§1 App. 2)
 
 Counterpart of the reference's ``repro.core.api``.  Every entry point
 runs on ``"cuda"`` unless the caller passes ``device="cpu"``; without a
@@ -18,7 +19,8 @@ import torch
 
 from repro_torch.core.plan import QRConfig, plan, resolve_device
 
-__all__ = ["qr", "orthogonalize", "lstsq", "QRConfig", "plan"]
+__all__ = ["qr", "orthogonalize", "lstsq", "qr_algorithm_eig", "QRConfig",
+           "plan"]
 
 _DEFAULT = QRConfig()
 
@@ -34,12 +36,26 @@ def qr(a, *, config: Optional[QRConfig] = None, device=None
 
     ``config.mode``: "reduced" -> (Q thin m x k, R k x n); "r" -> R only;
     "full" -> (Q m x m, R m x n).  ``config=None`` plans with
-    ``QRConfig()`` (method "auto")."""
+    ``QRConfig()`` (method "auto").
+
+    With ``config.verify`` True (or None and ``REPRO_VERIFY`` set) the
+    result is health-checked against the conformance tolerance, slice by
+    slice for a stack, and a failed check walks the degradation ladder
+    (:func:`repro_torch.robustness.escalate.checked_solve`) on the same
+    device."""
     a, backend = _on(a, device)
     if a.ndim < 2:
         raise ValueError(f"qr expects a matrix, got shape {tuple(a.shape)}")
     cfg = _DEFAULT if config is None else config
-    return plan(a.shape, a.dtype, cfg, backend=backend).solve(a)
+    solver = plan(a.shape, a.dtype, cfg, backend=backend)
+    if cfg.verify is not False:
+        from repro_torch.robustness.verify import verify_enabled
+
+        if verify_enabled(cfg.verify):
+            from repro_torch.robustness.escalate import checked_solve
+
+            return checked_solve(solver, a)
+    return solver.solve(a)
 
 
 def orthogonalize(m_in, *, config: Optional[QRConfig] = None,
@@ -67,3 +83,21 @@ def lstsq(a, b, *, config: Optional[QRConfig] = None,
     cfg = (_DEFAULT if config is None else config).replace(
         mode="reduced", sign_fix=False)
     return plan(a.shape, a.dtype, cfg, backend=backend).lstsq(a, b)
+
+
+def qr_algorithm_eig(a, *, iters: int = 200,
+                     config: Optional[QRConfig] = None,
+                     device=None) -> torch.Tensor:
+    """Eigenvalues of symmetric ``a``, descending, via the (unshifted) QR
+    algorithm — paper §1 Application 2, Algorithm 1: A_{k+1} = R_k Q_k,
+    a plain loop of planned solves and products on the device."""
+    a, backend = _on(a, device)
+    cfg = (_DEFAULT if config is None else config).replace(
+        mode="reduced", sign_fix=False)
+    solver = plan(a.shape, a.dtype, cfg, backend=backend)
+    ak = a
+    for _ in range(iters):
+        q, r = solver.solve(ak)
+        ak = r @ q
+    return torch.sort(torch.diagonal(ak, dim1=-2, dim2=-1), dim=-1,
+                      descending=True).values

@@ -41,6 +41,14 @@ it), the counterpart of the reference's buffer donation.  The per-level
 ``(k, i, j)`` index arrays and the task table are uploaded to the
 workspace's device once per ``(p, q)`` and cached there, so a
 factorization makes no host-to-device copies of them.
+
+Instrumentation, as the reference places it: each factor call adds to the
+``engine.*`` metric series (:func:`_emit_factor_metrics`; the ``phase``
+label is always "execute": the port counts every call) and runs inside an
+``engine.factor_tiles`` / ``engine.factor_tiles_batched`` span; each
+wavefront batch and each megakernel launch runs inside a profiler range
+(``geqrt@L3``, ``megakernel[16x16]``) while annotations are on; and
+:func:`_check_dispatch` carries the fault harness's ``vmem`` site.
 """
 
 from __future__ import annotations
@@ -52,6 +60,10 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import macro_ops
+from repro_torch.observability import metrics as _metrics
+from repro_torch.observability import profiler as _profiler
+from repro_torch.observability import trace as _trace
+from repro_torch.robustness import inject as _inject
 
 __all__ = [
     "DEFAULT_SMEM_BUDGET",
@@ -72,6 +84,7 @@ __all__ = [
     "megakernel_table",
     "megakernel_task_table",
     "modeled_dma_bytes",
+    "prepare_dispatch",
     "q_dispatch_counts",
     "q_level_indices",
     "q_megakernel_runs",
@@ -522,8 +535,8 @@ def explain_dispatch_mode(p: int, q: int, nb: int, itemsize: int = 4, *,
     double-buffered working set fits ``vmem_budget`` (the per-block
     on-chip budget: shared memory here), else ``"wavefront"``.  Budgets
     default to :data:`DEFAULT_SMEM_BUDGET` / :data:`DEFAULT_TABLE_BUDGET`.
-    The kernel path does not run the megakernel yet; see
-    :func:`factor_tiles`."""
+    :func:`factor_tiles` and :func:`factor_tiles_batched` run the mode it
+    picks when they are given ``dispatch_mode=None``."""
     need = macro_ops.megakernel_smem_bytes(nb, itemsize)
     vbudget = DEFAULT_SMEM_BUDGET if vmem_budget is None else int(vmem_budget)
     if need > vbudget:
@@ -752,6 +765,35 @@ def q_megakernel_table(p: int, q: int, qe: int, device: torch.device
     return _DEVICE_TABLE[key]
 
 
+def prepare_dispatch(p: int, q: int, nb: int, dtype: torch.dtype,
+                     device, mode: str, batch: int = 1,
+                     qe: Optional[int] = None) -> None:
+    """Upload ahead of a first call what the kernel lowering ``mode``
+    reads on ``device`` for ``batch`` stacked ``(p, q)`` grids — the level
+    indices, or the task table and, on a card, the CTA runs of the launch's
+    grid — and, with ``qe``, the same for Q formation of ``qe`` column
+    tiles, so the calls themselves upload nothing.  Raises where the call
+    would: a megakernel Q table over budget (the lowering is forced), or no
+    CTA of the launch fitting the card."""
+    device = torch.device(device)
+    suffix = "_BATCHED" if batch > 1 else ""
+    if mode != "megakernel":
+        level_indices(p, q, device)
+        if qe is not None:
+            q_level_indices(p, q, qe, device)
+        return
+    runs = [("MEGAKERNEL" + suffix, megakernel_table(p, q, device)[2], None)]
+    if qe is not None:
+        resolve_q_dispatch_mode(p, q, qe, mode, forced=True)
+        runs.append(("MEGAKERNEL_Q" + suffix,
+                     q_megakernel_table(p, q, qe, device)[2], qe))
+    if device.type == "cuda":
+        for name, nslots, qe_ in runs:
+            grid = macro_ops.megakernel_grid(name, nb, dtype, device, batch,
+                                             nslots)
+            megakernel_runs_device(p, q, batch, grid, device, qe=qe_)
+
+
 # ---------------------------------------------------------------------------
 # the factor loop
 # ---------------------------------------------------------------------------
@@ -778,7 +820,8 @@ def run_levels(state: FactorState, levels: Optional[Iterable[int]] = None, *,
     per_level = level_indices(p, q, tiles.device)
     for lv in range(len(per_level)) if levels is None else levels:
         for kind, idx in per_level[lv].items():
-            macro_ops.run_batch(kind, state, idx, use_kernel=use_kernel)
+            with _profiler.annotate(_profiler.kernel_label(kind, lv)):
+                macro_ops.run_batch(kind, state, idx, use_kernel=use_kernel)
     return state
 
 
@@ -791,11 +834,29 @@ def _check_dispatch(dtype: torch.dtype, p: int, q: int, nb: int,
     forced megakernel whose table exceeds :data:`DEFAULT_TABLE_BUDGET`
     (the auto rule never picks one).  ``batched`` names the stacked entry
     point in the messages: its CTAs take the single launch's shared
-    memory, and its table is the single schedule's."""
+    memory, and its table is the single schedule's.  An armed ``vmem``
+    fault (:mod:`repro_torch.robustness.inject`) raises here, where a real
+    over-budget workspace does, with the reference's tag."""
+    _check_mode(dispatch_mode)
+    if _inject.enabled():
+        _inject.check("vmem", f"p{p}q{q}nb{nb}:{dispatch_mode}")
+    return _resolve_dispatch(dtype, p, q, nb, use_kernel, dispatch_mode,
+                             batched)
+
+
+def _check_mode(dispatch_mode: Optional[str]) -> None:
     if dispatch_mode not in (None,) + DISPATCH_MODES:
         raise ValueError(
             f"unknown dispatch_mode {dispatch_mode!r}; expected one of "
             f"{DISPATCH_MODES} or None (auto)")
+
+
+def _resolve_dispatch(dtype: torch.dtype, p: int, q: int, nb: int,
+                      use_kernel: bool, dispatch_mode: Optional[str],
+                      batched: bool = False) -> str:
+    """:func:`_check_dispatch` without the fault-harness site (Q formation
+    resolves its factorization's lowering again through it)."""
+    _check_mode(dispatch_mode)
     if not use_kernel:
         return "wavefront"
     if dtype not in macro_ops.KERNEL_DTYPES:
@@ -847,6 +908,46 @@ def _check_workspace(tiles: torch.Tensor, shape: Tuple[int, ...]) -> None:
         raise ValueError("the tile workspace must be contiguous")
 
 
+def _emit_factor_metrics(tiles: torch.Tensor, p: int, q: int, nb: int,
+                         mode: str, use_kernel: bool, batch: int = 1) -> None:
+    """Record one factor call in the ``engine.*`` metric series: calls,
+    matrices, launches, tasks and the modeled and roofline tile traffic
+    of the lowering that runs, and the task table's bytes on the
+    megakernel path.  The reference labels calls counted while tracing a
+    program ``phase="trace"``; the port runs no traced program, so every
+    call counts as ``phase="execute"``."""
+    phase = "execute"
+    kernel = "cuda" if use_kernel else "plain"
+    ndisp = 1 if (use_kernel and mode == "megakernel") else (
+        sum(len(b) for b in wavefront_task_arrays(p, q)) * batch
+        if use_kernel else 0)
+    dma = modeled_dma_bytes(p, q, nb, tiles.element_size())
+    dma_mode = dma[mode] if use_kernel and mode in dma else dma["wavefront"]
+    _metrics.counter("engine.factor_calls", mode=mode, kernel=kernel,
+                     phase=phase).inc()
+    _metrics.counter("engine.matrices", mode=mode, phase=phase).inc(batch)
+    _metrics.counter("engine.dispatches", mode=mode, phase=phase).inc(ndisp)
+    _metrics.counter("engine.tasks", mode=mode, phase=phase).inc(
+        task_count(p, q) * batch)
+    _metrics.counter("engine.modeled_dma_bytes", mode=mode,
+                     phase=phase).inc(dma_mode * batch)
+    _metrics.counter("engine.roofline_dma_bytes", mode=mode,
+                     phase=phase).inc(dma["roofline"] * batch)
+    if use_kernel and mode == "megakernel":
+        _metrics.gauge("engine.table_bytes", grid=f"{p}x{q}").set(
+            megakernel_task_table(p, q)[0].nbytes)
+
+
+def _factor_single(tiles: torch.Tensor, p: int, q: int, nb: int,
+                   use_kernel: bool, mode: str) -> FactorState:
+    state = init_state(tiles)
+    if use_kernel and mode == "megakernel":
+        with _profiler.annotate(_profiler.megakernel_label(p, q)):
+            macro_ops.megakernel(state, *megakernel_table(p, q, tiles.device))
+        return state
+    return run_levels(state, use_kernel=use_kernel)
+
+
 def factor_tiles(tiles: torch.Tensor, *, p: int, q: int, nb: int,
                  use_kernel: bool = False,
                  dispatch_mode: Optional[str] = None) -> FactorState:
@@ -861,11 +962,10 @@ def factor_tiles(tiles: torch.Tensor, *, p: int, q: int, nb: int,
     """
     _check_workspace(tiles, (p, q, nb, nb))
     mode = _check_dispatch(tiles.dtype, p, q, nb, use_kernel, dispatch_mode)
-    state = init_state(tiles)
-    if use_kernel and mode == "megakernel":
-        macro_ops.megakernel(state, *megakernel_table(p, q, tiles.device))
-        return state
-    return run_levels(state, use_kernel=use_kernel)
+    _emit_factor_metrics(tiles, p, q, nb, mode, bool(use_kernel))
+    with _trace.span("engine.factor_tiles", mode=mode, grid=f"{p}x{q}",
+                     nb=nb, kernel=bool(use_kernel)) as sp:
+        return sp.sync(_factor_single(tiles, p, q, nb, use_kernel, mode))
 
 
 def factor_tiles_batched(tiles: torch.Tensor, *, p: int, q: int, nb: int,
@@ -883,16 +983,27 @@ def factor_tiles_batched(tiles: torch.Tensor, *, p: int, q: int, nb: int,
     _check_workspace(tiles, (tiles.shape[0], p, q, nb, nb))
     mode = _check_dispatch(tiles.dtype, p, q, nb, use_kernel, dispatch_mode,
                            batched=True)
-    if tiles.shape[0] == 1:
-        single = factor_tiles(tiles[0], p=p, q=q, nb=nb,
-                              use_kernel=use_kernel, dispatch_mode=mode)
+    batch = int(tiles.shape[0])
+    _emit_factor_metrics(tiles, p, q, nb, mode, bool(use_kernel), batch)
+    with _trace.span("engine.factor_tiles_batched", mode=mode,
+                     grid=f"{p}x{q}", nb=nb, batch=batch,
+                     kernel=bool(use_kernel)) as sp:
+        return sp.sync(_factor_batched(tiles, p, q, nb, use_kernel, mode))
+
+
+def _factor_batched(tiles: torch.Tensor, p: int, q: int, nb: int,
+                    use_kernel: bool, mode: str) -> FactorState:
+    batch = tiles.shape[0]
+    if batch == 1:
+        single = _factor_single(tiles[0], p, q, nb, use_kernel, mode)
         return FactorState(tiles, *(x[None] for x in single[1:]))
     state = init_state(tiles)
     if use_kernel and mode == "megakernel":
-        macro_ops.megakernel_batched(state,
-                                     *megakernel_table(p, q, tiles.device))
+        with _profiler.annotate(_profiler.megakernel_label(p, q, batch)):
+            macro_ops.megakernel_batched(
+                state, *megakernel_table(p, q, tiles.device))
     else:
-        for b in range(tiles.shape[0]):
+        for b in range(batch):
             run_levels(FactorState(*(x[b] for x in state)),
                        use_kernel=use_kernel)
     return state
@@ -924,7 +1035,9 @@ def run_q_levels(state: FactorState, e: torch.Tensor,
     per_level = q_level_indices(p, q, e.shape[1], e.device)
     for lv in range(len(per_level)) if levels is None else levels:
         for kind, idx in per_level[lv].items():
-            macro_ops.run_q_batch(kind, state, e, idx, use_kernel=use_kernel)
+            with _profiler.annotate(_profiler.kernel_label(kind, lv)):
+                macro_ops.run_q_batch(kind, state, e, idx,
+                                      use_kernel=use_kernel)
     return e
 
 
@@ -947,20 +1060,22 @@ def form_q_tiles(state: FactorState, ncols: int, *,
                          f"...), got ncols={ncols}, {tuple(tiles.shape)}")
     qe = ncols // nb
     batch = lead[0] if lead else 1
-    mode = _check_dispatch(tiles.dtype, p, q, nb, True, dispatch_mode,
-                           batched=batch > 1)
+    mode = _resolve_dispatch(tiles.dtype, p, q, nb, True, dispatch_mode,
+                             batched=batch > 1)
     mode = resolve_q_dispatch_mode(p, q, qe, mode,
                                    forced=dispatch_mode == "megakernel")
     e = q_workspace(tuple(lead), p, qe, nb, tiles.dtype, tiles.device)
     if mode == "megakernel":
         table = q_megakernel_table(p, q, qe, tiles.device)
-        if batch > 1:
-            macro_ops.megakernel_q_batched(state, e, *table)
-        elif lead:
-            macro_ops.megakernel_q(FactorState(*(x[0] for x in state)), e[0],
-                                   *table)
-        else:
-            macro_ops.megakernel_q(state, e, *table)
+        with _profiler.annotate(
+                "q:" + _profiler.megakernel_label(p, q, batch)):
+            if batch > 1:
+                macro_ops.megakernel_q_batched(state, e, *table)
+            elif lead:
+                macro_ops.megakernel_q(FactorState(*(x[0] for x in state)),
+                                       e[0], *table)
+            else:
+                macro_ops.megakernel_q(state, e, *table)
         return e
     if not lead:
         return run_q_levels(state, e)

@@ -26,7 +26,6 @@ Deliberate differences from the reference, each recorded in ROADMAP §C:
   * a ``(..., B, m, n)`` input reaches a method's ``solve_batched`` as one
     ``(B', m, n)`` stack of all its matrices (the reference vmaps the
     dimensions before the last three);
-  * ``verify=True`` raises ``NotImplementedError`` (ROADMAP A11);
   * on the kernel path the panel kernel factors a wide panel's ``min(m,
     n)`` pivot columns and returns that many taus (the reference's
     returns n), and Q (and ``lstsq``'s Q^T b) is applied panel by panel
@@ -43,6 +42,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.engine import DEFAULT_SMEM_BUDGET, DEFAULT_TABLE_BUDGET
+from repro_torch.observability import metrics as _metrics
 
 __all__ = [
     "QRConfig",
@@ -107,7 +107,9 @@ class QRConfig:
     are resolved by :func:`plan`; ``dispatch_mode`` is the engine lowering
     ("wavefront", "megakernel", None = auto);
     ``use_tuning_cache`` is accepted but the cache is not ported;
-    ``verify=True`` raises (not ported)."""
+    ``verify`` turns on the health-checked solve of :func:`repro_torch.qr`
+    (True / False, or None for the ``REPRO_VERIFY`` environment
+    default)."""
 
     method: str = "auto"
     block: int = 32
@@ -536,15 +538,13 @@ def plan(shape, dtype=torch.float32, config: Optional[QRConfig] = None, *,
     ``backend`` ("cuda" or "cpu") is the device the solve will run on;
     None means "cuda", the entry points' default.  ``ndevices`` overrides
     the device count of the sharded routing rule.  ``explain=True``
-    attaches the :class:`PlanExplain` decision trail.
+    attaches the :class:`PlanExplain` decision trail.  Every plan adds to
+    ``planner.plans{method}`` and each fallback decision to
+    ``planner.fallbacks{reason}``, with or without ``explain``.
     """
     _ensure_builtins()
     _check_backend(backend)
     cfg = QRConfig() if config is None else config
-    if cfg.verify:
-        raise NotImplementedError(
-            "verify=True: residual verification is not ported yet "
-            "(ROADMAP A11)")
     if len(shape) < 2:
         raise ValueError(f"qr plan expects a matrix shape, got {tuple(shape)}")
     m, n = int(shape[-2]), int(shape[-1])
@@ -553,6 +553,11 @@ def plan(shape, dtype=torch.float32, config: Optional[QRConfig] = None, *,
     dtype = as_torch_dtype(dtype)
 
     name, decisions = _route(shape, dtype, cfg, backend, ndevices)
+    # Fallbacks of the routing table count here, once per plan: _route is
+    # a pure query.  Resolve hooks count the fallbacks they append.
+    for d in decisions:
+        if d.outcome == "fallback":
+            _metrics.counter("planner.fallbacks", reason=d.rule).inc()
     spec = get_method(name)
     if name == "degenerate" and min(m, n) > 0:
         raise ValueError(
@@ -581,6 +586,7 @@ def plan(shape, dtype=torch.float32, config: Optional[QRConfig] = None, *,
     resolved = dataclasses.replace(cfg, method=name, use_kernel=bool(use_kernel))
     if spec.resolve is not None:
         resolved = spec.resolve(m, n, resolved, dtype=dtype, explain=decisions)
+    _metrics.counter("planner.plans", method=name).inc()
     record = None
     if explain:
         record = PlanExplain(

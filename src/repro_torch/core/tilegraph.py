@@ -24,6 +24,7 @@ import torch
 from repro_torch.core import engine
 from repro_torch.core.blocked import unpack_v_panel
 from repro_torch.kernels import macro_ops
+from repro_torch.observability import metrics as _metrics
 
 __all__ = [
     "TileTask",
@@ -281,6 +282,9 @@ def _resolve_tiled(m: int, n: int, cfg: QRConfig, *, dtype=None,
         # does (megakernel iff its task table and working set fit).
         mode, why = engine.explain_dispatch_mode(
             p, q, cfg.block, _planned_itemsize(cfg, dtype))
+        if mode == "wavefront":
+            _metrics.counter("planner.fallbacks",
+                             reason="megakernel_over_budget").inc()
         if explain is not None:
             explain.append(
                 RouteDecision("megakernel_over_budget", "fallback", why)

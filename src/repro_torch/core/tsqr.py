@@ -22,6 +22,7 @@ from repro_torch.core.blocked import geqrf
 from repro_torch.core.householder import unpack_r
 from repro_torch.core.plan import (MethodSpec, QRConfig, RouteDecision,
                                    register_method, sign_fix_qr, sign_fix_r)
+from repro_torch.observability import metrics as _metrics
 
 __all__ = ["tsqr_r", "tsqr_qr", "triangular_inverse_apply", "default_nblocks"]
 
@@ -111,7 +112,11 @@ def tsqr_qr(a: Tensor, *, nblocks: int = 4, refine: bool = True,
 
 def _solve_tsqr_batched(a: Tensor, cfg: QRConfig):
     """A ``(B, m, n)`` stack through one tree: each level one batched
-    factorization of every matrix's blocks."""
+    factorization of every matrix's blocks.  Counts ``tsqr.solves`` and
+    sets ``tsqr.tree_depth``, as the reference's solve does."""
+    _metrics.counter("tsqr.solves", nblocks=cfg.nblocks, mode=cfg.mode).inc()
+    _metrics.gauge("tsqr.tree_depth", nblocks=cfg.nblocks).set(
+        (cfg.nblocks - 1).bit_length())
     kw = dict(nblocks=cfg.nblocks, qr_block=min(cfg.block, a.shape[-1]),
               use_kernel=bool(cfg.use_kernel))
     if cfg.mode == "r":

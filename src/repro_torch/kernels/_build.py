@@ -7,8 +7,10 @@ interface, loaded with ``ctypes``; no PyTorch headers are involved, so a
 build takes seconds.  The library lands in ``build/repro_torch_kernels/
 <hash>/`` at the repository root, keyed on a hash of every file in
 ``csrc/`` and the flags, and is built on first use: :func:`library` is
-called by the first kernel launch, never at import.  A failed build
-raises.
+called by the first kernel launch, never at import.  A failed build (no
+``nvcc``, a compiler error, a library that does not load) raises
+:class:`BuildError`, which the escalation ladder re-raises instead of
+degrading past the kernels.
 """
 
 from __future__ import annotations
@@ -20,7 +22,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["library", "build", "error_string", "NVCC_FLAGS", "LINK_FLAGS"]
+__all__ = ["BuildError", "library", "build", "error_string", "NVCC_FLAGS",
+           "LINK_FLAGS"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -78,6 +81,12 @@ _ENTRIES = {
     "repro_wy_trailing_cluster": _WY_TRAILING_CLUSTER_ARGS,
 }
 _LIB = None
+
+
+class BuildError(RuntimeError):
+    """The kernel library could not be built or loaded."""
+
+
 #: The compiler's output of the build that produced the loaded library
 #: (``-Xptxas -v``: registers, shared memory and spills per kernel).
 BUILD_LOG = ""
@@ -90,7 +99,7 @@ def _nvcc() -> str:
             return str(path)
     found = shutil.which("nvcc")
     if found is None:
-        raise RuntimeError("nvcc not found: the kernels are built from csrc/ "
+        raise BuildError("nvcc not found: the kernels are built from csrc/ "
                            "with the CUDA toolkit")
     return found
 
@@ -112,7 +121,7 @@ def _run(cmd, what: str) -> str:
     proc = subprocess.run(cmd, capture_output=True, text=True)
     out = proc.stdout + proc.stderr
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {what} ({proc.returncode}):\n{out}")
+        raise BuildError(f"nvcc failed on {what} ({proc.returncode}):\n{out}")
     return out
 
 
@@ -140,7 +149,7 @@ def build() -> Path:
             failed.append(f"{p.name} ({proc.returncode}):\n{out}")
     BUILD_LOG = "".join(logs)
     if failed:
-        raise RuntimeError("nvcc failed on " + "\n".join(failed))
+        raise BuildError("nvcc failed on " + "\n".join(failed))
     tmp = out_dir / f"libkernels.{tag}.so"
     BUILD_LOG += _run([nvcc, *LINK_FLAGS, "-o", str(tmp), *map(str, objs)],
                       "the link")
@@ -154,7 +163,12 @@ def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
     global _LIB
     if _LIB is None:
-        lib = ctypes.CDLL(str(build()))
+        path = build()
+        try:
+            lib = ctypes.CDLL(str(path))
+        except OSError as e:
+            raise BuildError(f"the kernel library {path} does not load: "
+                             f"{e}") from e
         for name, argtypes in _ENTRIES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes

@@ -102,6 +102,7 @@ __all__ = [
     "megakernel_launch_smem_bytes",
     "megakernel_scratch_elems",
     "megakernel_stages",
+    "megakernel_grid",
     "megakernel_resident",
     "MEGAKERNEL_OCCUPANCY",
     "MEGAKERNEL_SMEM_TILES",
@@ -617,6 +618,23 @@ def megakernel_resident(name: str, nb: int, dtype: torch.dtype,
     return _RESIDENT[key]
 
 
+def megakernel_grid(name: str, nb: int, dtype: torch.dtype,
+                    device: torch.device, batch: int, nslots: int) -> int:
+    """CTAs of a ``name`` megakernel launch over ``batch`` slices of a
+    table of ``nslots`` slots: every slot's task a CTA, capped at the
+    resident count (:func:`megakernel_resident`, recorded in
+    :data:`MEGAKERNEL_OCCUPANCY`).  Raises when not one CTA fits."""
+    per_sm, resident = megakernel_resident(name, nb, dtype, device)
+    MEGAKERNEL_OCCUPANCY[name] = {"per_sm": per_sm, "resident": resident}
+    grid_ctas = min(batch * nslots, resident)
+    if grid_ctas < 1:
+        itemsize = torch.finfo(dtype).bits // 8
+        raise RuntimeError(f"{name}: not one CTA of "
+                           f"{megakernel_launch_smem_bytes(nb, itemsize)} B "
+                           f"of shared memory fits the device")
+    return grid_ctas
+
+
 def _launch_megakernel(name: str, state, table: Tensor, nlevels: int,
                        nslots: int, batch: int, e: Tensor = None) -> None:
     from repro_torch.core import engine
@@ -633,13 +651,8 @@ def _launch_megakernel(name: str, state, table: Tensor, nlevels: int,
     lib = _build.library()
     p, q, nb = tiles.shape[-4], tiles.shape[-3], tiles.shape[-1]
     itemsize = tiles.element_size()
-    per_sm, resident = megakernel_resident(name, nb, tiles.dtype, tiles.device)
-    MEGAKERNEL_OCCUPANCY[name] = {"per_sm": per_sm, "resident": resident}
-    grid_ctas = min(batch * nslots, resident)
-    if grid_ctas < 1:
-        raise RuntimeError(f"{name}: not one CTA of "
-                           f"{megakernel_launch_smem_bytes(nb, itemsize)} B "
-                           f"of shared memory fits the device")
+    grid_ctas = megakernel_grid(name, nb, tiles.dtype, tiles.device, batch,
+                                nslots)
     qe = None if e is None else e.shape[-3]
     runs = engine.megakernel_runs_device(p, q, batch, grid_ctas, tiles.device,
                                          qe=qe)

@@ -3,7 +3,8 @@ versions: the four wavefront macro-op kernels (their task bodies at
 several tile sizes), the Q-formation updates, both megakernels over the
 factorization's and Q formation's tables, the MHT panel kernel on each
 of its paths, the WY trailing kernel, and the single-tile TSQRT / SSRFB
-entry points.
+entry points; and the QR service on the card (one batched megakernel
+launch a bucket, fault recovery, ``qr(verify=True)``).
 
 Every test is marked ``cuda`` and skips without an sm_90 device.  The
 file imports torch, numpy and ``repro_torch`` only, so it also runs where
@@ -527,3 +528,85 @@ def test_qr_forms_q_on_the_kernels_on_hopper():
         q64 = qk.double()
         eye = torch.eye(n, dtype=torch.float64, device="cuda")
         assert float((q64.mT @ q64 - eye).abs().max()) <= 100 * eps * n
+
+
+# ---------------------------------------------------------------------------
+# the QR service on the card
+# ---------------------------------------------------------------------------
+
+def _serving_wave(seed):
+    shapes = [(128, 128), (120, 110), (96, 64), (64, 64), (130, 120)] * 2
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(s).astype(np.float32) for s in shapes]
+
+
+@pytest.mark.cuda
+def test_service_runs_one_batched_megakernel_per_bucket_on_hopper():
+    """A warm wave of the serving mix: one batched megakernel launch per
+    bucket and one over its Q table, no plan built, no escalation, every
+    answer on the card inside the conformance bar of its own shape."""
+    _need_hopper()
+    from repro_torch.serving import QRService
+
+    svc = QRService(verify=True)
+    svc.submit_many(_serving_wave(0))
+    compiles = svc.stats()["compiles"]
+    wave = _serving_wave(1)
+    tmo.reset_launch_counts()
+    results = svc.submit_many(wave)
+    launches = {k: v for k, v in tmo.LAUNCHES.items() if v}
+    buckets = {k for k, _, _, _ in svc._plans}
+    assert launches == {"MEGAKERNEL_BATCHED": len(buckets),
+                        "MEGAKERNEL_Q_BATCHED": len(buckets)}
+    assert svc.stats()["compiles"] == compiles
+    assert svc.stats()["escalations"] == 0
+    eps = float(np.finfo(np.float32).eps)
+    for a, res in zip(wave, results):
+        assert res.ok and res.q.device.type == "cuda"
+        q, r = res.q.double().cpu().numpy(), res.r.double().cpu().numpy()
+        bar = 100 * eps * max(a.shape)
+        assert np.linalg.norm(a - q @ r) / np.linalg.norm(a) <= bar
+        assert np.abs(q.T @ q - np.eye(q.shape[1])).max() <= bar
+
+
+@pytest.mark.cuda
+def test_service_faults_recover_on_hopper():
+    """A budget (vmem) fault walks the bucket from the megakernel to the
+    wavefront kernels at plan time; a dispatch fault recovers each
+    request below the bucket's rung; every answer stays inside the bar."""
+    _need_hopper()
+    from repro_torch.robustness import inject
+    from repro_torch.serving import QRService
+
+    wave = _serving_wave(2)[:4]
+    eps = float(np.finfo(np.float32).eps)
+    for fault, hop in ((inject.Fault(site="vmem", match="megakernel"),
+                        ("megakernel", "wavefront", "injected_vmem")),
+                       (inject.Fault(site="dispatch", match="128x128"),
+                        ("megakernel", "per-request", "injected_dispatch"))):
+        svc = QRService(verify=True)
+        with inject.active(fault):
+            results = svc.submit_many(wave)
+        assert hop in [(e.rung_from, e.rung_to, e.rule)
+                       for e in svc.escalations]
+        for a, res in zip(wave, results):
+            assert res.ok and res.r.device.type == "cuda"
+            q, r = res.q.double().cpu().numpy(), res.r.double().cpu().numpy()
+            assert np.linalg.norm(a - q @ r) / np.linalg.norm(a) <= \
+                100 * eps * max(a.shape)
+
+
+@pytest.mark.cuda
+def test_qr_verify_on_hopper():
+    """``qr(verify=True)`` on the card: the health check runs on the card
+    and escalates nothing on healthy input; the answer is the unverified
+    solve's."""
+    _need_hopper()
+    from repro_torch.observability import metrics
+
+    a = torch.from_numpy(_workspace((3, 256, 256), 97, "float32")).cuda()
+    before = metrics.counter_total("robustness.escalations")
+    q, r = repro_torch.qr(a, config=repro_torch.QRConfig(verify=True))
+    q0, r0 = repro_torch.qr(a)
+    assert metrics.counter_total("robustness.escalations") == before
+    assert torch.equal(q, q0) and torch.equal(r, r0)

@@ -167,8 +167,13 @@ def test_forced_megakernel_verify_and_backend_raise():
     with pytest.raises(ValueError, match="task table"):
         tplan.plan((2048, 2048), torch.float32,
                    tplan.QRConfig(dispatch_mode="megakernel"), backend="cuda")
-    with pytest.raises(NotImplementedError, match="A11"):
-        tplan.plan((64, 64), torch.float32, tplan.QRConfig(verify=True))
+    # verify=True plans: the knob reaches the solver, and
+    # qr() runs the health-checked solve.
+    assert tplan.plan((64, 64), torch.float32, tplan.QRConfig(verify=True),
+                      backend="cpu").config.verify is True
+    a = _matrix(64, 48, 0, "float32")
+    q, r = repro_torch.qr(a, device="cpu", config=tplan.QRConfig(verify=True))
+    assert float((q @ r - torch.from_numpy(a)).abs().max()) < 1e-4
     with pytest.raises(ValueError, match="backend"):
         tplan.plan((64, 64), torch.float32, backend="tpu")
     with pytest.raises(NotImplementedError, match="A14"):

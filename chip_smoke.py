@@ -1622,6 +1622,25 @@ SERVICE_WAVES = 8
 # (src/repro/configs/smollm_135m.py: 30 layers, d_model 576, 3 kv heads
 # x 64): the q/o projections (576, 576) and the k/v ones (576, 192).
 SMOLLM_MOMENTA = [(576, 576)] * 60 + [(576, 192)] * 60
+# What a flush makes of them under the default policy (tile 32, waste cap
+# 0.25, max batch 64): each request shape's padded bucket, and each
+# bucket's requests, padded batch and rung (the megakernel where its task
+# table fits; 768^2's 24 x 24 table does not).  Launches are a wave's:
+# one batched megakernel a bucket and one over its Q table, or on the
+# wavefront rung one launch per (level, kind) for each filled slice (60 x
+# the 24 x 24 schedule's 179, and 93 forming Q).
+MIX_PAD = {(128, 128): (128, 128), (120, 110): (128, 128),
+           (96, 64): (96, 64), (64, 64): (64, 64), (130, 120): (160, 128)}
+MIX_BUCKETS = {"128x128": [10, 16, "megakernel"],
+               "96x64": [2, 2, "megakernel"], "64x64": [2, 2, "megakernel"],
+               "160x128": [2, 2, "megakernel"]}
+MIX_LAUNCHES = {"MEGAKERNEL_BATCHED": 4, "MEGAKERNEL_Q_BATCHED": 4}
+SMOLLM_PAD = {(576, 576): (768, 768), (576, 192): (768, 192)}
+SMOLLM_BUCKETS = {"768x768": [60, 64, "wavefront"],
+                  "768x192": [60, 64, "megakernel"]}
+SMOLLM_LAUNCHES = {"GEQRT": 1440, "LARFB": 1380, "TSQRT": 3960,
+                   "SSRFB": 3960, "QLARFB": 2820, "QSSRFB": 2760,
+                   "MEGAKERNEL_BATCHED": 1, "MEGAKERNEL_Q_BATCHED": 1}
 # The plain lowering is held against the service on the first slices of
 # each chunk: this many (slices are independent, and the plain lowering,
 # a column loop of small ops a GEQRT/TSQRT batch, runs slice by slice at
@@ -1637,34 +1656,21 @@ def wave_of(shapes, seed, dtype=np.float32):
     return [rng.standard_normal(s).astype(dtype) for s in shapes]
 
 
-def service_chunks(serving, engine, policy, wave, mode):
-    """The dispatch chunks a service flush makes of ``wave`` — ``(key,
-    [(index, array)], batch, p, q, nb, rung)`` with the engine's auto rule
-    as the rung — and the launches that factoring them (and forming Q
-    unless ``mode`` is "r") takes."""
-    groups = serving.bucketize(
-        list(enumerate(wave)), policy,
-        key_fn=lambda t: (t[1].shape[0], t[1].shape[1], t[1].dtype, mode))
-    chunks, launches = [], {}
-    for key, members in groups.items():
-        for c in range(0, len(members), policy.max_batch):
-            part = members[c:c + policy.max_batch]
-            batch = serving.pad_batch(len(part), max_batch=policy.max_batch)
-            nb = min(policy.tile, key.m, key.n)
-            p, q = key.m // nb, key.n // nb
-            rung = engine.resolve_dispatch_mode(
-                p, q, nb, np.dtype(key.dtype).itemsize)
-            chunks.append((key, part, batch, p, q, nb, rung))
-            counts = dict(engine.dispatch_counts(p, q, rung, batch))
-            if mode != "r":
-                qe = min(p, q)
-                qmode = engine.resolve_q_dispatch_mode(p, q, qe, rung,
-                                                       forced=True)
-                counts.update(engine.q_dispatch_counts(p, q, qe, qmode,
-                                                       batch))
-            for k, v in counts.items():
-                launches[k] = launches.get(k, 0) + v
-    return chunks, {k: v for k, v in launches.items() if v}
+def bucket_groups(wave, pad):
+    """``{(m_pad, n_pad): [(index, matrix)]}`` for a wave, by the literal
+    shape -> bucket map ``pad`` the checks hold the service to."""
+    groups = {}
+    for i, a in enumerate(wave):
+        groups.setdefault(pad[tuple(a.shape)], []).append((i, a))
+    return groups
+
+
+def plan_buckets(svc, mode="reduced", dtype="float32"):
+    """The service's prepared plans of one mode and dtype as ``{bucket:
+    [padded batch, rung]}``."""
+    return {f"{k.m}x{k.n}": [batch, rung]
+            for k, batch, rung, _ in svc._plans
+            if k.mode == mode and k.dtype == dtype}
 
 
 def bar_ratio(torch, wave, results, mode):
@@ -1677,9 +1683,9 @@ def bar_ratio(torch, wave, results, mode):
         if not res.ok or not torch.isfinite(res.r).all() or (
                 res.q is not None and not torch.isfinite(res.q).all()):
             return float("inf")
-        eps = float(np.finfo(a.dtype).eps)
+        a64 = torch.as_tensor(a).to("cuda", torch.float64)
+        eps = float(torch.finfo(res.r.dtype).eps)
         bar = 100 * eps * max(a.shape)
-        a64 = torch.from_numpy(a).to("cuda", torch.float64)
         r = res.r.double()
         if mode == "r":
             gram = (torch.linalg.norm(a64.T @ a64 - r.T @ r)
@@ -1694,28 +1700,30 @@ def bar_ratio(torch, wave, results, mode):
     return worst
 
 
-def plain_ratio(torch, tilegraph, chunks, results, mode, limit=None,
+def plain_ratio(torch, tilegraph, groups, results, mode, limit=None,
                 tf32=False):
     """The worst disagreement between the service's answers and the plain
-    lowering's on the same padded stacks (the chunks' first ``limit``
-    slices), over the agreement bound ``4 * sqrt(N) * eps``, N the padded
-    max(m, n): max |Q - Q0| and max |R - R0| / max |R0|.  With ``tf32`` the
-    plain lowering runs with TF32 products, the control that must fail."""
+    lowering's on the same padded stacks (each bucket's first ``limit``
+    requests, :func:`bucket_groups`), over the agreement bound ``4 *
+    sqrt(N) * eps``, N the padded max(m, n): max |Q - Q0| and max |R - R0|
+    / max |R0|.  With ``tf32`` the plain lowering runs with TF32 products,
+    the control that must fail."""
     worst = 0.0
     prev = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = tf32
     try:
-        for key, part, _, p, q, nb, _ in chunks:
+        for (mp, np_), part in groups.items():
             part = part[:limit]
-            dtype = getattr(torch, key.dtype)
-            stack = torch.zeros((len(part), key.m, key.n), dtype=dtype,
+            dtype = results[part[0][0]].r.dtype
+            stack = torch.zeros((len(part), mp, np_), dtype=dtype,
                                 device="cuda")
             for s, (_, a) in enumerate(part):
-                stack[s, :a.shape[0], :a.shape[1]] = torch.from_numpy(a)
-            out = tilegraph._factor_stack_padded(stack, p=p, q=q, nb=nb,
-                                                 mode=mode, use_kernel=False)
+                stack[s, :a.shape[0], :a.shape[1]] = torch.as_tensor(a)
+            out = tilegraph._factor_stack_padded(
+                stack, p=mp // NB, q=np_ // NB, nb=NB, mode=mode,
+                use_kernel=False)
             torch.cuda.synchronize()
-            tol = 4 * max(key.m, key.n) ** 0.5 * float(torch.finfo(dtype).eps)
+            tol = 4 * max(mp, np_) ** 0.5 * float(torch.finfo(dtype).eps)
             for s, (i, a) in enumerate(part):
                 m, n = a.shape
                 k = min(m, n)
@@ -1761,7 +1769,7 @@ def percentile(xs, q):
     return float(np.percentile(np.asarray(xs), q))
 
 
-def service_mix(torch, engine, macro_ops, tilegraph, serving, metrics,
+def service_mix(torch, macro_ops, tilegraph, serving, metrics,
                 service_launches):
     """(a) The serving mix: one warm-up wave, 8 timed waves, then one wave
     in mode "r" and one in fp64; the checks and timings of the phase doc."""
@@ -1771,29 +1779,26 @@ def service_mix(torch, engine, macro_ops, tilegraph, serving, metrics,
     serve_waves(torch, svc, [wave_of(SERVICE_MIX, 1000)])
     warm = svc.stats()
     waves = [wave_of(SERVICE_MIX, 1001 + w) for w in range(SERVICE_WAVES)]
-    # The chunks of the last wave (every wave buckets alike), whose
-    # answers the checks hold against the plain lowering.
-    chunks, per_wave = service_chunks(serving, engine, policy, waves[-1],
-                                      "reduced")
+    # The last wave's buckets (every wave buckets alike), whose answers
+    # the checks hold against the plain lowering.
+    groups = bucket_groups(waves[-1], MIX_PAD)
     macro_ops.reset_launch_counts()
     results, secs = serve_waves(torch, svc, waves)
     launches = launch_counts(macro_ops)
     for k, v in launches.items():
         service_launches[k] = service_launches.get(k, 0) + v
     stats = svc.stats()
-    expected = {k: v * SERVICE_WAVES for k, v in per_wave.items()}
-    rungs = {f"{k.m}x{k.n}": rung for k, _, rung, _ in svc._plans}
-    auto = {f"{key.m}x{key.n}": rung for key, _, _, _, _, _, rung in chunks}
+    expected = {k: v * SERVICE_WAVES for k, v in MIX_LAUNCHES.items()}
+    plans = plan_buckets(svc)
     checks = dict(
-        buckets={f"{key.m}x{key.n}": [len(part), batch]
-                 for key, part, batch, *_ in chunks},
-        rungs=rungs, auto_rule=auto,
+        buckets={f"{m}x{n}": [len(part)] + plans.get(f"{m}x{n}", [])
+                 for (m, n), part in groups.items()},
         plan_builds_after_warmup=stats["compiles"] - warm["compiles"],
         launches=launches, expected=expected,
         bar_ratio=bar_ratio(torch, waves[-1], results, "reduced"),
-        plain_ratio=plain_ratio(torch, tilegraph, chunks, results,
+        plain_ratio=plain_ratio(torch, tilegraph, groups, results,
                                 "reduced", limit=PLAIN_SLICES),
-        tf32_control_ratio=plain_ratio(torch, tilegraph, chunks, results,
+        tf32_control_ratio=plain_ratio(torch, tilegraph, groups, results,
                                        "reduced", limit=1, tf32=True))
     total = sum(secs)
     timing = dict(
@@ -1836,10 +1841,11 @@ def service_mix(torch, engine, macro_ops, tilegraph, serving, metrics,
 
     # One wave in mode "r" and one in fp64 (their plans build here).
     extra = {}
-    for label, wave, mode in (
-            ("mode_r", wave_of(SERVICE_MIX, 1100), "r"),
-            ("fp64", wave_of(SERVICE_MIX, 1101, np.float64), "reduced")):
-        ch, want = service_chunks(serving, engine, policy, wave, mode)
+    for label, wave, mode, want in (
+            ("mode_r", wave_of(SERVICE_MIX, 1100), "r",
+             {"MEGAKERNEL_BATCHED": 4}),
+            ("fp64", wave_of(SERVICE_MIX, 1101, np.float64), "reduced",
+             MIX_LAUNCHES)):
         macro_ops.reset_launch_counts()
         res, sec = serve_waves(torch, svc, [wave], mode)
         got = launch_counts(macro_ops)
@@ -1847,72 +1853,79 @@ def service_mix(torch, engine, macro_ops, tilegraph, serving, metrics,
             service_launches[k] = service_launches.get(k, 0) + v
         extra[label] = dict(
             launches=got, expected=want, wave_ms=sec[0] * 1e3,
-            rungs={f"{k.m}x{k.n}": r for k, _, r, _ in svc._plans
-                   if k.mode == mode and k.dtype == str(wave[0].dtype)},
-            auto_rule={f"{key.m}x{key.n}": rung
-                       for key, _, _, _, _, _, rung in ch},
+            plans=plan_buckets(svc, mode, str(wave[0].dtype)),
             bar_ratio=bar_ratio(torch, wave, res, mode),
-            plain_ratio=plain_ratio(torch, tilegraph, ch, res, mode,
+            plain_ratio=plain_ratio(torch, tilegraph,
+                                    bucket_groups(wave, MIX_PAD), res, mode,
                                     limit=PLAIN_SLICES))
     escalated = counter_delta(esc0, escalation_counts(metrics))
     log("service mix checks:", json.dumps(checks))
     log("service mix timing:", json.dumps(timing))
     log("service mix mode r / fp64:", json.dumps(extra))
     assert checks["plan_builds_after_warmup"] == 0, checks
-    assert rungs == auto and set(auto.values()) == {"megakernel"}, checks
+    assert checks["buckets"] == MIX_BUCKETS, checks
     assert launches == expected, checks
     assert checks["bar_ratio"] <= 1 and checks["plain_ratio"] <= 1, checks
     assert checks["tf32_control_ratio"] > 1, ("TF32 control passed", checks)
     for label, e in extra.items():
         assert e["launches"] == e["expected"], (label, e)
-        assert e["rungs"] == e["auto_rule"], (label, e)
+        assert e["plans"] == {b: v[1:] for b, v in MIX_BUCKETS.items()}, \
+            (label, e)
         assert e["bar_ratio"] <= 1 and e["plain_ratio"] <= 1, (label, e)
     assert not escalated, ("escalations on healthy traffic", escalated)
     return dict(checks=checks, timing=timing, extra=extra)
 
 
-def service_smollm(torch, engine, macro_ops, tilegraph, serving, metrics,
+def service_smollm(torch, macro_ops, tilegraph, serving, metrics,
                    service_launches):
     """(b) One optimizer step's attention momenta of SmolLM-135M as one
-    wave, after a warm-up wave: a 768^2 bucket of batch 64 on the
-    wavefront rung, a 768 x 192 one on the batched megakernel."""
-    policy = serving.BucketingPolicy()
-    svc = serving.QRService(policy=policy)
+    wave of tensors already on the card (an optimizer holds its momenta
+    there), after a warm-up wave: a 768^2 bucket of batch 64 on the
+    wavefront rung, a 768 x 192 one on the batched megakernel.  The same
+    payloads are then served once more from host memory, for the cost of
+    their upload."""
+    svc = serving.QRService(policy=serving.BucketingPolicy())
     esc0 = escalation_counts(metrics)
-    serve_waves(torch, svc, [wave_of(SMOLLM_MOMENTA, 2000)])
+
+    def on_card(seed):
+        wave = [torch.from_numpy(a).cuda()
+                for a in wave_of(SMOLLM_MOMENTA, seed)]
+        torch.cuda.synchronize()
+        return wave
+
+    serve_waves(torch, svc, [on_card(2000)])
     warm = svc.stats()["compiles"]
-    wave = wave_of(SMOLLM_MOMENTA, 2001)
-    chunks, expected = service_chunks(serving, engine, policy, wave,
-                                      "reduced")
+    wave = on_card(2001)
+    groups = bucket_groups(wave, SMOLLM_PAD)
     macro_ops.reset_launch_counts()
     results, secs = serve_waves(torch, svc, [wave])
     launches = launch_counts(macro_ops)
     for k, v in launches.items():
         service_launches[k] = service_launches.get(k, 0) + v
+    plans = plan_buckets(svc)
     checks = dict(
-        buckets={f"{key.m}x{key.n}": [len(part), batch, rung]
-                 for key, part, batch, _, _, _, rung in chunks},
-        rungs={f"{k.m}x{k.n}": r for k, _, r, _ in svc._plans},
-        padding_waste={f"{key.m}x{key.n}": 1.0 - sum(
-            a.size for _, a in part) / (batch * key.m * key.n)
-            for key, part, batch, *_ in chunks},
-        input_mb=sum(a.nbytes for a in wave) / 1e6,
+        buckets={f"{m}x{n}": [len(part)] + plans.get(f"{m}x{n}", [])
+                 for (m, n), part in groups.items()},
+        padding_waste={f"{m}x{n}": 1.0 - sum(
+            a.numel() for _, a in part) / (plans[f"{m}x{n}"][0] * m * n)
+            for (m, n), part in groups.items()},
+        input_mb=sum(a.numel() * a.element_size() for a in wave) / 1e6,
         plan_builds_after_warmup=svc.stats()["compiles"] - warm,
-        launches=launches, expected=expected,
+        launches=launches, expected=SMOLLM_LAUNCHES,
         bar_ratio=bar_ratio(torch, wave, results, "reduced"),
-        plain_ratio=plain_ratio(torch, tilegraph, chunks, results,
+        plain_ratio=plain_ratio(torch, tilegraph, groups, results,
                                 "reduced", limit=PLAIN_SLICES),
-        tf32_control_ratio=plain_ratio(torch, tilegraph, chunks, results,
+        tf32_control_ratio=plain_ratio(torch, tilegraph, groups, results,
                                        "reduced", limit=1, tf32=True),
         wave_ms=secs[0] * 1e3)
+    host = [a.cpu().numpy() for a in wave]
+    _, host_secs = serve_waves(torch, svc, [host])
+    checks["wave_ms_from_host"] = host_secs[0] * 1e3
     escalated = counter_delta(esc0, escalation_counts(metrics))
     log("service SmolLM momenta:", json.dumps(checks))
-    assert checks["buckets"] == {"768x768": [60, 64, "wavefront"],
-                                 "768x192": [60, 64, "megakernel"]}, checks
-    assert checks["rungs"] == {"768x768": "wavefront",
-                               "768x192": "megakernel"}, checks
+    assert checks["buckets"] == SMOLLM_BUCKETS, checks
     assert checks["plan_builds_after_warmup"] == 0, checks
-    assert launches == expected, checks
+    assert launches == SMOLLM_LAUNCHES, checks
     assert checks["bar_ratio"] <= 1 and checks["plain_ratio"] <= 1, checks
     assert checks["tf32_control_ratio"] > 1, ("TF32 control passed", checks)
     assert not escalated, ("escalations on healthy traffic", escalated)
@@ -2064,7 +2077,7 @@ def service_capture(torch, repro_torch, serving, observability):
     return out
 
 
-def phase_service(torch, engine, macro_ops, tilegraph, repro_torch):
+def phase_service(torch, macro_ops, tilegraph, repro_torch):
     """The QR service on the card (a)-(e); returns the results and the
     launches each kernel made on the service's paths ((a), its
     per-request baseline and (b))."""
@@ -2074,9 +2087,9 @@ def phase_service(torch, engine, macro_ops, tilegraph, repro_torch):
 
     service_launches = {}
     parts = (
-        ("mix", service_mix, (torch, engine, macro_ops, tilegraph, serving,
+        ("mix", service_mix, (torch, macro_ops, tilegraph, serving,
                               metrics, service_launches)),
-        ("smollm", service_smollm, (torch, engine, macro_ops, tilegraph,
+        ("smollm", service_smollm, (torch, macro_ops, tilegraph,
                                     serving, metrics, service_launches)),
         ("faults", service_faults, (torch, serving, metrics, inject)),
         ("verify", service_verify, (torch, repro_torch, metrics)),
@@ -2169,8 +2182,7 @@ def main() -> int:
     breakdown = phase("panel breakdown", phase_panel_breakdown, torch,
                       repro_torch, blocked)
     service, service_launches = phase("service", phase_service, torch,
-                                      engine, macro_ops, tilegraph,
-                                      repro_torch)
+                                      macro_ops, tilegraph, repro_torch)
     # Each panel-path kernel's device time summed over one call of each
     # traced path (the profiler's spans), beside launches x one launch.
     summed = {}

@@ -827,36 +827,24 @@ def run_levels(state: FactorState, levels: Optional[Iterable[int]] = None, *,
 
 def _check_dispatch(dtype: torch.dtype, p: int, q: int, nb: int,
                     use_kernel: bool, dispatch_mode: Optional[str],
-                    batched: bool = False) -> str:
+                    batched: bool = False, *, fault_site: bool = True) -> str:
     """Guards of the factor entry points; returns the lowering the kernel
     path runs.  Raises for an unknown dispatch mode, a dtype the kernels
-    do not take, a launch whose shared memory exceeds the budget, or a
-    forced megakernel whose table exceeds :data:`DEFAULT_TABLE_BUDGET`
-    (the auto rule never picks one).  ``batched`` names the stacked entry
-    point in the messages: its CTAs take the single launch's shared
-    memory, and its table is the single schedule's.  An armed ``vmem``
-    fault (:mod:`repro_torch.robustness.inject`) raises here, where a real
-    over-budget workspace does, with the reference's tag."""
-    _check_mode(dispatch_mode)
-    if _inject.enabled():
-        _inject.check("vmem", f"p{p}q{q}nb{nb}:{dispatch_mode}")
-    return _resolve_dispatch(dtype, p, q, nb, use_kernel, dispatch_mode,
-                             batched)
-
-
-def _check_mode(dispatch_mode: Optional[str]) -> None:
+    do not take, and (:class:`BudgetError`) a launch whose shared memory
+    exceeds the budget or a forced megakernel whose table exceeds
+    :data:`DEFAULT_TABLE_BUDGET` (the auto rule never picks one).
+    ``batched`` names the stacked entry point in the messages: its CTAs
+    take the single launch's shared memory, and its table is the single
+    schedule's.  With ``fault_site``, an armed ``vmem`` fault
+    (:mod:`repro_torch.robustness.inject`) raises here, where a real
+    over-budget workspace does, with the reference's tag; Q formation,
+    which resolves its factorization's lowering again, passes False."""
     if dispatch_mode not in (None,) + DISPATCH_MODES:
         raise ValueError(
             f"unknown dispatch_mode {dispatch_mode!r}; expected one of "
             f"{DISPATCH_MODES} or None (auto)")
-
-
-def _resolve_dispatch(dtype: torch.dtype, p: int, q: int, nb: int,
-                      use_kernel: bool, dispatch_mode: Optional[str],
-                      batched: bool = False) -> str:
-    """:func:`_check_dispatch` without the fault-harness site (Q formation
-    resolves its factorization's lowering again through it)."""
-    _check_mode(dispatch_mode)
+    if fault_site and _inject.enabled():
+        _inject.check("vmem", f"p{p}q{q}nb{nb}:{dispatch_mode}")
     if not use_kernel:
         return "wavefront"
     if dtype not in macro_ops.KERNEL_DTYPES:
@@ -870,6 +858,12 @@ def _resolve_dispatch(dtype: torch.dtype, p: int, q: int, nb: int,
     return mode
 
 
+class BudgetError(ValueError):
+    """A lowering's working set or task table is past its budget: a
+    planning verdict about the shape, not a failure of a kernel (the
+    service's plan build walks ``megakernel -> wavefront`` on it)."""
+
+
 def check_smem(nb: int, itemsize: int, mode: str = "wavefront",
                batched: bool = False) -> None:
     """Raise when the ``mode`` lowering's per-CTA shared memory at tile
@@ -878,7 +872,7 @@ def check_smem(nb: int, itemsize: int, mode: str = "wavefront",
             if mode == "megakernel" else
             macro_ops.engine_smem_bytes(nb, itemsize))
     if need > DEFAULT_SMEM_BUDGET:
-        raise ValueError(
+        raise BudgetError(
             f"tile ({nb},{nb}) exceeds the {'batched ' * batched}{mode} "
             f"shared-memory budget ({need} > {DEFAULT_SMEM_BUDGET} B at "
             f"itemsize {itemsize}); shrink the tile")
@@ -892,7 +886,7 @@ def check_table(p: int, q: int, batched: bool = False,
     fits, tbytes = (table_fits(p, q, DEFAULT_TABLE_BUDGET) if qe is None
                     else q_table_fits(p, q, qe, DEFAULT_TABLE_BUDGET))
     if not fits:
-        raise ValueError(
+        raise BudgetError(
             f"({p}, {q}) grid's {'batched ' * batched}megakernel "
             f"{'' if qe is None else f'Q ({qe} column tiles) '}task table "
             f"(>= {tbytes} bytes) exceeds the table budget "
@@ -909,18 +903,20 @@ def _check_workspace(tiles: torch.Tensor, shape: Tuple[int, ...]) -> None:
 
 
 def _emit_factor_metrics(tiles: torch.Tensor, p: int, q: int, nb: int,
-                         mode: str, use_kernel: bool, batch: int = 1) -> None:
+                         mode: str, use_kernel: bool, batch: int = 1,
+                         filled: Optional[int] = None) -> None:
     """Record one factor call in the ``engine.*`` metric series: calls,
     matrices, launches, tasks and the modeled and roofline tile traffic
     of the lowering that runs, and the task table's bytes on the
-    megakernel path.  The reference labels calls counted while tracing a
+    megakernel path.  Launches of the slice-by-slice lowering count the
+    ``filled`` slices it factors.  The reference labels calls counted while tracing a
     program ``phase="trace"``; the port runs no traced program, so every
     call counts as ``phase="execute"``."""
     phase = "execute"
     kernel = "cuda" if use_kernel else "plain"
     ndisp = 1 if (use_kernel and mode == "megakernel") else (
-        sum(len(b) for b in wavefront_task_arrays(p, q)) * batch
-        if use_kernel else 0)
+        sum(len(b) for b in wavefront_task_arrays(p, q))
+        * (batch if filled is None else filled) if use_kernel else 0)
     dma = modeled_dma_bytes(p, q, nb, tiles.element_size())
     dma_mode = dma[mode] if use_kernel and mode in dma else dma["wavefront"]
     _metrics.counter("engine.factor_calls", mode=mode, kernel=kernel,
@@ -970,13 +966,19 @@ def factor_tiles(tiles: torch.Tensor, *, p: int, q: int, nb: int,
 
 def factor_tiles_batched(tiles: torch.Tensor, *, p: int, q: int, nb: int,
                          use_kernel: bool = False,
-                         dispatch_mode: Optional[str] = None) -> FactorState:
+                         dispatch_mode: Optional[str] = None,
+                         filled: Optional[int] = None) -> FactorState:
     """Run the schedule over every slice of a stacked ``(B, p, q, nb, nb)``
     workspace, in place; each slice's state equals :func:`factor_tiles`
     on that slice.  The megakernel lowering is one launch of the batched
     megakernel for the whole stack; the wavefront and plain lowerings run
     the single path slice by slice.  ``B == 1`` runs the single path, as
-    the reference does."""
+    the reference does.
+
+    ``filled`` says the slices from it on are zero matrices (a padded
+    batch): a zero matrix factors to the zero state, so the slice-by-slice
+    lowerings leave those slices as :func:`init_state` made them; the
+    megakernel runs the whole stack in its one launch either way."""
     if tiles.ndim != 5 or tiles.shape[0] < 1:
         raise ValueError(f"expected a (B >= 1, {p}, {q}, {nb}, {nb}) "
                          f"stacked workspace, got {tuple(tiles.shape)}")
@@ -984,15 +986,19 @@ def factor_tiles_batched(tiles: torch.Tensor, *, p: int, q: int, nb: int,
     mode = _check_dispatch(tiles.dtype, p, q, nb, use_kernel, dispatch_mode,
                            batched=True)
     batch = int(tiles.shape[0])
-    _emit_factor_metrics(tiles, p, q, nb, mode, bool(use_kernel), batch)
+    filled = batch if filled is None else max(1, min(int(filled), batch))
+    _emit_factor_metrics(tiles, p, q, nb, mode, bool(use_kernel), batch,
+                         filled)
     with _trace.span("engine.factor_tiles_batched", mode=mode,
                      grid=f"{p}x{q}", nb=nb, batch=batch,
                      kernel=bool(use_kernel)) as sp:
-        return sp.sync(_factor_batched(tiles, p, q, nb, use_kernel, mode))
+        return sp.sync(_factor_batched(tiles, p, q, nb, use_kernel, mode,
+                                       filled))
 
 
 def _factor_batched(tiles: torch.Tensor, p: int, q: int, nb: int,
-                    use_kernel: bool, mode: str) -> FactorState:
+                    use_kernel: bool, mode: str,
+                    filled: Optional[int] = None) -> FactorState:
     batch = tiles.shape[0]
     if batch == 1:
         single = _factor_single(tiles[0], p, q, nb, use_kernel, mode)
@@ -1003,7 +1009,7 @@ def _factor_batched(tiles: torch.Tensor, p: int, q: int, nb: int,
             macro_ops.megakernel_batched(
                 state, *megakernel_table(p, q, tiles.device))
     else:
-        for b in range(batch):
+        for b in range(batch if filled is None else filled):
             run_levels(FactorState(*(x[b] for x in state)),
                        use_kernel=use_kernel)
     return state
@@ -1042,14 +1048,17 @@ def run_q_levels(state: FactorState, e: torch.Tensor,
 
 
 def form_q_tiles(state: FactorState, ncols: int, *,
-                 dispatch_mode: Optional[str] = None) -> torch.Tensor:
+                 dispatch_mode: Optional[str] = None,
+                 filled: Optional[int] = None) -> torch.Tensor:
     """Q's first ``ncols`` columns (a multiple of nb) from a factored
     state — ``(p, q, nb, nb)`` or a ``(B, p, q, nb, nb)`` stack — as a
     ``(*lead, p, ncols / nb, nb, nb)`` tile workspace, through the Q
     kernels, by the lowering the factorization ran (``dispatch_mode`` as
     given to it; :func:`resolve_q_dispatch_mode`): one megakernel launch
     over the Q table (one batched launch for a stack of more than one),
-    or per slice one launch per (level, kind).  On a CPU state the
+    or per slice one launch per (level, kind), over the first ``filled``
+    slices (the rest are zero states, whose Q is the workspace's
+    identity, as :func:`factor_tiles_batched` says).  On a CPU state the
     wrappers run their plain versions task by task; the plain lowering of
     ``tilegraph._form_q_tiled`` is the reference they are held against."""
     tiles = state.tiles
@@ -1060,8 +1069,8 @@ def form_q_tiles(state: FactorState, ncols: int, *,
                          f"...), got ncols={ncols}, {tuple(tiles.shape)}")
     qe = ncols // nb
     batch = lead[0] if lead else 1
-    mode = _resolve_dispatch(tiles.dtype, p, q, nb, True, dispatch_mode,
-                             batched=batch > 1)
+    mode = _check_dispatch(tiles.dtype, p, q, nb, True, dispatch_mode,
+                           batched=batch > 1, fault_site=False)
     mode = resolve_q_dispatch_mode(p, q, qe, mode,
                                    forced=dispatch_mode == "megakernel")
     e = q_workspace(tuple(lead), p, qe, nb, tiles.dtype, tiles.device)
@@ -1079,6 +1088,6 @@ def form_q_tiles(state: FactorState, ncols: int, *,
         return e
     if not lead:
         return run_q_levels(state, e)
-    for b in range(batch):
+    for b in range(batch if filled is None else filled):
         run_q_levels(FactorState(*(x[b] for x in state)), e[b])
     return e

@@ -176,18 +176,21 @@ def _form_q_tiled(f: engine.FactorState, ncols: int) -> torch.Tensor:
 
 def _factor_stack_padded(a_pad: torch.Tensor, *, p: int, q: int, nb: int,
                          mode: str, use_kernel: bool = False,
-                         dispatch_mode: str = None):
+                         dispatch_mode: str = None, filled: int = None):
     """Factor a tile-aligned ``(B, p*nb, q*nb)`` stack through one
     :func:`engine.factor_tiles_batched` call and return the full padded
     factors: ``(r_full,)`` for mode "r", else ``(q_full, r_full)``, both
     with the batch leading.  Q forms through :func:`engine.form_q_tiles`
     (the Q kernels, by the factorization's lowering) on the kernel path,
-    through :func:`_form_q_tiled` on the plain one."""
+    through :func:`_form_q_tiled` on the plain one.  ``filled``: the
+    slices from it on are zero matrices (a padded batch), which the
+    slice-by-slice lowerings skip (:func:`engine.factor_tiles_batched`)."""
     if mode not in ("reduced", "r", "full"):
         raise ValueError(f"unknown mode {mode!r}")
     f = engine.factor_tiles_batched(_split_tiles(a_pad, p, q, nb), p=p, q=q,
                                     nb=nb, use_kernel=use_kernel,
-                                    dispatch_mode=dispatch_mode)
+                                    dispatch_mode=dispatch_mode,
+                                    filled=filled)
     r_full = torch.triu(_join_tiles(f.tiles))
     if mode == "r":
         return (r_full,)
@@ -195,7 +198,8 @@ def _factor_stack_padded(a_pad: torch.Tensor, *, p: int, q: int, nb: int,
     if not use_kernel:
         return _form_q_tiled(f, ncols), r_full
     # Q through the Q kernels, by the lowering the factorization ran.
-    e = engine.form_q_tiles(f, ncols, dispatch_mode=dispatch_mode)
+    e = engine.form_q_tiles(f, ncols, dispatch_mode=dispatch_mode,
+                            filled=filled)
     return _join_tiles(e), r_full
 
 

@@ -24,11 +24,25 @@ The rung names are the reference's, so counter labels compare equal.
 The ladder is strictly monotone — a request never climbs back up — and
 deterministic: the same failure on the same input takes the same hops.
 
-One rule is the port's own: a failure to *build* the kernel library
-(:class:`repro_torch.kernels._build.BuildError`) is re-raised, never
-escalated.  A missing toolchain must not quietly turn every request into
-a plain-PyTorch solve.  Launch failures, budget rejections and health
-check failures escalate as in the reference.
+Two rules are the port's own, so that a fault of a hand-written kernel
+is never served by the plain lowering or by the library:
+
+  * a failure to *build* the kernel library
+    (:class:`repro_torch.kernels._build.BuildError`) is re-raised, never
+    escalated — a missing toolchain must not quietly turn every request
+    into a plain-PyTorch solve;
+  * on a kernel rung (:data:`KERNEL_RUNGS`, or a planned ``qr()`` whose
+    config runs the kernels) only an injected fault walks the ladder —
+    an :class:`~repro_torch.robustness.inject.InjectedFault`, or a health
+    check failure of an output the ``output`` site corrupted — and a
+    budget rejection (:class:`repro_torch.core.engine.BudgetError`) moves
+    ``megakernel -> wavefront``, from one kernel rung to the other.  A
+    real launch error or a health check failure of a kernel's own output
+    raises :class:`KernelFault` (or the error itself).  The reference's
+    hops stay testable through :mod:`repro_torch.robustness.inject`.
+
+Below the kernel rungs (``oracle``, ``lapack``) every failure escalates
+as in the reference.
 
 :class:`~repro_torch.serving.QRService` drives the ladder at bucket
 granularity (with a per-bucket circuit breaker); :func:`checked_solve`
@@ -52,6 +66,8 @@ from repro_torch.robustness import verify as _verify
 __all__ = [
     "Escalation",
     "EscalationExhausted",
+    "KERNEL_RUNGS",
+    "KernelFault",
     "LADDER",
     "checked_solve",
     "classify",
@@ -67,6 +83,9 @@ __all__ = [
 #: the plain-lowering serving path starts at "oracle".
 LADDER: Tuple[str, ...] = ("megakernel", "wavefront", "oracle", "lapack")
 
+#: The rungs that run the hand-written kernels.
+KERNEL_RUNGS: Tuple[str, ...] = LADDER[:2]
+
 
 @dataclasses.dataclass(frozen=True)
 class Escalation:
@@ -76,12 +95,15 @@ class Escalation:
             "health_check_failed", "breaker_open", "injected_compile",
             ...) — the low-cardinality counter label
     reason: the concrete arithmetic/exception text behind the hop
+    injected: the hop was caused by an armed fault (the fault harness),
+            not by the realization itself
     """
 
     rung_from: str
     rung_to: str
     rule: str
     reason: str = ""
+    injected: bool = False
 
 
 class EscalationExhausted(RuntimeError):
@@ -92,10 +114,53 @@ class EscalationExhausted(RuntimeError):
         super().__init__(msg)
 
 
-def escalates(exc: BaseException) -> bool:
-    """May the ladder degrade past ``exc``?  Everything but a failed
-    kernel-library build."""
-    return not isinstance(exc, BuildError)
+class KernelFault(RuntimeError):
+    """A kernel rung's own output failed its health check (or a bucket on
+    the kernel path kept failing): raised, never served by a rung below
+    the kernels."""
+
+
+def escalates(exc: BaseException, *, kernel: bool = False,
+              to_kernel: bool = False) -> bool:
+    """May the ladder degrade past ``exc``, raised on a kernel rung
+    (``kernel``) towards a kernel rung (``to_kernel``) or not?  Never past
+    a failed kernel-library build.  From a kernel rung only past an
+    injected fault, or past a budget rejection that moves to the other
+    kernel rung.  Below the kernel rungs past everything else."""
+    if isinstance(exc, BuildError):
+        return False
+    if not kernel or isinstance(exc, _inject.InjectedFault):
+        return True
+    from repro_torch.core.engine import BudgetError
+
+    return to_kernel and isinstance(exc, BudgetError)
+
+
+def refuse_health_failure(kernel: bool, injected: bool, what: str) -> None:
+    """Raise :class:`KernelFault` for a health check failure that may not
+    walk the ladder: one of a kernel rung's own (not injected) output."""
+    if kernel and not injected:
+        raise KernelFault(f"a kernel's output failed its health check: "
+                          f"{what}")
+
+
+def output_corrupted(out, hit, index: Optional[int] = None) -> bool:
+    """Did the ``output`` fault site corrupt ``out`` into ``hit`` (slice
+    ``index`` of every factor, when given)?  ``hit is out`` when no fault
+    fired: :func:`repro_torch.robustness.inject.corrupt_output` copies
+    what it corrupts."""
+    if hit is out:
+        return False
+    xs = out if isinstance(out, (tuple, list)) else (out,)
+    ys = hit if isinstance(hit, (tuple, list)) else (hit,)
+    for x, y in zip(xs, ys):
+        if x is None or x is y:
+            continue
+        if index is not None:
+            x, y = x[index], y[index]
+        if not bool(((x == y) | (x.isnan() & y.isnan())).all()):
+            return True
+    return False
 
 
 def classify(exc: BaseException, stage: str) -> str:
@@ -108,14 +173,14 @@ def classify(exc: BaseException, stage: str) -> str:
 
 
 def record(rung_from: str, rung_to: str, rule: str,
-           reason: str = "") -> Escalation:
+           reason: str = "", injected: bool = False) -> Escalation:
     """Emit the ``robustness.escalations{from, to, reason}`` counter and
     return the hop record."""
     _metrics.counter("robustness.escalations",
                      **{"from": rung_from, "to": rung_to,
                         "reason": rule}).inc()
     return Escalation(rung_from=rung_from, rung_to=rung_to, rule=rule,
-                      reason=reason)
+                      reason=reason, injected=injected)
 
 
 def ladder_below(rung: str) -> Tuple[str, ...]:
@@ -196,8 +261,9 @@ def solve_below(a, *, mode: str = "reduced", start: str = "oracle",
         except Exception as e:  # noqa: BLE001 — every rung failure degrades
             if not escalates(e):
                 raise
-            escalations.append(record(prev, _next(rungs, i),
-                                      classify(e, "dispatch"), str(e)))
+            escalations.append(record(
+                prev, _next(rungs, i), classify(e, "dispatch"), str(e),
+                injected=isinstance(e, _inject.InjectedFault)))
             prev = rung
             continue
         if verify:
@@ -241,38 +307,50 @@ def checked_solve(solver, a: torch.Tensor):
     :func:`repro_torch.core.api.qr` calls ``solver.solve`` directly, so
     disabling verification leaves the solve exactly as it was.  A stack
     (``a.ndim > 2``) is checked slice by slice and only the failed slices
-    re-solve."""
+    re-solve.  When the plan runs the kernels, only injected faults walk
+    the ladder (see the module doc): a real failure raises."""
     mode = solver.config.mode
+    kernel = bool(solver.config.use_kernel)
     tag = f"qr:{'x'.join(str(d) for d in a.shape)}"
     try:
         out = _run_rung("planned", lambda: solver.solve(a), tag)
     except Exception as e:  # noqa: BLE001
-        if not escalates(e):
+        if not escalates(e, kernel=kernel):
             raise
-        record("planned", "oracle", classify(e, "dispatch"), str(e))
+        record("planned", "oracle", classify(e, "dispatch"), str(e),
+               injected=isinstance(e, _inject.InjectedFault))
         q, r, _, _ = solve_below(a, mode=mode, start="planned", tag=tag)
         return r if mode == "r" else (q, r)
-    out = _inject.corrupt_output(out, tag)
-    q, r = (None, out) if mode == "r" else out
+    hit = _inject.corrupt_output(out, tag)
+    q, r = (None, hit) if mode == "r" else hit
     if a.ndim == 2:
         rep = _health(a, q, r, mode)
         if rep.ok:
-            return out
-        record("planned", "oracle", "health_check_failed", rep.reason or "")
+            return hit
+        injected = output_corrupted(out, hit)
+        refuse_health_failure(kernel, injected, f"{tag}: {rep.reason}")
+        record("planned", "oracle", "health_check_failed", rep.reason or "",
+               injected=injected)
         q, r, _, _ = solve_below(a, mode=mode, start="planned",
                                  verify=True, tag=tag)
         return r if mode == "r" else (q, r)
     # A stack: verify slice by slice over the flattened leading dims.
     lead, (m, n) = tuple(a.shape[:-2]), tuple(a.shape[-2:])
-    a3 = a.reshape((-1, m, n))
-    r3 = r.reshape((-1,) + tuple(r.shape[-2:]))
-    q3 = None if q is None else q.reshape((-1,) + tuple(q.shape[-2:]))
+    flat = (lambda x: None if x is None
+            else x.reshape((-1,) + tuple(x.shape[-2:])))
+    a3, r3, q3 = flat(a), flat(r), flat(q)
     reports = _verify.check_batch(a3, q3, r3)
     bad = [i for i, rp in enumerate(reports) if not rp.ok]
     if not bad:
-        return out
+        return hit
+    out3 = ((flat(out),) if mode == "r" else tuple(map(flat, out)))
+    hit3 = ((r3,) if mode == "r" else (q3, r3))
+    injected = hit is not out and all(
+        output_corrupted(out3, hit3, i) for i in bad)
+    refuse_health_failure(kernel, injected,
+                          f"{tag} slices {bad}: {reports[bad[0]].reason}")
     record("planned", "oracle", "health_check_failed",
-           f"slices {bad}: {reports[bad[0]].reason}")
+           f"slices {bad}: {reports[bad[0]].reason}", injected=injected)
     r3 = r3.clone()
     q3 = None if q3 is None else q3.clone()
     for i in bad:

@@ -1,8 +1,8 @@
 """Input admission: reject a bad request BEFORE it contaminates a bucket.
 
-Counterpart of the reference's ``repro.robustness.guards``, copied: it
-works on host (numpy) payloads, where the service holds a request until it
-stages the request's bucket.
+Counterpart of the reference's ``repro.robustness.guards``: it works on
+host (numpy) payloads and on tensors, on the tensor's own device (a
+request already on the card is scanned there, not copied to the host).
 
 The serving layer stacks heterogeneous requests into one padded batch
 and factors the stack in one dispatch — which means a single NaN
@@ -10,7 +10,7 @@ payload poisons every request sharing its bucket (the megakernel's
 macro-ops propagate non-finite values across the whole workspace, and
 a batched slice is bitwise the single run, so it reproduces the garbage).
 Admission moves the failure to the cheapest possible point: an O(mn)
-host-side scan at ``QRService.submit``, quarantining the offender with
+scan at ``QRService.submit``, quarantining the offender with
 a named reason while its bucket-mates proceed untouched.
 
     from repro_torch.robustness import guards
@@ -37,9 +37,11 @@ service surfaces per request and counts under
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import numpy as np
+import torch
 
 __all__ = ["AdmissionError", "AdmissionPolicy", "admit",
            "estimate_condition"]
@@ -77,27 +79,33 @@ def estimate_condition(a: np.ndarray) -> float:
     return float(s[0] / s[-1])
 
 
-def admit(a: np.ndarray, *, policy: Optional[AdmissionPolicy] = None) -> None:
-    """Admission check; raises :class:`AdmissionError` with a named
-    reason, returns None on acceptance.  Order: cheap structural checks
-    first, the O(mn) finite scan next, the opt-in SVD guard last."""
+def admit(a, *, policy: Optional[AdmissionPolicy] = None) -> None:
+    """Admission check of an array or a tensor; raises
+    :class:`AdmissionError` with a named reason, returns None on
+    acceptance.  Order: cheap structural checks first, the O(mn) finite
+    scan next (on a tensor's own device), the opt-in SVD guard last (on
+    the host)."""
     policy = DEFAULT_ADMISSION if policy is None else policy
-    arr = np.asarray(a)
+    tensor = isinstance(a, torch.Tensor)
+    arr = a.detach() if tensor else np.asarray(a)
+    shape = tuple(arr.shape)
     if arr.ndim != 2:
         raise AdmissionError("bad_ndim",
-                             f"expected a matrix, got shape {arr.shape}")
-    if policy.require_float and arr.dtype.kind != "f":
+                             f"expected a matrix, got shape {shape}")
+    if policy.require_float and not (
+            arr.is_floating_point() if tensor else arr.dtype.kind == "f"):
         raise AdmissionError(
             "non_float_dtype",
             f"expected a real floating dtype, got {arr.dtype}")
-    if policy.require_finite and arr.size \
-            and not bool(np.isfinite(arr).all()):
-        bad = int(arr.size - np.isfinite(arr).sum())
-        raise AdmissionError(
-            "nonfinite_input",
-            f"{bad} non-finite element(s) in a {arr.shape} payload")
-    if policy.max_cond is not None and min(arr.shape) > 0:
-        cond = estimate_condition(arr)
+    if policy.require_finite and math.prod(shape):
+        finite = torch.isfinite(arr) if tensor else np.isfinite(arr)
+        if not bool(finite.all()):
+            bad = int((~finite).sum())
+            raise AdmissionError(
+                "nonfinite_input",
+                f"{bad} non-finite element(s) in a {shape} payload")
+    if policy.max_cond is not None and min(shape) > 0:
+        cond = estimate_condition(arr.cpu().numpy() if tensor else arr)
         if cond > policy.max_cond:
             raise AdmissionError(
                 "ill_conditioned",

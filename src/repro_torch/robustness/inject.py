@@ -181,22 +181,32 @@ def _payload(kind: str) -> float:
     return float("inf") if kind == "inf" else float("nan")
 
 
-def poison(a: np.ndarray, *, kind: str = "nan", frac: float = 0.05,
-           seed: int = 0) -> np.ndarray:
-    """Seeded copy of ``a`` with ``max(1, frac * size)`` elements set to
-    NaN/Inf — the pure helper chaos tests use to build poisoned requests
-    (same seed => same poisoned positions, the reference's positions)."""
-    out = np.array(a, copy=True)
-    flat = out.reshape(-1)
-    n = max(1, int(frac * flat.size))
-    idx = np.random.default_rng(seed).choice(flat.size, size=n,
-                                             replace=False)
+def poison(a, *, kind: str = "nan", frac: float = 0.05, seed: int = 0):
+    """Seeded copy of ``a`` (an array, or a tensor on any device) with
+    ``max(1, frac * size)`` elements set to NaN/Inf — the pure helper
+    chaos tests use to build poisoned requests (same seed => same
+    poisoned positions, the reference's positions, in row-major order)."""
+    if isinstance(a, torch.Tensor):
+        out = a.detach().clone(memory_format=torch.contiguous_format)
+        flat = out.view(-1)
+        idx = torch.as_tensor(_poison_index(flat.numel(), frac, seed),
+                              device=out.device)
+    else:
+        out = np.array(a, copy=True)
+        flat = out.reshape(-1)
+        idx = _poison_index(flat.size, frac, seed)
     flat[idx] = _payload(kind)
     return out
 
 
-def corrupt_input(a: np.ndarray, tag: str) -> np.ndarray:
-    """``input`` site hook: poison a submitted matrix pre-admission."""
+def _poison_index(size: int, frac: float, seed: int) -> np.ndarray:
+    n = max(1, int(frac * size))
+    return np.random.default_rng(seed).choice(size, size=n, replace=False)
+
+
+def corrupt_input(a, tag: str):
+    """``input`` site hook: poison a submitted matrix (an array or a
+    tensor) pre-admission."""
     if not _FAULTS:
         return a
     f = _match("input", tag)

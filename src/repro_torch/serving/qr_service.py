@@ -18,17 +18,22 @@ The pipeline per :meth:`QRService.flush`:
     i+1's pinned host buffer to the card on a side stream while bucket i
     computes -> wait + health check -> unpad + scatter results back
 
+A request that is already a tensor on the service's device stays there:
+admission scans it on the device, and its bucket's padded stack takes it
+by a device-to-device copy; only host arrays go through the pinned
+staging buffer.
+
 **Prepared-plan cache.**  The port compiles no executables (its kernels
 are built once per process); what a bucket's dispatch needs prepared is
 kept in an LRU of :class:`_BucketPlan` keyed on ``(BucketKey,
 padded_batch, rung, tuning fingerprint)``: the rung, the tile grid, the
 device-resident task tables, level indices and CTA runs (uploaded
 through :func:`repro_torch.core.engine.prepare_dispatch`), and a pinned
-host staging buffer.  Building one is the only site that counts
-``compiles`` and the only site of the ``compile`` fault; it runs the
-engine's dispatch guards for its rung, so a budget (``vmem``) rejection
-walks ``megakernel -> wavefront`` at plan time, as the reference's does
-at compile time.  A steady-state stream (warmed cache) builds nothing and
+host staging buffer (made on the first host array staged).  Building one
+is the only site that counts ``compiles`` and the only site of the
+``compile`` fault; it runs the engine's dispatch guards for its rung, so
+a budget (``vmem``) rejection walks ``megakernel -> wavefront`` at plan
+time, as the reference's does at compile time.  A steady-state stream (warmed cache) builds nothing and
 uploads nothing but its requests.  The tuning fingerprint is a constant
 until the tuning cache is ported (:func:`_tuning_fingerprint`); the
 reference also drops every plan and resets the breakers when it
@@ -50,8 +55,15 @@ defense, each named and counted:
     (:mod:`repro_torch.robustness.escalate`), recording
     ``robustness.escalations{from, to, reason}``.  A bucket that
     escalates ``breaker_threshold`` times trips its **circuit breaker**:
-    its plans are evicted and the bucket pins to the lapack fallback.  A
-    failed kernel-library build is not escalated: it raises.
+    its plans are evicted and the bucket pins to the lapack fallback.
+    On the kernel rungs only injected faults walk the ladder, and a
+    budget rejection moves megakernel -> wavefront at plan time (which
+    does not count towards the breaker): a real launch error, a kernel's
+    own output failing its health check, and a failed kernel-library
+    build raise, and a breaker that would pin a kernel-path bucket after
+    a real failure raises :class:`~repro_torch.robustness.escalate.
+    KernelFault` instead.  A kernel's fault is never served by the plain
+    lowering or by ``torch.linalg.qr``.
 
 Flush is failure-atomic: if an exception does escape (escalation
 disabled, or a non-recoverable error), every request that has not been
@@ -71,7 +83,7 @@ import collections
 import dataclasses
 import itertools
 import time
-from typing import Dict, List, Optional, Sequence, Set, Tuple
+from typing import Dict, List, Optional, Sequence, Set, Tuple, Union
 
 import numpy as np
 import torch
@@ -98,20 +110,22 @@ _SERVICE_IDS = itertools.count()
 
 @dataclasses.dataclass(frozen=True)
 class QRRequest:
-    """One queued factorization: the host payload plus its bucket
-    identity."""
+    """One queued factorization: the payload (a host array, or a tensor on
+    the service's device) plus its bucket identity."""
 
     rid: int
-    a: np.ndarray
+    a: Union[np.ndarray, torch.Tensor]
     mode: str
     t_submit: float = 0.0      # monotonic clock at submit (queue-wait base)
 
     @property
     def shape(self) -> Tuple[int, int]:
-        return self.a.shape  # type: ignore[return-value]
+        return tuple(self.a.shape)  # type: ignore[return-value]
 
     @property
-    def dtype(self):
+    def dtype(self) -> np.dtype:
+        if isinstance(self.a, torch.Tensor):
+            return torch.empty(0, dtype=self.a.dtype).numpy().dtype
         return self.a.dtype
 
 
@@ -152,7 +166,10 @@ class _BucketPlan:
     nb: int
     dispatch_mode: Optional[str]
     rung: str                  # ladder rung this plan executes at
-    staging: torch.Tensor      # (batch, m, n) host buffer, pinned for a card
+    dtype: torch.dtype
+    # (batch, m, n) host buffer, pinned for a card; made when the first
+    # host array is staged (a stream of device tensors never needs one).
+    staging: Optional[torch.Tensor] = None
     copied: Optional[torch.cuda.Event] = None  # last copy out of staging
 
 
@@ -203,6 +220,8 @@ class QRService:
             raise ValueError(
                 f"breaker_threshold must be >= 1, got {breaker_threshold}")
         self.device = resolve_device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
         self.policy = BucketingPolicy() if policy is None else policy
         self.use_kernel = (self.device.type == "cuda"
                            if use_kernel is None else bool(use_kernel))
@@ -217,6 +236,7 @@ class QRService:
         self._pending: List[QRRequest] = []
         self._quarantined: Dict[int, str] = {}    # rid -> named reason
         self._esc_counts: Dict[BucketKey, int] = {}
+        self._real_esc: Set[BucketKey] = set()   # counted a real failure
         self._breaker_open: Set[BucketKey] = set()
         self.escalations: List[_escalate.Escalation] = []
         self._next_rid = 0
@@ -245,18 +265,23 @@ class QRService:
 
     def submit(self, a, mode: str = "reduced") -> int:
         """Queue one matrix; returns the request id :meth:`flush` keys
-        results on.  The payload is copied to host memory at submit time
-        (a tensor on a card too): the service stages it to the card with
-        its bucket.
+        results on.  A tensor on the service's device is queued as it is,
+        without a copy — do not write to it before the flush — and its
+        bucket takes it by a device-to-device copy; anything else is held
+        in host memory and staged to the device with its bucket.
 
         Admission runs here — a payload the guard rejects is
         quarantined (``flush()`` returns an error-carrying
         :class:`QRResult` for it) rather than stacked into a bucket
         where its NaNs would contaminate every bucket-mate."""
-        arr = (a.detach().cpu().numpy() if isinstance(a, torch.Tensor)
-               else np.asarray(a))
+        if isinstance(a, torch.Tensor):
+            arr = (a.detach() if a.device == self.device
+                   else a.detach().cpu().numpy())
+        else:
+            arr = np.asarray(a)
         if arr.ndim != 2:
-            raise ValueError(f"expected one matrix, got shape {arr.shape}")
+            raise ValueError(
+                f"expected one matrix, got shape {tuple(arr.shape)}")
         if mode not in ("reduced", "r"):
             raise ValueError(
                 f"serving modes are 'reduced' and 'r', got {mode!r}")
@@ -328,9 +353,10 @@ class QRService:
         """Prepare one bucket dispatch at ``rung``: the engine's dispatch
         guards for the rung (budgets, the ``vmem`` fault site), the
         kernel library, the device-resident tables of its lowering and
-        of Q formation, and the pinned staging buffer.  The ONLY site
-        that counts ``compiles`` — which is what makes the steady-state
-        zero-rebuild claim testable."""
+        of Q formation (the pinned staging buffer follows on the first
+        host array staged).  The ONLY site that counts ``compiles`` —
+        which is what makes the steady-state zero-rebuild claim
+        testable."""
         _inject.check("compile", f"{key.m}x{key.n}:{rung}")
         use_kernel = rung in engine.DISPATCH_MODES
         dispatch_mode = rung if use_kernel else None
@@ -345,13 +371,11 @@ class QRService:
             engine.prepare_dispatch(
                 p, q, nb, dtype, self.device, mode, batch,
                 qe=None if key.mode == "r" else min(p, q))
-        staging = torch.zeros((batch, key.m, key.n), dtype=dtype,
-                              pin_memory=self.device.type == "cuda")
         self._count("compiles")
         self._observe("compile_seconds", time.monotonic() - t0)
         return _BucketPlan(key=key, batch=batch, grid=(p, q), nb=nb,
                            dispatch_mode=dispatch_mode, rung=rung,
-                           staging=staging)
+                           dtype=dtype)
 
     def _plan_with_escalation(
             self, key: BucketKey, batch: int
@@ -366,13 +390,16 @@ class QRService:
         while True:
             try:
                 return self._plan_for(key, batch, rung=rung), rung
-            except Exception as e:  # noqa: BLE001 — every rung failure degrades
-                if not (self.escalate and _escalate.escalates(e)):
-                    raise
+            except Exception as e:  # noqa: BLE001 — the ladder decides
                 below = _escalate.ladder_below(rung)
                 nxt = below[0] if below else "lapack"
+                if not (self.escalate and _escalate.escalates(
+                        e, kernel=rung in _escalate.KERNEL_RUNGS,
+                        to_kernel=nxt in _escalate.KERNEL_RUNGS)):
+                    raise
                 self._record_escalation(key, _escalate.record(
-                    rung, nxt, _escalate.classify(e, "compile"), str(e)))
+                    rung, nxt, _escalate.classify(e, "compile"), str(e),
+                    injected=isinstance(e, _inject.InjectedFault)))
                 if nxt == "lapack":
                     return None, "lapack"
                 rung = nxt
@@ -381,12 +408,30 @@ class QRService:
 
     def _record_escalation(self, key: BucketKey,
                            esc: _escalate.Escalation) -> None:
+        """Keep and count one hop; a hop counts towards the bucket's
+        breaker unless it is a budget rejection between the kernel rungs
+        (the only real hop between them: a planning verdict, not a
+        failure).  A breaker that would pin a kernel-path bucket after a
+        real failure raises instead."""
         self.escalations.append(esc)
         del self.escalations[:-200]            # bounded history
         self._count("escalations")
+        if (esc.rung_from in _escalate.KERNEL_RUNGS
+                and esc.rung_to in _escalate.KERNEL_RUNGS
+                and not esc.injected):
+            return
         self._esc_counts[key] = self._esc_counts.get(key, 0) + 1
+        if not esc.injected:
+            self._real_esc.add(key)
         if (self._esc_counts[key] >= self.breaker_threshold
                 and key not in self._breaker_open):
+            if self.use_kernel and key in self._real_esc:
+                raise _escalate.KernelFault(
+                    f"bucket {key.m}x{key.n} escalated "
+                    f"{self._esc_counts[key]} times on the kernel path, "
+                    f"not all of them injected (last: {esc.rule}: "
+                    f"{esc.reason}); a kernel-path bucket is not pinned to "
+                    f"torch.linalg.qr on a real failure")
             self._breaker_open.add(key)
             self._count("breaker_trips")
             _metrics.counter("robustness.breaker_open",
@@ -446,50 +491,75 @@ class QRService:
                 out.append((key, rs[i:i + self.policy.max_batch]))
         return out
 
-    def _stage(self, plan: _BucketPlan, chunk: List[QRRequest]
-               ) -> Tuple[torch.Tensor, Optional[torch.cuda.Event]]:
-        """Zero-pad and stack one chunk into its plan's staging buffer,
-        then start its copy to the device: on a card a ``non_blocking``
-        copy on the side stream, whose event the dispatch waits on.
-        Unfilled batch slots stay zero — a zero matrix factors to zero
-        reflectors, so padding slots are compute waste only, priced by
-        the fill-ratio stat, never a correctness risk."""
+    def _stage(self, plan: _BucketPlan, chunk: List[QRRequest]):
+        """Zero-pad and stack one chunk's host arrays into its plan's
+        staging buffer, then start their copy to the device: on a card a
+        ``non_blocking`` copy on the side stream, whose event the dispatch
+        waits on.  Returns ``(staged, event, on_device)``: ``on_device``
+        lists the chunk's ``(slot, request)`` pairs that are already
+        tensors on the device, whose slots stay zero here and which the
+        dispatch copies in; a chunk of device tensors alone uploads
+        nothing (``staged`` None).  Unfilled batch slots stay zero — a
+        zero matrix factors to zero reflectors, so padding slots are
+        compute waste only, priced by the fill-ratio stat, never a
+        correctness risk."""
+        on_device = [(s, req) for s, req in enumerate(chunk)
+                     if isinstance(req.a, torch.Tensor)]
+        if len(on_device) == len(chunk):
+            return None, None, on_device
+        if plan.staging is None:
+            plan.staging = torch.zeros(
+                (plan.batch, plan.key.m, plan.key.n), dtype=plan.dtype,
+                pin_memory=self.device.type == "cuda")
         buf = plan.staging
         if plan.copied is not None:
             plan.copied.synchronize()   # the buffer's last copy has landed
         for s, req in enumerate(chunk):
+            if isinstance(req.a, torch.Tensor):
+                buf[s] = 0
+                continue
             m, n = req.shape
             buf[s, :m, :n] = torch.from_numpy(req.a)
             buf[s, m:] = 0
             buf[s, :m, n:] = 0
         buf[len(chunk):] = 0
         if self._copy_stream is None:
-            return buf.clone(), None
+            return buf.clone(), None, on_device
         with torch.cuda.stream(self._copy_stream):
             staged = buf.to(self.device, non_blocking=True)
             done = torch.cuda.Event()
             done.record(self._copy_stream)
         plan.copied = done
-        return staged, done
+        return staged, done, on_device
 
-    def _dispatch(self, plan: _BucketPlan, key: BucketKey,
-                  staged: torch.Tensor, copied: Optional[torch.cuda.Event],
-                  keep_input: bool):
+    def _dispatch(self, plan: _BucketPlan, key: BucketKey, staged,
+                  keep_input: bool, filled: int):
         """The bucket's one engine call on the compute stream (after its
-        copy): the full padded factors, ``(r,)`` or ``(q, r)``, an event
-        recorded after them (None on the CPU), and, with ``keep_input``, a
-        copy of the padded stack for the health check (the engine may
-        factor ``staged`` in place)."""
+        copy, and the device-to-device copies of its requests already on
+        the device): the full padded factors, ``(r,)`` or ``(q, r)``, an
+        event recorded after them (None on the CPU), and, with
+        ``keep_input``, a copy of the padded stack for the health check
+        (the engine may factor the stack in place).  The ``filled`` first
+        slots hold requests; the slice-by-slice lowerings skip the
+        rest."""
+        stack, copied, on_device = staged
         compute = None
-        if copied is not None:
+        if self.device.type == "cuda":
             compute = torch.cuda.current_stream(self.device)
+        if copied is not None:
             compute.wait_event(copied)
-            staged.record_stream(compute)
-        a_stack = staged.clone() if keep_input else None
+            stack.record_stream(compute)
+        if stack is None:
+            stack = torch.zeros((plan.batch, key.m, key.n),
+                                dtype=plan.dtype, device=self.device)
+        for s, req in on_device:
+            m, n = req.shape
+            stack[s, :m, :n].copy_(req.a)
+        a_stack = stack.clone() if keep_input else None
         out = _factor_stack_padded(
-            staged, p=plan.grid[0], q=plan.grid[1], nb=plan.nb,
+            stack, p=plan.grid[0], q=plan.grid[1], nb=plan.nb,
             mode=key.mode, use_kernel=plan.rung in engine.DISPATCH_MODES,
-            dispatch_mode=plan.dispatch_mode)
+            dispatch_mode=plan.dispatch_mode, filled=filled)
         if compute is None:
             return out, None, a_stack
         done = torch.cuda.Event()
@@ -547,22 +617,24 @@ class QRService:
             with _trace.span("serving.dispatch", service=self._sid,
                              bucket=f"{key.m}x{key.n}", batch=plan.batch,
                              fill=len(chunk), rung=rung):
-                stack, copied = staged.pop(i)
                 try:
                     _inject.sleep(tag)
                     _inject.check("dispatch", tag)
                     out, done, a_stack = self._dispatch(
-                        plan, key, stack, copied, keep_input=verify_on)
+                        plan, key, staged.pop(i), keep_input=verify_on,
+                        filled=len(chunk))
                     outs[i] = (_inject.corrupt_output(out, tag), done,
-                               a_stack)
-                except Exception as e:  # noqa: BLE001
-                    if not (self.escalate and _escalate.escalates(e)):
+                               a_stack, out)
+                except Exception as e:  # noqa: BLE001 — the ladder decides
+                    if not (self.escalate and _escalate.escalates(
+                            e, kernel=rung in _escalate.KERNEL_RUNGS)):
                         raise
                     # Dispatch raised before results existed: the whole
                     # chunk recovers per request below this rung.
                     self._record_escalation(key, _escalate.record(
                         rung, "per-request", _escalate.classify(
-                            e, "dispatch"), str(e)))
+                            e, "dispatch"), str(e),
+                        injected=isinstance(e, _inject.InjectedFault)))
                     for req in chunk:
                         results[req.rid] = self._recover_request(
                             req, key, rung)
@@ -592,24 +664,27 @@ class QRService:
                     self._count("dispatches")
                     self._count("matrices_served", len(chunk))
                     continue
-                out, done, a_stack = outs[i]
+                out, done, a_stack, clean = outs[i]
                 try:
                     sp.sync(out)
                     if done is not None:
                         done.synchronize()
                 except Exception as e:  # noqa: BLE001 — deferred runtime error
-                    if not (self.escalate and _escalate.escalates(e)):
+                    if not (self.escalate and _escalate.escalates(
+                            e, kernel=rung in _escalate.KERNEL_RUNGS)):
                         raise
                     self._record_escalation(key, _escalate.record(
                         rung, "per-request",
-                        _escalate.classify(e, "dispatch"), str(e)))
+                        _escalate.classify(e, "dispatch"), str(e),
+                        injected=isinstance(e, _inject.InjectedFault)))
                     for req in chunk:
                         results[req.rid] = self._recover_request(
                             req, key, rung)
                     continue
                 bad: Set[int] = set()
                 if verify_on:
-                    bad = self._verify_chunk(key, chunk, out, a_stack, rung)
+                    bad = self._verify_chunk(key, chunk, out, a_stack, rung,
+                                             clean)
                 now = time.monotonic()
                 for s, req in enumerate(chunk):
                     if s in bad:
@@ -627,11 +702,14 @@ class QRService:
                     self._observe("latency_seconds", now - req.t_submit)
 
     def _verify_chunk(self, key: BucketKey, chunk: List[QRRequest], out,
-                      a_stack: torch.Tensor, rung: str) -> Set[int]:
+                      a_stack: torch.Tensor, rung: str, clean) -> Set[int]:
         """Per-slice health check of one finished bucket: ONE batched
         pass over the padded stack on the device, host-side verdicts.  A
         failing slice is recorded (and escalated by the caller) alone —
-        its bucket-mates are unaffected."""
+        its bucket-mates are unaffected.  ``clean`` is the dispatch's
+        output before the ``output`` fault site: a failing slice of a
+        kernel rung that the site did not corrupt raises
+        :class:`~repro_torch.robustness.escalate.KernelFault`."""
         kp = min(key.m, key.n)   # factors come back fully padded
         with _trace.span("serving.verify", service=self._sid,
                          bucket=f"{key.m}x{key.n}"):
@@ -648,11 +726,16 @@ class QRService:
                 continue
             bad.add(s)
             self._count("health_check_failures")
+            what = (f"slice {s} ({chunk[s].shape[0]}x{chunk[s].shape[1]}): "
+                    f"{rep.reason} residual={rep.residual:.3e} "
+                    f"defect={rep.ortho_defect:.3e} tol={rep.tol:.3e}")
+            injected = _escalate.output_corrupted(clean, out, s)
+            _escalate.refuse_health_failure(
+                rung in _escalate.KERNEL_RUNGS, injected,
+                f"bucket {key.m}x{key.n}:{rung} {what}")
             self._record_escalation(key, _escalate.record(
-                rung, "per-request", "health_check_failed",
-                f"slice {s} ({chunk[s].shape[0]}x{chunk[s].shape[1]}): "
-                f"{rep.reason} residual={rep.residual:.3e} "
-                f"defect={rep.ortho_defect:.3e} tol={rep.tol:.3e}"))
+                rung, "per-request", "health_check_failed", what,
+                injected=injected))
         return bad
 
     # -------------------------------------------------------------- stats

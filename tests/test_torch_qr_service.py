@@ -228,6 +228,65 @@ def test_max_batch_chunking(service):
     assert verified.stats()["health_check_failures"] == 0
 
 
+def test_device_tensors_stay_on_the_device():
+    """A tensor on the service's device is admitted there and taken into
+    its bucket by a device copy: no staging buffer is made for a stream
+    of them, a NaN tensor is quarantined, and the answers are bitwise
+    those of the same payloads submitted as host arrays."""
+    rng = np.random.default_rng(6)
+    shapes = [(48, 48), (40, 30), (48, 48)]
+    arrs = [rng.standard_normal(s).astype(np.float32) for s in shapes]
+    policy = BucketingPolicy(tile=16, max_batch=4)
+    host = QRService(policy=policy, device="cpu").submit_many(arrs)
+    svc = QRService(policy=policy, device="cpu")
+    tensors = [torch.from_numpy(a) for a in arrs]
+    got = svc.submit_many(tensors)
+    assert all(plan.staging is None for plan in svc._plans.values())
+    for h, g in zip(host, got):
+        assert torch.equal(h.q, g.q) and torch.equal(h.r, g.r)
+    mixed = svc.submit_many([tensors[0], arrs[1], tensors[2]])
+    for h, g in zip(host, mixed):
+        assert torch.equal(h.q, g.q) and torch.equal(h.r, g.r)
+    bad = tensors[0].clone()
+    bad[3, 4] = float("nan")
+    rid = svc.submit(bad)
+    assert svc.flush()[rid].error == "quarantined:nonfinite_input"
+
+
+def test_padded_slots_skip_the_slice_by_slice_rungs():
+    """On the wavefront rung a padded batch factors only its filled
+    slices (launches counted for them alone), with the answers of the
+    whole padded stack bit for bit."""
+    from repro_torch.core import engine, tilegraph
+    from repro_torch.observability import metrics
+
+    g = torch.Generator().manual_seed(0)
+    stack = torch.zeros(4, 32, 32)
+    stack[:3] = torch.randn(3, 32, 32, generator=g)
+    whole = tilegraph._factor_stack_padded(
+        stack.clone(), p=4, q=4, nb=8, mode="reduced", use_kernel=True,
+        dispatch_mode="wavefront")
+    metrics.reset()
+    part = tilegraph._factor_stack_padded(
+        stack.clone(), p=4, q=4, nb=8, mode="reduced", use_kernel=True,
+        dispatch_mode="wavefront", filled=3)
+    assert all(torch.equal(x, y) for x, y in zip(whole, part))
+    per_slice = engine.dispatch_counts(4, 4, "wavefront", 1)
+    assert metrics.counter_value("engine.dispatches", mode="wavefront",
+                                 phase="execute") == \
+        3 * sum(per_slice.values())
+    svc = QRService(policy=BucketingPolicy(tile=8, max_batch=4),
+                    use_kernel=True, dispatch_mode="wavefront", device="cpu")
+    metrics.reset()
+    arrs = [stack[i].numpy() for i in range(3)]
+    for a, res in zip(arrs, svc.submit_many(arrs)):
+        _check_qr(a, res.q, res.r)
+    assert metrics.counter_value("engine.dispatches", mode="wavefront",
+                                 phase="execute") == \
+        3 * sum(per_slice.values())
+    assert svc.stats()["padded_slots"] == 1
+
+
 def test_kernel_megakernel_serving_path():
     """The kernel path of the service on the CPU (the megakernel
     wrappers' plain walks): one bucket, one batched megakernel dispatch,

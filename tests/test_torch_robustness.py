@@ -300,7 +300,8 @@ class TestEscalation:
     def test_build_failure_is_reraised_not_escalated(self, monkeypatch):
         """A kernel library that does not build raises through the ladder
         (plain qr() and the service), and the service's flush stays
-        atomic; any other plan failure degrades."""
+        atomic; so does a real launch failure on the kernel path, while
+        on the plain path it degrades."""
         def no_build(*args, **kwargs):
             raise _build.BuildError("nvcc not found")
 
@@ -319,8 +320,101 @@ class TestEscalation:
         monkeypatch.setattr(engine, "factor_tiles_batched",
                             lambda *a, **k: (_ for _ in ()).throw(
                                 RuntimeError("launch failed")))
-        q, r = qr(a, config=cfg, device="cpu")
+        with pytest.raises(RuntimeError, match="launch failed"):
+            qr(a, config=cfg, device="cpu")
+        plain = QRConfig(method="tiled", block=8, use_kernel=False,
+                         verify=True)
+        q, r = qr(a, config=plain, device="cpu")
         assert _resid(a, q, r) < _tol(a)
+
+    def test_real_kernel_launch_failure_propagates(self, monkeypatch):
+        """A real (not injected) exception on a kernel rung raises out of
+        the service's flush, restores the requests and records no hop;
+        the same exception on the plain path walks the ladder."""
+        def launch_failed(*args, **kwargs):
+            raise RuntimeError("CUDA error: an illegal memory access")
+
+        monkeypatch.setattr(engine, "factor_tiles_batched", launch_failed)
+        arrs = [_randn(24, 12, seed=s) for s in range(3)]
+        svc = _svc(use_kernel=True, verify=True)
+        rids = [svc.submit(a) for a in arrs]
+        with pytest.raises(RuntimeError, match="illegal memory access"):
+            svc.flush()
+        assert [r.rid for r in svc._pending] == rids
+        assert svc.escalations == [] and svc.stats()["escalations"] == 0
+        plain = _svc(verify=True)
+        outs = plain.submit_many(arrs)
+        assert all(o.ok for o in outs)
+        assert _hops(plain.escalations)[0] == (
+            "oracle", "per-request", "dispatch_failed")
+        for a, o in zip(arrs, outs):
+            assert _resid(a, o.q, o.r) < _tol(a)
+
+    @pytest.mark.parametrize("kernel", [True, False])
+    def test_real_health_failure_on_a_kernel_rung_raises(self, monkeypatch,
+                                                        kernel):
+        """A kernel's own output that fails its health check raises
+        KernelFault from the service and from qr(verify=True); on the
+        plain path the slice re-solves below, as in the reference."""
+        from repro_torch.serving import qr_service
+
+        real = qr_service._factor_stack_padded
+
+        def bad_slice(*args, **kwargs):
+            out = tuple(x.clone() for x in real(*args, **kwargs))
+            out[-1][0] = float("nan")
+            return out
+
+        monkeypatch.setattr(qr_service, "_factor_stack_padded", bad_slice)
+        arrs = [_randn(24, 12, seed=s) for s in range(2)]
+        svc = _svc(use_kernel=kernel, verify=True)
+        if kernel:
+            with pytest.raises(escalate.KernelFault, match="slice 0"):
+                svc.submit_many(arrs)
+            assert len(svc._pending) == 2
+        else:
+            outs = svc.submit_many(arrs)
+            assert all(o.ok for o in outs)
+            assert _hops(svc.escalations)[0] == (
+                "oracle", "per-request", "health_check_failed")
+        a = torch.from_numpy(_randn(40, 24, seed=8))
+        solver = plan(tuple(a.shape), a.dtype,
+                      QRConfig(method="tiled", block=8, use_kernel=kernel),
+                      backend="cpu")
+
+        class Broken:
+            config = solver.config
+
+            @staticmethod
+            def solve(x):
+                q, r = solver.solve(x)
+                return q, torch.full_like(r, float("nan"))
+
+        if kernel:
+            with pytest.raises(escalate.KernelFault):
+                escalate.checked_solve(Broken, a)
+        else:
+            q, r = escalate.checked_solve(Broken, a)
+            assert _resid(a, q, r) < _tol(a)
+
+    def test_budget_hop_walks_to_wavefront_without_tripping(self,
+                                                            monkeypatch):
+        """A real budget rejection of a forced megakernel moves the bucket
+        megakernel -> wavefront at plan time on every flush, and does not
+        count towards the breaker."""
+        monkeypatch.setattr(engine, "DEFAULT_TABLE_BUDGET", 64)
+        svc = _svc(policy=BucketingPolicy(tile=8, max_batch=2),
+                   use_kernel=True, dispatch_mode="megakernel", verify=True,
+                   breaker_threshold=2)
+        for s in range(3):
+            a = _randn(16, 8, seed=s)
+            out = svc.submit_many([a])[0]
+            assert out.ok and _resid(a, out.q, out.r) < _tol(a)
+        assert _hops(svc.escalations) == [
+            ("megakernel", "wavefront", "compile_failed")] * 3
+        assert not svc.escalations[0].injected
+        st = svc.stats()
+        assert st["breaker_trips"] == 0 and st["breaker_open"] == 0
 
 
 # ------------------------------------------------------------- injection
@@ -510,6 +604,32 @@ class TestCircuitBreaker:
             outs = svc.submit_many([_randn(24, 12, seed=11)])
         assert outs[0].ok
         assert svc.stats()["breaker_open"] == 1
+
+    def test_breaker_raises_after_a_real_failure_on_the_kernel_path(
+            self, monkeypatch):
+        """A kernel-path bucket whose breaker would open with a real
+        failure among its escalations raises instead of pinning the
+        bucket to torch.linalg.qr; one opened by injected faults alone
+        pins, as in the reference."""
+        def oracle_failed(*args, **kwargs):
+            raise RuntimeError("oracle failed")
+
+        monkeypatch.setattr(escalate, "_oracle_qr", oracle_failed)
+        svc = _svc(use_kernel=True, verify=True, breaker_threshold=2)
+        with inject.active(inject.Fault(site="dispatch",
+                                        match="32x16:megakernel")):
+            with pytest.raises(escalate.KernelFault, match="not all"):
+                svc.submit_many([_randn(24, 12, seed=0)])
+        assert svc.stats()["breaker_open"] == 0
+        monkeypatch.undo()
+        pinned = _svc(use_kernel=True, verify=True, breaker_threshold=2)
+        with inject.active(inject.Fault(site="dispatch",
+                                        match="32x16:megakernel",
+                                        times=None)):
+            for s in range(2):
+                out = pinned.submit_many([_randn(24, 12, seed=s)])[0]
+                assert out.ok
+        assert pinned.stats()["breaker_open"] == 1
 
     def test_trip_matches_reference(self):
         """The breaker's records, hop for hop, beside the reference's."""

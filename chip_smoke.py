@@ -88,6 +88,24 @@ Phases, each of which exits non-zero when it fails:
      beside the unverified ``qr``; (e) ``observability.capture`` around a
      service wave names the ``serving.*`` spans and the megakernel labels,
      and a disabled span costs under 1% of a 2048^2 ``qr``.
+ 14. QR-Muon training of SmolLM-135M at full width (30 layers, d_model
+     576, vocab 49,152; ``SyntheticLM`` batch 8 x 512, seed 0;
+     ``TrainConfig(optimizer="muon-qr", batched_ortho=True)``): (a) one
+     step's 210 momenta through ``batched_orthogonalize`` on the kernels
+     and through the plain lowering on the card — 3 shape classes, 3
+     dispatches, no leafwise matrix, the literal launches of each class,
+     every O in the conformance bar and a QR Q of its momentum to 4
+     sqrt(N) eps in backward error, the kernels' O within 4 sqrt(N) eps
+     x cond of the plain lowering's (the same within 4 sqrt(N) eps on
+     Gaussian stacks of the same shapes), a TF32 control failing; (b)
+     one warm-up and three timed steps: step ms, tokens/s, and from one
+     instrumented step fwd+bwd, optimizer and per-class ms, beside the
+     optimizer alone (batched and the leafwise default, no kernel),
+     ``torch.linalg.qr`` over the same stacks and a ``torch.profiler``
+     trace of fwd+bwd and of the 1536 x 576 class (device busy share);
+     (c) the losses finite and within 1e-3 relative of a run from the
+     same weights and batches whose orthogonalization runs the plain
+     lowering; (d) the training run's launches of every kernel.
 
 Each correctness check is shown to reject a control whose answer is only
 TF32-grade: the kernels' written outputs rounded to TF32 (fp64: to fp32),
@@ -97,14 +115,18 @@ lowering run with TF32 products.
 Every phase prints its seconds.
 
 The second-to-last line of output is a JSON object with one record per
-kernel (``service_launches``: its launches on phase 13's service paths);
+kernel (``service_launches``: its launches on phase 13's service paths;
+``training_launches``: on phase 14's warm-up and timed steps);
 the last is ``{"ok": true, "device": {...}}``.  Without a CUDA
 device the script exits with status 1 and prints no result.
 """
 
 from __future__ import annotations
 
+import copy
+import dataclasses
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -2106,6 +2128,358 @@ def phase_service(torch, macro_ops, tilegraph, repro_torch):
     return out, service_launches
 
 
+# ---------------------------------------------------------------------------
+# phase 14: QR-Muon training of SmolLM-135M
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "smollm-135m"
+TRAIN_BATCH, TRAIN_SEQ = 8, 512     # the reference launcher's defaults
+TRAIN_TIMED = 3                     # timed steps, after one warm-up step
+TRAIN_LOSS_RTOL = 1e-3              # kernel run against the plain run
+# One step's orthogonalization: three shape classes (key: tall-oriented
+# padded shape), their members and routes on the card.
+ORTHO_CLASSES = {"576x576": [60, "tiled", "megakernel"],
+                 "1536x576": [90, "tiled", "wavefront"],
+                 "576x192": [60, "geqrf_ht", None]}
+# Launches of one step's orthogonalization: the (60, 18, 18) stack in one
+# batched megakernel launch and one over its Q table; the 90 slices of
+# the 48 x 18 grid on the wavefront rung, 90 x (18 GEQRT + 17 LARFB + 81
+# TSQRT + 79 SSRFB) and 90 x (35 QLARFB + 64 QSSRFB); the (60, 576, 192)
+# stack's six panel steps (`expected_panel_launches`).
+ORTHO_LAUNCHES = {"MEGAKERNEL_BATCHED": 1, "MEGAKERNEL_Q_BATCHED": 1,
+                  "GEQRT": 1620, "LARFB": 1530, "TSQRT": 7290,
+                  "SSRFB": 7110, "QLARFB": 3150, "QSSRFB": 5760,
+                  "MHT_PANEL": 6, "WY_TRAILING": 5, "WY_TRAILING_Q": 6}
+
+
+def train_setup(torch):
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig
+    from repro_torch.training import RunConfig, TrainConfig
+
+    cfg = get_config(TRAIN_ARCH)
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                      global_batch=TRAIN_BATCH, seed=0)
+    # One more step than the runs compared: the instrumented one.
+    run = RunConfig(total_steps=2 + TRAIN_TIMED, warmup_steps=1,
+                    log_every=1, seed=0)
+    return cfg, data, run, TrainConfig(optimizer="muon-qr",
+                                       batched_ortho=True)
+
+
+def step_directions(torch, trainer, tcfg):
+    """The first step's gradients and its Muon directions (Nesterov, from
+    zero momentum: g + momentum * g), each in name order."""
+    from repro_torch.optim import is_muon_param
+    from repro_torch.training import train_step
+
+    batch = trainer._place_batch(trainer.pipeline.peek(0))
+    _, _, grads = train_step._grads(trainer.state.params, batch,
+                                    trainer.model_cfg, tcfg)
+    grads, _ = train_step._clip_by_global_norm(grads, tcfg.grad_clip)
+    dirs = {k: g + tcfg.momentum * g for k, g in grads.items()
+            if is_muon_param(k, g)}
+    return grads, dirs
+
+
+def ortho_members(dirs):
+    """``{class label: [tall-oriented member matrices]}``."""
+    out = {}
+    for d in dirs.values():
+        for mat in d.reshape((-1,) + tuple(d.shape[-2:])):
+            mat = mat.mT if mat.shape[0] < mat.shape[1] else mat
+            out.setdefault(f"{mat.shape[0]}x{mat.shape[1]}", []).append(mat)
+    return out
+
+
+def qr_backward_error(torch, a, o):
+    """Per member, how far ``o`` is from being a thin QR Q of ``a``:
+    ``max(||A - O O^T A||_F, ||tril(O^T A, -1)||_F) / ||A||_F`` (fp64).
+    A backward-stable QR keeps both near eps whatever A's condition."""
+    r = o.mT @ a
+    norm = torch.linalg.matrix_norm(a)
+    resid = torch.linalg.matrix_norm(a - o @ r) / norm
+    tri = torch.linalg.matrix_norm(torch.tril(r, -1)) / norm
+    return torch.maximum(resid, tri)
+
+
+def ortho_runs(torch, leaves):
+    """``batched_orthogonalize`` of ``leaves`` on the kernels, by the
+    plain lowering on the card, and by the plain lowering with TF32
+    products (outputs rounded to TF32: the control)."""
+    from repro_torch import QRConfig
+    from repro_torch.optim import batched_orthogonalize
+
+    outs = batched_orthogonalize(leaves)
+    plain = batched_orthogonalize(leaves, config=QRConfig(use_kernel=False))
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        ctrl = batched_orthogonalize(leaves,
+                                     config=QRConfig(use_kernel=False))
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    return outs, plain, [round_low(torch, c) for c in ctrl]
+
+
+def class_measures(torch, leaves, outs, plain, ctrl):
+    """Per class (fp64; N = max(m, n), tol = 4 sqrt(N) eps): the
+    kernels' O against the conformance bar, each lowering's backward
+    error (:func:`qr_backward_error`), and the kernels' O against the
+    plain lowering's elementwise, unscaled and over ``tol * cond`` of each
+    member's 2-norm condition number, beside the TF32 control."""
+    eps = float(torch.finfo(torch.float32).eps)
+
+    def stacks(xs):
+        return {k: torch.stack(v).double() for k, v in
+                ortho_members(dict(enumerate(xs))).items()}
+
+    got, ref, low, mats = (stacks(outs), stacks(plain), stacks(ctrl),
+                           stacks(leaves))
+    per_class = {}
+    for label, q in got.items():
+        m, n = q.shape[-2:]
+        tol = 4 * max(m, n) ** 0.5 * eps
+        a, q0, qc = mats[label], ref[label], low[label]
+        sv = torch.linalg.svdvals(a)
+        cond = (sv[:, 0] / sv[:, -1]).clamp(min=1.0)
+        eye = torch.eye(n, dtype=torch.float64, device="cuda")
+        dq = (q - q0).abs().amax(dim=(-2, -1))
+        dq_ctrl = (qc - q0).abs().amax(dim=(-2, -1))
+        per_class[label] = dict(
+            ortho_max=float((q.mT @ q - eye).abs().max()),
+            bar=100 * eps * max(m, n), tol=tol,
+            backward_error_max=float(qr_backward_error(torch, a, q).max()),
+            plain_backward_error_max=float(
+                qr_backward_error(torch, a, q0).max()),
+            tf32_control_backward_error_max=float(
+                qr_backward_error(torch, a, qc).max()),
+            dq_max=float(dq.max()), tf32_control_dq_max=float(dq_ctrl.max()),
+            cond_max=float(cond.max()), cond_median=float(cond.median()),
+            dq_over_cond_tol_max=float((dq / (tol * cond)).max()),
+            members_within_unscaled_tol=int((dq <= tol).sum()),
+            members=int(q.shape[0]),
+            finite=bool(torch.isfinite(q).all()))
+    return per_class
+
+
+def ortho_check(torch, macro_ops, dirs):
+    """(a) One step's 210 momenta through ``batched_orthogonalize`` on the
+    kernels and through the plain lowering on the card: the plan (3
+    classes, 3 dispatches, no leafwise matrix), the literal launches, and
+    per class (:func:`class_measures`) every O inside the conformance
+    bar, each lowering's O a QR Q of its momentum to ``tol`` in backward
+    error (which does not grow with the momentum's condition: the
+    step's attention momenta reach cond ~1e6, and two backward-stable
+    Q factors of such a matrix differ elementwise by up to ~cond x their
+    backward error, so the kernels' O is held against the plain
+    lowering's within ``tol * cond``), the TF32 control failing the
+    backward-error bound.  Then Gaussian stacks of the same leaf shapes
+    (well conditioned) through the same three calls: the kernels' O
+    within ``tol`` of the plain lowering's elementwise, the TF32 control
+    failing that."""
+    from repro_torch.optim import plan_batched_ortho
+
+    leaves = list(dirs.values())
+    plan = plan_batched_ortho([(tuple(d.shape), d.dtype) for d in leaves],
+                              backend="cuda")
+    classes = {f"{c.key.m}x{c.key.n}": [len(c.members), c.method,
+                                        c.dispatch_mode]
+               for c in plan.classes}
+    torch.cuda.synchronize()
+    macro_ops.reset_launch_counts()
+    runs = ortho_runs(torch, leaves)
+    launches = launch_counts(macro_ops)
+    momenta = class_measures(torch, leaves, *runs)
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    gauss = [torch.randn(d.shape, generator=gen, device="cuda")
+             for d in leaves]
+    gaussian = class_measures(torch, gauss, *ortho_runs(torch, gauss))
+    checks = dict(classes=classes, dispatches=plan.dispatches,
+                  leafwise_matrices=plan.leafwise_matrices,
+                  matrices=plan.n_matrices, launches=launches,
+                  expected=ORTHO_LAUNCHES, momenta=momenta,
+                  gaussian=gaussian)
+    log("training ortho checks:", json.dumps(checks))
+    assert classes == ORTHO_CLASSES, checks
+    assert plan.dispatches == 3 and plan.leafwise_matrices == 0, checks
+    assert plan.n_matrices == 210, checks
+    assert launches == ORTHO_LAUNCHES, checks
+    for label, c in list(momenta.items()) + list(gaussian.items()):
+        assert c["finite"] and c["ortho_max"] <= c["bar"], (label, c)
+        assert c["backward_error_max"] <= c["tol"], (label, c)
+        assert c["plain_backward_error_max"] <= c["tol"], (label, c)
+        assert c["dq_over_cond_tol_max"] <= 1, (label, c)
+        assert c["tf32_control_backward_error_max"] > c["tol"], (
+            "the TF32 control passed", label, c)
+    for label, c in gaussian.items():
+        assert c["dq_max"] <= c["tol"], (label, c)
+        assert c["tf32_control_dq_max"] > c["tol"], (
+            "the TF32 control passed", label, c)
+    return checks
+
+
+def ortho_yardsticks(torch, dirs, grads, params, tcfg):
+    """(b) The optimizer alone: ``muon_update`` batched (the kernels) and
+    leafwise (``geqrf_fori``, no kernel), and ``torch.linalg.qr`` plus the
+    sign fix over the same three stacks; host ms, median of 3."""
+    from repro_torch.optim import muon_init, muon_update
+
+    state = muon_init(params)
+
+    def update(batched):
+        def run():
+            muon_update(grads, state, params, lr=tcfg.lr,
+                        momentum=tcfg.momentum, batched_ortho=batched)
+            torch.cuda.synchronize()
+        return run
+
+    stacks = {label: torch.stack(qs) for label, qs in
+              ortho_members(dirs).items()}
+
+    def library():
+        for a in stacks.values():
+            q, r = torch.linalg.qr(a)
+            d = torch.diagonal(r, dim1=-2, dim2=-1)
+            q * torch.where(d >= 0, 1.0, -1.0)[..., None, :]
+        torch.cuda.synchronize()
+
+    out = dict(batched_optimizer_ms=host_ms(update(True), reps=3),
+               leafwise_optimizer_ms=host_ms(update(False), reps=3),
+               torch_linalg_qr_ms=host_ms(library, reps=3))
+    log("training optimizer yardsticks:", json.dumps(out))
+    return out
+
+
+def step_profile(torch, trainer, tcfg, dirs):
+    """A ``torch.profiler`` trace (:func:`profile_window`) of the step's
+    two parts: one fwd+bwd on the first batch, and the 1536 x 576 class's
+    orthogonalization alone — device busy ms, device ops and busy share
+    of the traced wall."""
+    from repro_torch.optim import batched_orthogonalize
+    from repro_torch.training import train_step
+
+    batch = trainer._place_batch(trainer.pipeline.peek(0))
+    big = [d for d in dirs.values() if 1536 in tuple(d.shape[-2:])]
+
+    def fwd_bwd():
+        train_step._grads(trainer.state.params, batch, trainer.model_cfg,
+                          tcfg)
+
+    out = {}
+    for label, fn in (("fwd_bwd", fwd_bwd),
+                      ("ortho_1536x576", lambda: batched_orthogonalize(big))):
+        w = profile_window(torch, fn)
+        out[label] = {k: w[k] for k in ("busy_ms", "device_ops",
+                                        "wall_ms_profiled",
+                                        "busy_share_of_wall") if k in w}
+    log("training profile:", json.dumps(out))
+    return out
+
+
+def train_steps(torch, trainer, n):
+    """``n`` steps of ``trainer``, each timed on the host clock around
+    the step and a synchronize."""
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.run(stop_at=trainer.step_idx + 1)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def instrumented_step(torch, trainer):
+    """One more step with the trace on: fwd+bwd, optimizer and each
+    class's orthogonalization ms (spans that synchronize the card)."""
+    from repro_torch.observability import instrument, trace
+
+    trace.clear()
+    with instrument.enabled_scope(tracing=True, annotations=False):
+        t0 = time.perf_counter()
+        trainer.run(stop_at=trainer.step_idx + 1)
+        total = (time.perf_counter() - t0) * 1e3
+    spans = trace.spans()
+    ms = {s.name: s.duration_us / 1e3 for s in spans
+          if s.name in ("train.fwd_bwd", "train.optimizer")}
+    ms["per_class"] = {s.labels["bucket"]: s.duration_us / 1e3
+                       for s in spans if s.name == "optim.ortho_class"}
+    ms["step"] = total
+    trace.clear()
+    return ms
+
+
+def phase_training(torch, macro_ops):
+    """Phase 14: QR-Muon training of SmolLM-135M at full width on the
+    card (the port's ``Trainer``, ``TrainConfig(optimizer="muon-qr",
+    batched_ortho=True)``, ``SyntheticLM`` at batch 8, sequence 512, seed
+    0): (a) one step's 210 momenta through the kernels and the plain
+    lowering; (b) one warm-up step and three timed steps, an instrumented
+    step, the leafwise optimizer and ``torch.linalg.qr`` beside them;
+    (c) the losses finite and within ``TRAIN_LOSS_RTOL`` of a run from the
+    same weights and batches whose orthogonalization runs the plain
+    lowering.  Returns the results and the launches of the training run
+    (the warm-up and timed steps)."""
+    from repro_torch import QRConfig
+    from repro_torch.models import param_count
+    from repro_torch.training import Trainer
+
+    cfg, data, run, tcfg = train_setup(torch)
+    trainer = Trainer(cfg, tcfg, run, data, device="cuda", log_fn=log)
+    start = copy.deepcopy(trainer.state.params)
+    nparams = param_count(trainer.state.params)
+    log("training model:", json.dumps(dict(
+        arch=cfg.name, params=nparams, n_layers=cfg.n_layers,
+        d_model=cfg.d_model, d_ff=cfg.d_ff, vocab=cfg.vocab_size,
+        batch=TRAIN_BATCH, seq=TRAIN_SEQ, dtype=cfg.dtype)))
+
+    grads, dirs = step_directions(torch, trainer, tcfg)
+    ortho = ortho_check(torch, macro_ops, dirs)
+    params = {k: p.detach() for k, p in
+              trainer.state.params.named_parameters()}
+    yard = ortho_yardsticks(torch, dirs, grads, params, tcfg)
+    yard["profile"] = step_profile(torch, trainer, tcfg, dirs)
+    del grads, dirs, params
+    torch.cuda.empty_cache()
+
+    torch.cuda.synchronize()
+    macro_ops.reset_launch_counts()
+    step_ms = train_steps(torch, trainer, 1 + TRAIN_TIMED)
+    launches = launch_counts(macro_ops)
+    losses = [m["loss"] for m in trainer.metrics_history]
+    inst = instrumented_step(torch, trainer)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    timed = statistics.median(step_ms[1:])
+    timing = dict(step_ms=step_ms, step_ms_median=timed,
+                  tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / (timed / 1e3),
+                  instrumented=inst, peak_memory_gb=peak_gb, **yard)
+    log("training timing:", json.dumps(timing))
+    del trainer
+    torch.cuda.empty_cache()
+
+    plain_cfg = dataclasses.replace(tcfg, qr_config=QRConfig(use_kernel=False))
+    plain = Trainer(cfg, plain_cfg, run, data, device="cuda", log_fn=log,
+                    params=start)
+    t0 = time.perf_counter()
+    plain.run(stop_at=1 + TRAIN_TIMED)
+    timing["plain_lowering_run_s"] = time.perf_counter() - t0
+    plain_losses = [m["loss"] for m in plain.metrics_history]
+    del plain, start
+    torch.cuda.empty_cache()
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, plain_losses)]
+    checks = dict(losses=losses, plain_losses=plain_losses, rel_diff=rel,
+                  rtol=TRAIN_LOSS_RTOL, launches=launches,
+                  expected={k: (1 + TRAIN_TIMED) * v
+                            for k, v in ORTHO_LAUNCHES.items()})
+    log("training loss checks:", json.dumps(checks))
+    assert all(math.isfinite(x) for x in losses + plain_losses), checks
+    assert len(losses) == len(plain_losses) == 1 + TRAIN_TIMED, checks
+    assert max(rel) <= TRAIN_LOSS_RTOL, checks
+    assert launches == checks["expected"], checks
+    return dict(ortho=ortho, timing=timing, losses=checks), launches
+
+
 def host_ms(fn, reps, warmup=1):
     for _ in range(warmup):
         fn()
@@ -2183,6 +2557,8 @@ def main() -> int:
                       repro_torch, blocked)
     service, service_launches = phase("service", phase_service, torch,
                                       macro_ops, tilegraph, repro_torch)
+    training, training_launches = phase("training", phase_training, torch,
+                                        macro_ops)
     # Each panel-path kernel's device time summed over one call of each
     # traced path (the profiler's spans), beside launches x one launch.
     summed = {}
@@ -2204,6 +2580,7 @@ def main() -> int:
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"], ntasks=r["ntasks"],
             service_launches=service_launches.get(kind, 0),
+            training_launches=training_launches.get(kind, 0),
             **({"fp64_ms": r["fp64_ms"]} if "fp64_ms" in r else {}),
             **({"computes": Q_FORMATION} if kind.startswith("Q") else {})))
     for name, path_launches in (("MEGAKERNEL", mega_launches),
@@ -2220,6 +2597,7 @@ def main() -> int:
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"], shape=r["shape"],
             service_launches=service_launches.get(name, 0),
+            training_launches=training_launches.get(name, 0),
             **({"computes": Q_FORMATION} if "_Q" in name else {})))
     path_launches = {
         "MHT_PANEL": {k: p["launches"].get("MHT_PANEL", 0)
@@ -2239,6 +2617,8 @@ def main() -> int:
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"],
             service_launches=service_launches.get(kind, 0),
+            training_launches=(training_launches.get(kind, 0)
+                               + training_launches.get(kind + "_Q", 0)),
             **({"launches_by_path": path_launches[kind],
                 "summed_device_ms_by_path": summed[kind]}
                if kind in path_launches else {})))
@@ -2288,6 +2668,16 @@ def main() -> int:
             for k, v in service["verify"].items()}),
         "| disabled span share of a 2048^2 qr",
         service["capture"]["span_share_of_qr"])
+    tt, tl = training["timing"], training["losses"]
+    log("card:", card, "| training SmolLM-135M step ms (median of",
+        TRAIN_TIMED, ")", tt["step_ms_median"], "| tokens/s",
+        tt["tokens_per_s"], "| fwd+bwd ms", tt["instrumented"]["train.fwd_bwd"],
+        "| optimizer ms", tt["instrumented"]["train.optimizer"],
+        "| ortho ms per class", json.dumps(tt["instrumented"]["per_class"]),
+        "| optimizer alone: batched", tt["batched_optimizer_ms"], "leafwise",
+        tt["leafwise_optimizer_ms"], "| torch.linalg.qr over the stacks",
+        tt["torch_linalg_qr_ms"], "| losses", json.dumps(tl["losses"]),
+        "| plain-lowering run", json.dumps(tl["plain_losses"]))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

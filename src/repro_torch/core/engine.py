@@ -24,7 +24,8 @@ Three lowerings run the schedule:
     It calls the wavefront kernels' compute functions, so the two kernel
     lowerings agree bit for bit;
   * the **plain lowering** (``use_kernel=False``): the wavefront batches
-    through the kernels' plain PyTorch versions.
+    through the kernels' plain PyTorch versions (on a stack, each batch
+    over all its slices at once).
 
 Q formation (:func:`form_q_tiles`) runs the factorization's updates in
 reverse over a second tile workspace E (:func:`q_task_arrays`,
@@ -814,9 +815,10 @@ def run_levels(state: FactorState, levels: Optional[Iterable[int]] = None, *,
     ``state``, in place.  One launch per (level, kind) in the canonical
     order: within a level the only tile two kinds share is the diagonal,
     whose strictly-lower V1 LARFB reads before TSQRT rewrites the upper
-    triangle."""
+    triangle.  On the plain versions (``use_kernel=False``) a state with
+    leading dimensions (a stack) runs each batch over all its slices."""
     tiles = state.tiles
-    p, q = tiles.shape[:2]
+    p, q = tiles.shape[-4:-2]
     per_level = level_indices(p, q, tiles.device)
     for lv in range(len(per_level)) if levels is None else levels:
         for kind, idx in per_level[lv].items():
@@ -971,8 +973,9 @@ def factor_tiles_batched(tiles: torch.Tensor, *, p: int, q: int, nb: int,
     """Run the schedule over every slice of a stacked ``(B, p, q, nb, nb)``
     workspace, in place; each slice's state equals :func:`factor_tiles`
     on that slice.  The megakernel lowering is one launch of the batched
-    megakernel for the whole stack; the wavefront and plain lowerings run
-    the single path slice by slice.  ``B == 1`` runs the single path, as
+    megakernel for the whole stack; the wavefront lowering runs the
+    single path slice by slice; the plain lowering runs each level's
+    batches over the stack at once.  ``B == 1`` runs the single path, as
     the reference does.
 
     ``filled`` says the slices from it on are zero matrices (a padded
@@ -1008,6 +1011,9 @@ def _factor_batched(tiles: torch.Tensor, p: int, q: int, nb: int,
         with _profiler.annotate(_profiler.megakernel_label(p, q, batch)):
             macro_ops.megakernel_batched(
                 state, *megakernel_table(p, q, tiles.device))
+    elif not use_kernel:
+        # The plain lowering runs each level's batch over the whole stack.
+        run_levels(FactorState(*(x[:filled] for x in state)))
     else:
         for b in range(batch if filled is None else filled):
             run_levels(FactorState(*(x[b] for x in state)),

@@ -274,50 +274,55 @@ def qssrfb_body(v2: Tensor, t: Tensor, ek: Tensor, ei: Tensor
 #
 # A batch's gathers all read the tiles as they were before the batch, and
 # its scatters are disjoint (asserted when the engine builds its index
-# arrays), which is what the kernels' parallel CTAs see too.
+# arrays), which is what the kernels' parallel CTAs see too.  Leading
+# dimensions of the workspace (a stack of factorizations) batch through.
 
 def geqrt_plain(tiles: Tensor, d_t: Tensor, d_taus: Tensor, idx: Tensor
                 ) -> None:
     kk = idx[:, 0].long()
-    packed, t, taus = geqrt_body(tiles[kk, kk])
-    tiles[kk, kk] = packed
-    d_t[kk] = t
-    d_taus[kk] = taus
+    packed, t, taus = geqrt_body(tiles[..., kk, kk, :, :])
+    tiles[..., kk, kk, :, :] = packed
+    d_t[..., kk, :, :] = t
+    d_taus[..., kk, :] = taus
 
 
 def larfb_plain(tiles: Tensor, d_t: Tensor, idx: Tensor) -> None:
     kk, jj = idx[:, 0].long(), idx[:, 2].long()
-    tiles[kk, jj] = larfb_body(tiles[kk, kk], d_t[kk], tiles[kk, jj])
+    tiles[..., kk, jj, :, :] = larfb_body(
+        tiles[..., kk, kk, :, :], d_t[..., kk, :, :], tiles[..., kk, jj, :, :])
 
 
 def tsqrt_plain(tiles: Tensor, t_t: Tensor, t_taus: Tensor, idx: Tensor
                 ) -> None:
     kk, ii = idx[:, 0].long(), idx[:, 1].long()
-    merged, v2, t, taus = tsqrt_body(tiles[kk, kk], tiles[ii, kk])
-    tiles[kk, kk] = merged
-    tiles[ii, kk] = v2
-    t_t[ii, kk] = t
-    t_taus[ii, kk] = taus
+    merged, v2, t, taus = tsqrt_body(tiles[..., kk, kk, :, :],
+                                     tiles[..., ii, kk, :, :])
+    tiles[..., kk, kk, :, :] = merged
+    tiles[..., ii, kk, :, :] = v2
+    t_t[..., ii, kk, :, :] = t
+    t_taus[..., ii, kk, :] = taus
 
 
 def ssrfb_plain(tiles: Tensor, t_t: Tensor, idx: Tensor) -> None:
     kk, ii, jj = idx[:, 0].long(), idx[:, 1].long(), idx[:, 2].long()
-    ck, ci = ssrfb_body(tiles[ii, kk], t_t[ii, kk], tiles[kk, jj],
-                        tiles[ii, jj])
-    tiles[kk, jj] = ck
-    tiles[ii, jj] = ci
+    ck, ci = ssrfb_body(tiles[..., ii, kk, :, :], t_t[..., ii, kk, :, :],
+                        tiles[..., kk, jj, :, :], tiles[..., ii, jj, :, :])
+    tiles[..., kk, jj, :, :] = ck
+    tiles[..., ii, jj, :, :] = ci
 
 
 def qlarfb_plain(tiles: Tensor, d_t: Tensor, e: Tensor, idx: Tensor) -> None:
     kk, jj = idx[:, 0].long(), idx[:, 2].long()
-    e[kk, jj] = qlarfb_body(tiles[kk, kk], d_t[kk], e[kk, jj])
+    e[..., kk, jj, :, :] = qlarfb_body(
+        tiles[..., kk, kk, :, :], d_t[..., kk, :, :], e[..., kk, jj, :, :])
 
 
 def qssrfb_plain(tiles: Tensor, t_t: Tensor, e: Tensor, idx: Tensor) -> None:
     kk, ii, jj = idx[:, 0].long(), idx[:, 1].long(), idx[:, 2].long()
-    ek, ei = qssrfb_body(tiles[ii, kk], t_t[ii, kk], e[kk, jj], e[ii, jj])
-    e[kk, jj] = ek
-    e[ii, jj] = ei
+    ek, ei = qssrfb_body(tiles[..., ii, kk, :, :], t_t[..., ii, kk, :, :],
+                         e[..., kk, jj, :, :], e[..., ii, jj, :, :])
+    e[..., kk, jj, :, :] = ek
+    e[..., ii, jj, :, :] = ei
 
 
 # ---------------------------------------------------------------------------

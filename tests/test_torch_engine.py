@@ -174,3 +174,22 @@ def test_state_numpy_round_trip():
     st = teng.state_from_numpy(arrays, device="cpu")
     for a, b in zip(teng.state_to_numpy(st), arrays):
         np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("p,q", [(3, 2), (4, 4), (2, 5)])
+def test_plain_lowering_of_a_stack_equals_slice_by_slice(p, q, dtype):
+    """The plain lowering runs each level's task batches over all slices
+    of a stack at once; each slice's state equals ``factor_tiles`` on it
+    bit for bit, and slices past ``filled`` stay the zero state."""
+    nb, batch = 8, 4
+    ws = np.random.default_rng(p * 10 + q).standard_normal(
+        (batch, p, q, nb, nb)).astype(dtype)
+    ws[-1] = 0.0
+    st = teng.factor_tiles_batched(torch.from_numpy(ws.copy()), p=p, q=q,
+                                   nb=nb, filled=batch - 1)
+    for b in range(batch - 1):
+        one = teng.factor_tiles(torch.from_numpy(ws[b].copy()), p=p, q=q,
+                                nb=nb)
+        assert all(torch.equal(x[b], y) for x, y in zip(st, one))
+    assert all(not x[-1].any() for x in st)

@@ -123,6 +123,7 @@ device the script exits with status 1 and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import json
@@ -2135,7 +2136,16 @@ def phase_service(torch, macro_ops, tilegraph, repro_torch):
 TRAIN_ARCH = "smollm-135m"
 TRAIN_BATCH, TRAIN_SEQ = 8, 512     # the reference launcher's defaults
 TRAIN_TIMED = 3                     # timed steps, after one warm-up step
-TRAIN_LOSS_RTOL = 1e-3              # kernel run against the plain run
+# The kernel run against the plain-lowering run from the same weights and
+# batches.  The Muon leaves' change over the first update (the warm-up
+# step's LR is 0, so step 2 is the first; both runs see the same
+# gradients there), ||P - P_plain|| / ||P_plain - P_start|| (Frobenius
+# over the leaves): a control run whose orthogonalization has TF32
+# products must fail it.  Each loss after the first update, a coarser
+# check: bf16 compute puts a floor of ~5e-5 under any two runs' losses
+# that differ at all, and the TF32 control stays under this limit too.
+TRAIN_UPDATE_RTOL = 1e-4
+TRAIN_LOSS_RTOL = 1e-3
 # One step's orthogonalization: three shape classes (key: tall-oriented
 # padded shape), their members and routes on the card.
 ORTHO_CLASSES = {"576x576": [60, "tiled", "megakernel"],
@@ -2167,19 +2177,51 @@ def train_setup(torch):
                                        batched_ortho=True)
 
 
-def step_directions(torch, trainer, tcfg):
-    """The first step's gradients and its Muon directions (Nesterov, from
-    zero momentum: g + momentum * g), each in name order."""
-    from repro_torch.optim import is_muon_param
+@contextlib.contextmanager
+def wrapped_update(wrap):
+    """The training step calls ``wrap(muon_update)`` in place of
+    ``muon_update`` inside the block."""
     from repro_torch.training import train_step
 
-    batch = trainer._place_batch(trainer.pipeline.peek(0))
-    _, _, grads = train_step._grads(trainer.state.params, batch,
-                                    trainer.model_cfg, tcfg)
-    grads, _ = train_step._clip_by_global_norm(grads, tcfg.grad_clip)
-    dirs = {k: g + tcfg.momentum * g for k, g in grads.items()
-            if is_muon_param(k, g)}
-    return grads, dirs
+    real = train_step.muon_update
+    train_step.muon_update = wrap(real)
+    try:
+        yield
+    finally:
+        train_step.muon_update = real
+
+
+def recorded_step(torch, trainer):
+    """One step of ``trainer`` (timed as :func:`train_steps` times it),
+    recording what the step hands ``muon_update``: the clipped gradients,
+    the optimizer state and the parameters (cloned, as the step writes
+    them in place).  Returns ``(ms, record)``."""
+    record = {}
+
+    def recorder(update):
+        def run(grads, state, params, **kw):
+            record.update(grads=grads, state=state, kw=kw,
+                          params={k: p.clone() for k, p in params.items()})
+            return update(grads, state, params, **kw)
+        return run
+
+    with wrapped_update(recorder):
+        ms = train_steps(torch, trainer, 1)
+    return ms, record
+
+
+def tf32_update(torch):
+    """A ``wrapped_update`` wrapper: the optimizer step (the
+    orthogonalization) with TF32 products, the rest of the step without."""
+    def wrap(update):
+        def run(*args, **kw):
+            torch.backends.cuda.matmul.allow_tf32 = True
+            try:
+                return update(*args, **kw)
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = False
+        return run
+    return wrap
 
 
 def ortho_members(dirs):
@@ -2222,12 +2264,33 @@ def ortho_runs(torch, leaves):
     return outs, plain, [round_low(torch, c) for c in ctrl]
 
 
+def sign_margin(torch, a, o):
+    """Per member, the least of ``diag(O^T A)_k / ||a_k||`` over columns
+    k: the sign convention of a sign-fixed Q puts every entry at or above
+    zero, and a column whose sign is flipped reads ``-|r_kk| / ||a_k||``."""
+    d = torch.diagonal(o.mT @ a, dim1=-2, dim2=-1)
+    return (d / torch.linalg.vector_norm(a, dim=-2)).amin(-1)
+
+
+def fp64_q(torch, a):
+    """The sign-fixed thin Q of each member by ``torch.linalg.qr`` in
+    fp64 (the witness), and ``|r_kk| / ||a_k||`` of its R."""
+    q, r = torch.linalg.qr(a)
+    d = torch.diagonal(r, dim1=-2, dim2=-1)
+    q = q * torch.where(d >= 0, 1.0, -1.0).to(q.dtype)[..., None, :]
+    return q, d.abs() / torch.linalg.vector_norm(a, dim=-2)
+
+
 def class_measures(torch, leaves, outs, plain, ctrl):
     """Per class (fp64; N = max(m, n), tol = 4 sqrt(N) eps): the
     kernels' O against the conformance bar, each lowering's backward
-    error (:func:`qr_backward_error`), and the kernels' O against the
-    plain lowering's elementwise, unscaled and over ``tol * cond`` of each
-    member's 2-norm condition number, beside the TF32 control."""
+    error (:func:`qr_backward_error`) and sign margin
+    (:func:`sign_margin`: with the backward error it pins the sign-fixed
+    Q), a sign-flip control (the kernels' O with its last column negated),
+    the kernels' O against the plain lowering's elementwise, unscaled and
+    over ``tol * cond`` of each member's 2-norm condition number, beside
+    the TF32 control, and each lowering's distance from the fp64 witness
+    (:func:`fp64_q`)."""
     eps = float(torch.finfo(torch.float32).eps)
 
     def stacks(xs):
@@ -2246,6 +2309,13 @@ def class_measures(torch, leaves, outs, plain, ctrl):
         eye = torch.eye(n, dtype=torch.float64, device="cuda")
         dq = (q - q0).abs().amax(dim=(-2, -1))
         dq_ctrl = (qc - q0).abs().amax(dim=(-2, -1))
+        flipped = torch.cat([q[..., :-1], -q[..., -1:]], -1)
+        q64, rkk = fp64_q(torch, a)
+
+        def witness(x):
+            return (x - q64).abs().amax(dim=(-2, -1))
+
+        w, w0 = witness(q), witness(q0)
         per_class[label] = dict(
             ortho_max=float((q.mT @ q - eye).abs().max()),
             bar=100 * eps * max(m, n), tol=tol,
@@ -2254,10 +2324,21 @@ def class_measures(torch, leaves, outs, plain, ctrl):
                 qr_backward_error(torch, a, q0).max()),
             tf32_control_backward_error_max=float(
                 qr_backward_error(torch, a, qc).max()),
+            sign_margin_min=float(sign_margin(torch, a, q).min()),
+            plain_sign_margin_min=float(sign_margin(torch, a, q0).min()),
+            flip_control_sign_margin_min=float(
+                sign_margin(torch, a, flipped).min()),
+            negative_diag_entries=int((torch.diagonal(
+                q.mT @ a, dim1=-2, dim2=-1) < 0).sum()),
+            columns_signed_beyond_tol=float((rkk > tol).double().mean()),
             dq_max=float(dq.max()), tf32_control_dq_max=float(dq_ctrl.max()),
             cond_max=float(cond.max()), cond_median=float(cond.median()),
             dq_over_cond_tol_max=float((dq / (tol * cond)).max()),
             members_within_unscaled_tol=int((dq <= tol).sum()),
+            fp64_witness_max=float(w.max()),
+            plain_fp64_witness_max=float(w0.max()),
+            tf32_control_fp64_witness_max=float(witness(qc).max()),
+            members_kernels_nearer_fp64=int((w <= w0).sum()),
             members=int(q.shape[0]),
             finite=bool(torch.isfinite(q).all()))
     return per_class
@@ -2268,16 +2349,18 @@ def ortho_check(torch, macro_ops, dirs):
     kernels and through the plain lowering on the card: the plan (3
     classes, 3 dispatches, no leafwise matrix), the literal launches, and
     per class (:func:`class_measures`) every O inside the conformance
-    bar, each lowering's O a QR Q of its momentum to ``tol`` in backward
-    error (which does not grow with the momentum's condition: the
-    step's attention momenta reach cond ~1e6, and two backward-stable
-    Q factors of such a matrix differ elementwise by up to ~cond x their
-    backward error, so the kernels' O is held against the plain
-    lowering's within ``tol * cond``), the TF32 control failing the
-    backward-error bound.  Then Gaussian stacks of the same leaf shapes
-    (well conditioned) through the same three calls: the kernels' O
-    within ``tol`` of the plain lowering's elementwise, the TF32 control
-    failing that."""
+    bar, and each lowering's O the sign-fixed QR Q of its momentum: a QR
+    Q to ``tol`` in backward error (which does not grow with the
+    momentum's condition), with ``diag(O^T A) >= -tol * ||a_k||`` (the
+    sign convention, to the same rounding); the TF32 control fails the
+    first, the sign-flip control the second.  The step's attention
+    momenta reach cond ~1e6, where two backward-stable Q factors differ
+    elementwise by up to ~cond x their backward error: the kernels'
+    distance from the plain lowering's O, over ``tol * cond``, and each
+    lowering's distance from the fp64 witness are readings, not gates.
+    Then stacks of the same leaf shapes drawn from a Gaussian through the
+    same three calls: the kernels' O within ``tol`` of the plain
+    lowering's elementwise, the TF32 control failing that."""
     from repro_torch.optim import plan_batched_ortho
 
     leaves = list(dirs.values())
@@ -2309,9 +2392,12 @@ def ortho_check(torch, macro_ops, dirs):
         assert c["finite"] and c["ortho_max"] <= c["bar"], (label, c)
         assert c["backward_error_max"] <= c["tol"], (label, c)
         assert c["plain_backward_error_max"] <= c["tol"], (label, c)
-        assert c["dq_over_cond_tol_max"] <= 1, (label, c)
         assert c["tf32_control_backward_error_max"] > c["tol"], (
             "the TF32 control passed", label, c)
+        assert c["sign_margin_min"] >= -c["tol"], (label, c)
+        assert c["plain_sign_margin_min"] >= -c["tol"], (label, c)
+        assert c["flip_control_sign_margin_min"] < -c["tol"], (
+            "the sign-flip control passed", label, c)
     for label, c in gaussian.items():
         assert c["dq_max"] <= c["tol"], (label, c)
         assert c["tf32_control_dq_max"] > c["tol"], (
@@ -2319,18 +2405,17 @@ def ortho_check(torch, macro_ops, dirs):
     return checks
 
 
-def ortho_yardsticks(torch, dirs, grads, params, tcfg):
-    """(b) The optimizer alone: ``muon_update`` batched (the kernels) and
+def ortho_yardsticks(torch, dirs, record):
+    """(b) The optimizer alone, on the recorded step's inputs
+    (:func:`recorded_step`): ``muon_update`` batched (the kernels) and
     leafwise (``geqrf_fori``, no kernel), and ``torch.linalg.qr`` plus the
     sign fix over the same three stacks; host ms, median of 3."""
-    from repro_torch.optim import muon_init, muon_update
-
-    state = muon_init(params)
+    from repro_torch.optim import muon_update
 
     def update(batched):
         def run():
-            muon_update(grads, state, params, lr=tcfg.lr,
-                        momentum=tcfg.momentum, batched_ortho=batched)
+            muon_update(record["grads"], record["state"], record["params"],
+                        **dict(record["kw"], batched_ortho=batched))
             torch.cuda.synchronize()
         return run
 
@@ -2410,44 +2495,96 @@ def instrumented_step(torch, trainer):
     return ms
 
 
+def params_of(trainer):
+    return {k: p.detach().clone()
+            for k, p in trainer.state.params.named_parameters()}
+
+
+def relative_change(torch, p, ref, start, keys):
+    """``||P - P_ref|| / ||P_ref - P_start||``, Frobenius over the leaves
+    ``keys``."""
+    num = sum(float(torch.sum((p[k] - ref[k]).double() ** 2)) for k in keys)
+    den = sum(float(torch.sum((ref[k] - start[k]).double() ** 2))
+              for k in keys)
+    return math.sqrt(num / den)
+
+
+def plain_run(torch, cfg, tcfg, run, data, start, tf32=False):
+    """The same steps from ``start`` (a ``ParamTree``, copied) with the
+    orthogonalization on the plain lowering (``tf32``: with TF32 products,
+    the control): its losses, its parameters after the first update (step
+    2) and after the last step, and its seconds."""
+    from repro_torch import QRConfig
+    from repro_torch.training import Trainer
+
+    plain_cfg = dataclasses.replace(tcfg, qr_config=QRConfig(use_kernel=False))
+    trainer = Trainer(cfg, plain_cfg, run, data, device="cuda", log_fn=log,
+                      params=copy.deepcopy(start))
+    wrap = tf32_update(torch) if tf32 else (lambda update: update)
+    with wrapped_update(wrap):
+        t0 = time.perf_counter()
+        trainer.run(stop_at=2)
+        first = params_of(trainer)
+        trainer.run(stop_at=1 + TRAIN_TIMED)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    out = ([m["loss"] for m in trainer.metrics_history], first,
+           params_of(trainer), seconds)
+    del trainer
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_training(torch, macro_ops):
     """Phase 14: QR-Muon training of SmolLM-135M at full width on the
     card (the port's ``Trainer``, ``TrainConfig(optimizer="muon-qr",
     batched_ortho=True)``, ``SyntheticLM`` at batch 8, sequence 512, seed
-    0): (a) one step's 210 momenta through the kernels and the plain
-    lowering; (b) one warm-up step and three timed steps, an instrumented
-    step, the leafwise optimizer and ``torch.linalg.qr`` beside them;
-    (c) the losses finite and within ``TRAIN_LOSS_RTOL`` of a run from the
-    same weights and batches whose orthogonalization runs the plain
-    lowering.  Returns the results and the launches of the training run
+    0): the warm-up step, recording what it hands the optimizer; (a) that
+    step's 210 momenta (``muon_directions`` of the recorded gradients)
+    through the kernels and the plain lowering; (b) three timed steps, an
+    instrumented step, the leafwise optimizer and ``torch.linalg.qr``
+    beside them; (c) the losses finite, and the losses after the first
+    update and the Muon leaves' change over the first update within
+    ``TRAIN_LOSS_RTOL`` and ``TRAIN_UPDATE_RTOL`` of a run from the same
+    weights and batches whose orthogonalization runs the plain lowering,
+    a run with TF32 products in the orthogonalization failing the
+    latter.  Returns the results and the launches of the training run
     (the warm-up and timed steps)."""
-    from repro_torch import QRConfig
     from repro_torch.models import param_count
+    from repro_torch.optim import is_muon_param, muon_directions
     from repro_torch.training import Trainer
 
     cfg, data, run, tcfg = train_setup(torch)
     trainer = Trainer(cfg, tcfg, run, data, device="cuda", log_fn=log)
-    start = copy.deepcopy(trainer.state.params)
+    start_tree = copy.deepcopy(trainer.state.params)
+    start = params_of(trainer)
     nparams = param_count(trainer.state.params)
     log("training model:", json.dumps(dict(
         arch=cfg.name, params=nparams, n_layers=cfg.n_layers,
         d_model=cfg.d_model, d_ff=cfg.d_ff, vocab=cfg.vocab_size,
         batch=TRAIN_BATCH, seq=TRAIN_SEQ, dtype=cfg.dtype)))
 
-    grads, dirs = step_directions(torch, trainer, tcfg)
+    torch.cuda.synchronize()
+    macro_ops.reset_launch_counts()
+    step_ms, record = recorded_step(torch, trainer)
+    warm_launches = launch_counts(macro_ops)
+    _, dirs = muon_directions(record["grads"], record["state"],
+                              record["params"],
+                              momentum=record["kw"]["momentum"])
     ortho = ortho_check(torch, macro_ops, dirs)
-    params = {k: p.detach() for k, p in
-              trainer.state.params.named_parameters()}
-    yard = ortho_yardsticks(torch, dirs, grads, params, tcfg)
+    yard = ortho_yardsticks(torch, dirs, record)
     yard["profile"] = step_profile(torch, trainer, tcfg, dirs)
-    del grads, dirs, params
+    del record, dirs
     torch.cuda.empty_cache()
 
     torch.cuda.synchronize()
     macro_ops.reset_launch_counts()
-    step_ms = train_steps(torch, trainer, 1 + TRAIN_TIMED)
+    step_ms += train_steps(torch, trainer, 1)
+    first = params_of(trainer)
+    step_ms += train_steps(torch, trainer, TRAIN_TIMED - 1)
     launches = launch_counts(macro_ops)
     losses = [m["loss"] for m in trainer.metrics_history]
+    after = params_of(trainer)
     inst = instrumented_step(torch, trainer)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     timed = statistics.median(step_ms[1:])
@@ -2458,26 +2595,49 @@ def phase_training(torch, macro_ops):
     del trainer
     torch.cuda.empty_cache()
 
-    plain_cfg = dataclasses.replace(tcfg, qr_config=QRConfig(use_kernel=False))
-    plain = Trainer(cfg, plain_cfg, run, data, device="cuda", log_fn=log,
-                    params=start)
-    t0 = time.perf_counter()
-    plain.run(stop_at=1 + TRAIN_TIMED)
-    timing["plain_lowering_run_s"] = time.perf_counter() - t0
-    plain_losses = [m["loss"] for m in plain.metrics_history]
-    del plain, start
+    plain_losses, plain_first, plain, timing["plain_lowering_run_s"] = (
+        plain_run(torch, cfg, tcfg, run, data, start_tree))
+    ctrl_losses, ctrl_first, ctrl, timing["tf32_control_run_s"] = plain_run(
+        torch, cfg, tcfg, run, data, start_tree, tf32=True)
+    muon = [k for k, p in start.items() if is_muon_param(k, p)]
+
+    def loss_rel(xs):
+        return [abs(a - b) / abs(b) for a, b in zip(xs, plain_losses)]
+
+    def updates(first_p, last_p):
+        """The first update's Muon leaves (the gate), and as readings the
+        run's Muon leaves and every leaf."""
+        return dict(
+            first_update_muon=relative_change(torch, first_p, plain_first,
+                                              start, muon),
+            run_muon=relative_change(torch, last_p, plain, start, muon),
+            run_all=relative_change(torch, last_p, plain, start, start))
+
+    checks = dict(
+        losses=losses, plain_losses=plain_losses,
+        tf32_control_losses=ctrl_losses, rel_diff=loss_rel(losses),
+        tf32_control_rel_diff=loss_rel(ctrl_losses), rtol=TRAIN_LOSS_RTOL,
+        update_rel_diff=updates(first, after),
+        tf32_control_update_rel_diff=updates(ctrl_first, ctrl),
+        update_rtol=TRAIN_UPDATE_RTOL, warmup_launches=warm_launches,
+        launches=launches,
+        expected={k: TRAIN_TIMED * v for k, v in ORTHO_LAUNCHES.items()})
+    del start_tree, start, first, after, plain_first, plain, ctrl_first, ctrl
     torch.cuda.empty_cache()
-    rel = [abs(a - b) / abs(b) for a, b in zip(losses, plain_losses)]
-    checks = dict(losses=losses, plain_losses=plain_losses, rel_diff=rel,
-                  rtol=TRAIN_LOSS_RTOL, launches=launches,
-                  expected={k: (1 + TRAIN_TIMED) * v
-                            for k, v in ORTHO_LAUNCHES.items()})
     log("training loss checks:", json.dumps(checks))
-    assert all(math.isfinite(x) for x in losses + plain_losses), checks
+    first_update = checks["update_rel_diff"]["first_update_muon"]
+    ctrl_update = checks["tf32_control_update_rel_diff"]["first_update_muon"]
+    assert all(math.isfinite(x)
+               for x in losses + plain_losses + ctrl_losses), checks
     assert len(losses) == len(plain_losses) == 1 + TRAIN_TIMED, checks
-    assert max(rel) <= TRAIN_LOSS_RTOL, checks
+    assert max(checks["rel_diff"][2:]) <= TRAIN_LOSS_RTOL, checks
+    assert first_update <= TRAIN_UPDATE_RTOL, checks
+    assert ctrl_update > TRAIN_UPDATE_RTOL, (
+        "the TF32 control passed", checks)
+    assert warm_launches == ORTHO_LAUNCHES, checks
     assert launches == checks["expected"], checks
-    return dict(ortho=ortho, timing=timing, losses=checks), launches
+    return dict(ortho=ortho, timing=timing, losses=checks), {
+        k: warm_launches.get(k, 0) + v for k, v in launches.items()}
 
 
 def host_ms(fn, reps, warmup=1):

@@ -16,13 +16,15 @@ from repro_torch.optim.batched_ortho import (
 )
 from repro_torch.optim.newton_schulz import newton_schulz_orthogonalize
 from repro_torch.optim.qr_muon import (
-    MuonState, is_muon_param, muon_init, muon_update, qr_orthogonalize_2d,
+    MuonState, is_muon_param, muon_directions, muon_init, muon_update,
+    qr_orthogonalize_2d,
 )
 from repro_torch.optim.schedule import warmup_cosine
 
 __all__ = [
     "AdamWState", "adamw_init", "adamw_update",
-    "MuonState", "muon_init", "muon_update", "is_muon_param",
+    "MuonState", "muon_init", "muon_update", "muon_directions",
+    "is_muon_param",
     "qr_orthogonalize_2d", "newton_schulz_orthogonalize", "warmup_cosine",
     "DEFAULT_ORTHO_POLICY", "OrthoClassPlan", "OrthoPlan",
     "batched_orthogonalize", "plan_batched_ortho",

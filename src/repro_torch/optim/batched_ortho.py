@@ -226,7 +226,6 @@ def batched_orthogonalize(leaves: Sequence[torch.Tensor], *,
                           policy: Optional[BucketingPolicy] = None,
                           config: Optional[QRConfig] = None,
                           fallback: Optional[Callable] = None,
-                          backend: Optional[str] = None,
                           ortho_plan: Optional[OrthoPlan] = None,
                           device=None) -> List[torch.Tensor]:
     """Sign-fixed thin Q of every matrix in ``leaves``, dispatched per
@@ -239,7 +238,7 @@ def batched_orthogonalize(leaves: Sequence[torch.Tensor], *,
     reuses a plan built from these leaves' shapes and dtypes."""
     dev = resolve_device(device)
     leaves = [torch.as_tensor(l, device=dev) for l in leaves]
-    backend = dev.type if backend is None else backend
+    backend = dev.type
     policy = DEFAULT_ORTHO_POLICY if policy is None else policy
     if ortho_plan is None:
         ortho_plan = plan_batched_ortho(

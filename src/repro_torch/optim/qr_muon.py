@@ -37,8 +37,8 @@ from repro_torch.core.plan import QRConfig, plan as qr_plan, resolve_device
 from repro_torch.optim.adamw import adam_leaf, bias_corrections
 from repro_torch.optim.newton_schulz import newton_schulz_orthogonalize
 
-__all__ = ["MuonState", "muon_init", "muon_update", "is_muon_param",
-           "qr_orthogonalize_2d"]
+__all__ = ["MuonState", "muon_init", "muon_update", "muon_directions",
+           "is_muon_param", "qr_orthogonalize_2d"]
 
 Tensor = torch.Tensor
 Params = Dict[str, Tensor]
@@ -181,6 +181,22 @@ def muon_init(params: Params) -> MuonState:
     return MuonState(step=0, mu=mu, nu=nu)
 
 
+def muon_directions(grads: Params, state: MuonState, params: Params, *,
+                    momentum: float = 0.95, nesterov: bool = True):
+    """``(new_mu, directions)`` of the Muon leaves, in ``params`` order:
+    each leaf's new momentum and the matrix stack a step orthogonalizes
+    (the Nesterov look-ahead ``g + momentum * mu``, or ``mu``)."""
+    new_mu, directions = {}, {}
+    for k, p in params.items():
+        if not is_muon_param(k, p):
+            continue
+        g = grads[k].to(torch.float32)
+        mu = momentum * state.mu[k] + g
+        new_mu[k] = mu
+        directions[k] = g + momentum * mu if nesterov else mu
+    return new_mu, directions
+
+
 def muon_update(
     grads: Params, state: MuonState, params: Params, *,
     lr,
@@ -228,25 +244,21 @@ def muon_update(
         scale = torch.sqrt(_f32(max(1.0, d_out / d_in), dev))
         return (p - lr * (scale * o + weight_decay * p)).to(p.dtype)
 
-    new_p, new_mu, new_nu = {}, {}, {}
-    pending = {}                       # muon leaves awaiting a batched Q
+    new_p, new_nu = {}, {}
+    new_mu, pending = muon_directions(grads, state, params,
+                                      momentum=momentum, nesterov=nesterov)
     for k, p in params.items():
-        g = grads[k].to(torch.float32)
-        if not is_muon_param(k, p):
-            new_p[k], new_mu[k], new_nu[k] = adam(p, g, state.mu[k],
-                                                  state.nu[k])
+        if k not in pending:
+            new_p[k], new_mu[k], new_nu[k] = adam(
+                p, grads[k].to(torch.float32), state.mu[k], state.nu[k])
             continue
-        mu = momentum * state.mu[k] + g
-        direction = g + momentum * mu if nesterov else mu
-        new_mu[k], new_nu[k] = mu, state.nu[k]
-        if use_batched:
-            pending[k] = direction
-            continue
-        o = _orthogonalize_leaf(direction, method, orthogonalize_fn,
-                                q_method=qr_q_method, config=qr_config)
-        new_p[k] = finish_muon(p, o)
+        new_nu[k] = state.nu[k]
+        if not use_batched:
+            o = _orthogonalize_leaf(pending[k], method, orthogonalize_fn,
+                                    q_method=qr_q_method, config=qr_config)
+            new_p[k] = finish_muon(p, o)
 
-    if pending:
+    if pending and use_batched:
         from repro_torch.optim.batched_ortho import batched_orthogonalize
 
         cfg = qr_config
@@ -260,4 +272,5 @@ def muon_update(
         for k, o in zip(pending, outs):
             new_p[k] = finish_muon(params[k], o)
     new_p = {k: new_p[k] for k in params}
+    new_mu = {k: new_mu[k] for k in params}
     return new_p, MuonState(step=step, mu=new_mu, nu=new_nu)

@@ -290,6 +290,47 @@ def test_muon_update_writes_no_input():
     assert all(not v.any() for v in state.mu.values())
 
 
+@pytest.mark.parametrize("nesterov", [True, False])
+def test_muon_directions_are_what_the_step_orthogonalizes(nesterov,
+                                                          monkeypatch):
+    """``muon_directions`` returns, bit for bit, the momenta of the step
+    and the stacks ``muon_update(batched_ortho=True)`` hands
+    ``batched_orthogonalize``; the momenta match the reference's step at
+    fp32 rounding."""
+    from repro_torch.optim import batched_ortho
+
+    params, grads = _lm_like(2)
+    tp = {k: torch.from_numpy(v) for k, v in _flat(params).items()}
+    tg = {k: torch.from_numpy(v) for k, v in _flat(grads).items()}
+    _, state = T.muon_update(tg, T.muon_init(tp), tp, lr=0.02, device="cpu")
+    seen = []
+    real = batched_ortho.batched_orthogonalize
+
+    def record(leaves, **kw):
+        seen.append(list(leaves))
+        return real(leaves, **kw)
+
+    monkeypatch.setattr(batched_ortho, "batched_orthogonalize", record)
+    _, after = T.muon_update(tg, state, tp, lr=0.02, nesterov=nesterov,
+                             batched_ortho=True, device="cpu")
+    mu, dirs = T.muon_directions(tg, state, tp, nesterov=nesterov)
+    assert list(dirs) == [k for k, p in tp.items() if T.is_muon_param(k, p)]
+    assert len(seen) == 1 and len(seen[0]) == len(dirs)
+    assert all(torch.equal(a, b) for a, b in zip(seen[0], dirs.values()))
+    assert all(torch.equal(mu[k], after.mu[k]) for k in mu)
+
+    rp = jax.tree.map(jnp.asarray, params)
+    rg = jax.tree.map(jnp.asarray, grads)
+    rstate = R.muon_init(rp)
+    for _ in range(2):
+        _, rstate = R.muon_update(rg, rstate, rp, lr=jnp.float32(0.02),
+                                  nesterov=nesterov)
+    rmu = _flat(jax.tree.map(np.asarray, rstate.mu))
+    for k in mu:
+        np.testing.assert_allclose(mu[k].numpy(), rmu[k], rtol=4 * EPS32,
+                                   atol=4 * EPS32)
+
+
 @pytest.mark.parametrize("opt", ["muon-qr", "muon-ns", "adamw"])
 def test_optimizers_reduce_loss(opt):
     """Twin of ``test_optim.py::test_optimizers_reduce_loss`` on the

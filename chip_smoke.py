@@ -106,6 +106,22 @@ Phases, each of which exits non-zero when it fails:
      (c) the losses finite and within 1e-3 relative of a run from the
      same weights and batches whose orthogonalization runs the plain
      lowering; (d) the training run's launches of every kernel.
+ 15. the tuning layer: (a) ``dag.analyze_tiled``'s depth equals the levels
+     phase 4's 2048^2 factorization dispatched (190) and the 640^2
+     megakernel's table (58), with beta beside the measured ms per level
+     and the paper's theta curve; (b) ``tuning.sweep_shapes`` over the
+     card's eight shape classes (fp32, reps 3): every candidate's us, the
+     best and the heuristic pick, ``check_cache`` clean, and each class's
+     tuned plan in the conformance bar and within 4 sqrt(N) eps of its
+     plain lowering (a TF32 control failing); (c) with the fresh cache
+     installed, ``plan`` selects ``tuned`` on every class, the 640^2 and
+     (60, 576, 576) plans keep the megakernel unless the 768^2 entry
+     measured both lowerings (ROADMAP C7), and ``qr`` ms with and without
+     the cache at each class edge, 200^2 and 640^2; (d) a warm service
+     counts one plan invalidation and resets its open breaker when the
+     cache is installed, and its 768^2 bucket's rung follows the entry;
+     (e) the sweep's launches of every kernel; the active cache is
+     restored afterwards.
 
 Each correctness check is shown to reject a control whose answer is only
 TF32-grade: the kernels' written outputs rounded to TF32 (fp64: to fp32),
@@ -116,7 +132,8 @@ Every phase prints its seconds.
 
 The second-to-last line of output is a JSON object with one record per
 kernel (``service_launches``: its launches on phase 13's service paths;
-``training_launches``: on phase 14's warm-up and timed steps);
+``training_launches``: on phase 14's warm-up and timed steps;
+``tuning_launches``: in phase 15's sweep);
 the last is ``{"ok": true, "device": {...}}``.  Without a CUDA
 device the script exits with status 1 and prints no result.
 """
@@ -138,11 +155,13 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM data-sheet peaks outside the tensor cores: the kernels' fp32
-# work runs as FMA on the CUDA cores, so FP32 SIMT is their compute roof
-# (the fp64 update products' DMMA rate is not a roof any row reports).
-PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
-PEAK_BYTES = 3.35e12
+# H100 SXM data-sheet peaks, read from ``repro_torch.launch.roofline``
+# (the tuner's pruning reads the same numbers) once the package is on
+# the path (:func:`load_peaks`).  The kernels' fp32 work runs as FMA on
+# the CUDA cores, so FP32 SIMT is their compute roof (the fp64 update
+# products' DMMA rate is not a roof any row reports).
+PEAK_FLOPS = {}
+PEAK_BYTES = None
 
 N = 2048          # main-path matrix size (the tiled route's single-device ceiling)
 NB = 32           # default tile
@@ -197,6 +216,43 @@ PANEL_PATHS = (
     ("200", (200, 200), "blocked_default"),         # under the tiled floor
     ("wide", (16, 1000), "single_panel"),           # one wide panel
 )
+
+
+def load_peaks():
+    global PEAK_BYTES
+    from repro_torch.launch import roofline
+
+    PEAK_FLOPS.update((k, roofline.PEAK_FLOPS[k])
+                      for k in ("float32", "float64"))
+    PEAK_BYTES = roofline.HBM_BW
+
+
+# Levels of the tiled factorization each main-path phase dispatched on
+# the wavefront kernels (counted by :func:`count_levels`), keyed by label.
+DISPATCHED_LEVELS = {}
+
+
+@contextlib.contextmanager
+def count_levels():
+    """The distinct factorization levels dispatched inside the block: the
+    engine names each (level, kind) launch batch with
+    ``profiler.kernel_label`` just before it launches (Q formation's
+    levels, QLARFB / QSSRFB, are not counted)."""
+    from repro_torch.observability import profiler
+
+    seen = set()
+    label = profiler.kernel_label
+
+    def spy(kind, level=None):
+        if kind in ("GEQRT", "LARFB", "TSQRT", "SSRFB"):
+            seen.add(level)
+        return label(kind, level)
+
+    profiler.kernel_label = spy
+    try:
+        yield seen
+    finally:
+        profiler.kernel_label = label
 
 
 def log(*args):
@@ -570,9 +626,11 @@ def phase_main_path(torch, engine, macro_ops, repro_torch, n, mode, label):
 
     torch.cuda.synchronize()
     macro_ops.reset_launch_counts()
-    q, r = repro_torch.qr(a)
-    torch.cuda.synchronize()
+    with count_levels() as levels:
+        q, r = repro_torch.qr(a)
+        torch.cuda.synchronize()
     launches = launch_counts(macro_ops)
+    DISPATCHED_LEVELS[label] = len(levels)
     g = n // NB
     expected = dict(engine.dispatch_counts(g, g, mode),
                     **engine.q_dispatch_counts(g, g, g, mode))
@@ -1692,7 +1750,7 @@ def plan_buckets(svc, mode="reduced", dtype="float32"):
     """The service's prepared plans of one mode and dtype as ``{bucket:
     [padded batch, rung]}``."""
     return {f"{k.m}x{k.n}": [batch, rung]
-            for k, batch, rung, _ in svc._plans
+            for k, batch, rung in svc._plans
             if k.mode == mode and k.dtype == dtype}
 
 
@@ -2639,6 +2697,260 @@ def phase_training(torch, macro_ops):
     return dict(ortho=ortho, timing=timing, losses=checks), {
         k: warm_launches.get(k, 0) + v for k, v in launches.items()}
 
+# ---------------------------------------------------------------------------
+# phase 15: DAG analysis and the measured tuning layer
+# ---------------------------------------------------------------------------
+
+TUNING_REPS = 3
+# Kernels the sweep must launch: the wavefront kernels and the megakernel
+# (tiled candidates), the panel kernels (geqrf_ht, geqr2_ht).
+TUNING_KERNELS = ("GEQRT", "LARFB", "TSQRT", "SSRFB", "MEGAKERNEL",
+                  "MHT_PANEL", "WY_TRAILING")
+TUNING_EXTRA = ((200, 200), (640, 640))     # off the class edges
+
+
+def tuning_dag(dag, mega_row, span_2048_ms):
+    """(a) The DAG's tiled depth against the levels the card ran: the
+    2048^2 wavefront factorization's dispatched levels and the 640^2
+    megakernel table's; beta beside the measured ms per level, and the
+    paper's theta curve (readings)."""
+    d2048, d640 = dag.analyze_tiled(N, NB), dag.analyze_tiled(N_MEGA, NB)
+    out = {
+        "2048": dict(depth=d2048.depth, dispatched_levels=DISPATCHED_LEVELS[
+            "main path"], ops=d2048.ops, beta=d2048.beta,
+            device_ms_per_level=span_2048_ms / d2048.depth),
+        "640": dict(depth=d640.depth, megakernel_levels=mega_row["levels"],
+                    ops=d640.ops, beta=d640.beta,
+                    device_ms_per_level=mega_row["ms_per_level"]),
+        "theta": [{k: r[k] for k in ("n", "theta_levels", "theta_width4",
+                                     "beta_ht", "beta_mht")}
+                  for r in dag.theta_curve()["rows"]],
+        "theta_width4_512": dag.phase_model_theta(512)["theta"],
+    }
+    log("tuning dag:", json.dumps(out))
+    assert d2048.depth == out["2048"]["dispatched_levels"], out
+    assert d640.depth == mega_row["levels"], out
+    return out
+
+
+def tuned_check(torch, repro_torch, shape, seed):
+    """(b) The tuned plan of one class on the card at the class's shape:
+    the conformance bar, agreement with its plain lowering within 4
+    sqrt(N) eps; the plain lowering with TF32 products, its outputs
+    rounded to TF32, must fail the agreement (its bar ratio is a
+    reading: the bar leaves a TF32-grade answer 10-300x of room)."""
+    a = seeded(torch, shape, seed, torch.float32)
+    m, n = shape
+    solver = repro_torch.plan(a.shape, a.dtype, backend="cuda", explain=True)
+    cfg = solver.config
+    assert solver.explain.selected.rule == "tuned", solver.explain
+    q, r = solver.solve(a)
+    plain = repro_torch.QRConfig(method=cfg.method, block=cfg.block,
+                                 use_kernel=False, use_tuning_cache=False)
+    q0, r0 = repro_torch.qr(a, config=plain)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        qc, rc = repro_torch.qr(a, config=plain)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    qc, rc = round_low(torch, qc), round_low(torch, rc)
+    eps = float(torch.finfo(torch.float32).eps)
+    bar = 100 * eps * max(m, n)
+    tol = 4 * max(m, n) ** 0.5 * eps
+
+    def conformance(q, r):
+        q64, r64, a64 = q.double(), r.double(), a.double()
+        eye = torch.eye(q.shape[-1], dtype=torch.float64, device="cuda")
+        return (float((q64.T @ q64 - eye).abs().max()),
+                float(torch.linalg.norm(a64 - q64 @ r64)
+                      / torch.linalg.norm(a64)))
+
+    ortho, resid = conformance(q, r)
+    c_ortho, c_resid = conformance(qc, rc)
+    out = dict(method=cfg.method, block=cfg.block, use_kernel=cfg.use_kernel,
+               dispatch_mode=cfg.dispatch_mode, ortho=ortho, resid=resid,
+               bar=bar, dq=float((q - q0).abs().max()),
+               dr_rel=float((r - r0).abs().max() / r0.abs().max()),
+               agree_tol=tol,
+               tf32_control_dq=float((qc - q).abs().max()),
+               tf32_control_dr_rel=float((rc - r).abs().max()
+                                         / r.abs().max()),
+               tf32_control_bar_ratio=max(c_ortho, c_resid) / bar,
+               finite=all(bool(torch.isfinite(x).all())
+                          for x in (q, r, q0, r0)))
+    assert out["finite"] and ortho <= bar and resid <= bar, (shape, out)
+    assert out["dq"] <= tol and out["dr_rel"] <= tol, (shape, out)
+    assert max(out["tf32_control_dq"], out["tf32_control_dr_rel"]) > tol, (
+        "the TF32 control passed", shape, out)
+    return out
+
+
+def tuning_routes(torch, repro_torch, cache, engine, plan_mod):
+    """(c) With the fresh cache installed: every swept class plans through
+    ``tuned``; C7 keeps the megakernel at 640^2 and on the (60, 576, 576)
+    stack unless the 768^2 entry measured both lowerings at its block;
+    ``qr`` ms on the auto route with and without the cache (readings)."""
+    from repro_torch.tuning.sweep import DEFAULT_SHAPES
+
+    selected = {}
+    for m, n in DEFAULT_SHAPES:
+        s = repro_torch.plan((m, n), torch.float32, backend="cuda",
+                             explain=True)
+        selected[f"{m}x{n}"] = [s.explain.selected.rule, s.config.method,
+                                s.config.block, s.config.dispatch_mode]
+        assert s.explain.selected.rule == "tuned", (m, n, s.explain)
+    edge = cache.lookup(backend="cuda", m=768, n=768, dtype=torch.float32)
+    decided = plan_mod.tuned_dispatch_mode(edge)
+    c7 = {}
+    for shape in ((640, 640), STACK):
+        s = repro_torch.plan(shape, torch.float32, backend="cuda",
+                             explain=True)
+        d = s.explain.decision("tuned_config")
+        c7["x".join(map(str, shape))] = dict(
+            method=s.config.method, block=s.config.block,
+            dispatch_mode=s.config.dispatch_mode,
+            tuned_config=None if d is None else d.reason)
+        if s.config.method == "tiled" and s.config.use_kernel:
+            p, q = -(-shape[-2] // s.config.block), -(-shape[-1] // s.config.block)
+            want = decided or engine.resolve_dispatch_mode(
+                p, q, s.config.block)
+            assert s.config.dispatch_mode == want, (shape, c7, decided)
+    ms = {}
+    for m, n in tuple(DEFAULT_SHAPES) + TUNING_EXTRA:
+        a = seeded(torch, (m, n), 1500 + m + n, torch.float32)
+        untuned = repro_torch.QRConfig(use_tuning_cache=False)
+
+        def run(cfg=None):
+            def go():
+                repro_torch.qr(a, config=cfg)
+                torch.cuda.synchronize()
+            return go
+
+        ms[f"{m}x{n}"] = dict(
+            tuned=[repro_torch.plan((m, n), torch.float32).config.method,
+                   host_ms(run(), reps=3)],
+            heuristic=[repro_torch.plan((m, n), torch.float32,
+                                        untuned).config.method,
+                       host_ms(run(untuned), reps=3)],
+            torch_linalg_qr=host_ms(lambda: (torch.linalg.qr(a),
+                                             torch.cuda.synchronize()),
+                                    reps=3))
+    out = dict(selected=selected, edge_768=edge.best.to_dict(),
+               edge_768_timings=edge.timings_dict,
+               edge_768_decides=decided, c7=c7, qr_ms=ms)
+    log("tuning routes:", json.dumps(out))
+    return out
+
+
+def tuning_service(torch, serving, inject, engine, plan_mod, cache):
+    """(d) A warm service on the card with an open breaker; installing
+    the fresh cache drops its plans once (``plan_invalidations`` 1) and
+    resets the breaker; a 768^2 bucket's first rung follows the 768^2
+    entry's dispatch mode where the entry's pick is the tiled kernels at
+    the service's tile, else the engine's budget rule."""
+    from repro_torch.tuning import set_active_cache
+
+    set_active_cache(None)                     # the default: no cache
+    svc = serving.QRService(verify=True, breaker_threshold=1)
+    wave = wave_of([(128, 128), (120, 110), (96, 64), (700, 700)], 3100)
+    with inject.active(inject.Fault(site="dispatch", match="128x128")):
+        svc.submit_many(wave)
+    svc.submit_many(wave)                      # warm: plans cached
+    before = svc.stats()
+    assert before["breaker_open"] == 1 and before["plans_cached"] > 0, before
+    set_active_cache(cache)
+    results = svc.submit_many(wave)
+    after = svc.stats()
+    svc.submit_many(wave)
+    steady = svc.stats()
+    key = serving.BucketKey(768, 768, "float32", "reduced")
+    entry = cache.lookup(backend="cuda", m=768, n=768, dtype=torch.float32)
+    rung = svc._initial_rung(key)
+    best = entry.best
+    follows = (best.method == "tiled" and best.use_kernel
+               and best.block == svc.policy.tile)
+    want = (best.dispatch_mode if follows else engine.resolve_dispatch_mode(
+        768 // svc.policy.tile, 768 // svc.policy.tile, svc.policy.tile))
+    out = dict(
+        before={k: before[k] for k in ("plans_cached", "breaker_open",
+                                       "plan_invalidations")},
+        after={k: after[k] for k in ("plans_cached", "breaker_open",
+                                     "plan_invalidations", "breaker_resets",
+                                     "cache_evictions")},
+        steady_invalidations=steady["plan_invalidations"],
+        bucket_768_rung=rung, entry_768=best.to_dict(),
+        rung_follows_entry=follows,
+        bar_ratio=bar_ratio(torch, wave, results, "reduced"))
+    log("tuning service:", json.dumps(out))
+    assert after["plan_invalidations"] == 1 == steady["plan_invalidations"], out
+    assert after["breaker_open"] == 0 and after["breaker_resets"] == 1, out
+    assert all(r.ok for r in results) and out["bar_ratio"] <= 1, out
+    assert rung == want, out
+    return out
+
+
+def phase_tuning(torch, macro_ops, repro_torch, mega_row, span_2048_ms):
+    """Phase 15: the DAG cross-check, the sweep over the card's classes
+    (its launches counted), the ``tuned`` rule with the fresh cache, the
+    service's invalidation; the active cache restored in a ``finally``."""
+    import importlib
+    import tempfile
+
+    from repro_torch import serving
+    from repro_torch.core import dag, engine
+    from repro_torch.robustness import inject
+    from repro_torch.tuning import TuningCache, set_active_cache
+    from repro_torch.tuning import sweep
+
+    plan_mod = importlib.import_module("repro_torch.core.plan")
+    out = dict(dag=tuning_dag(dag, mega_row, span_2048_ms))
+    try:
+        torch.cuda.synchronize()
+        macro_ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        fresh = sweep.sweep_shapes(sweep.DEFAULT_SHAPES, dtype=torch.float32,
+                                   reps=TUNING_REPS, device="cuda")
+        torch.cuda.synchronize()
+        sweep_s = time.perf_counter() - t0
+        launches = launch_counts(macro_ops)
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "tuning.json")
+            fresh.save(path)
+            cache = TuningCache.load(path)
+        classes = {f"{e.shape_class[0]}x{e.shape_class[1]}": dict(
+            best=[e.best.method, e.best.block, e.best.dispatch_mode,
+                  e.best.use_kernel],
+            best_us=e.best_us, heuristic=e.heuristic_method,
+            heuristic_us=e.heuristic_us, timings_us=e.timings_dict)
+            for e in cache.entries()}
+        problems = sweep.check_cache(cache)
+        log("tuning sweep:", json.dumps(dict(
+            seconds=sweep_s, reps=TUNING_REPS, classes=classes,
+            problems=problems, launches=launches)))
+        want = {"x".join(map(str, sweep.shape_class(*s)))
+                for s in sweep.DEFAULT_SHAPES}
+        assert set(classes) == want and len(want) == 8, (classes, want)
+        assert problems == [], problems
+        missing = [k for k in TUNING_KERNELS if not launches.get(k)]
+        assert not missing, ("kernels the sweep did not launch", missing)
+        set_active_cache(cache)
+        out["conformance"] = {
+            f"{m}x{n}": tuned_check(torch, repro_torch, (m, n), 1400 + i)
+            for i, (m, n) in enumerate(sweep.DEFAULT_SHAPES)}
+        log("tuning conformance:", json.dumps(out["conformance"]))
+        out["routes"] = tuning_routes(torch, repro_torch, cache, engine,
+                                      plan_mod)
+        out["service"] = tuning_service(torch, serving, inject, engine,
+                                        plan_mod, cache)
+    finally:
+        set_active_cache(None)
+    d = repro_torch.plan((N_MEGA, N_MEGA), torch.float32,
+                         explain=True).explain.decision("tuned")
+    assert d.reason.startswith("no tuning cache loaded"), d
+    out.update(sweep_seconds=sweep_s, classes=classes)
+    return out, launches
+
 
 def host_ms(fn, reps, warmup=1):
     for _ in range(warmup):
@@ -2662,6 +2974,8 @@ def main() -> int:
     from repro_torch.core import engine, tilegraph
     from repro_torch.core import blocked
     from repro_torch.kernels import _build, macro_ops, ops, tile_ops
+
+    load_peaks()
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2719,6 +3033,9 @@ def main() -> int:
                                       macro_ops, tilegraph, repro_torch)
     training, training_launches = phase("training", phase_training, torch,
                                         macro_ops)
+    tuning, tuning_launches = phase(
+        "tuning", phase_tuning, torch, macro_ops, repro_torch,
+        mega_rows["MEGAKERNEL"], breakdown_2048["spun_device_span_ms"])
     # Each panel-path kernel's device time summed over one call of each
     # traced path (the profiler's spans), beside launches x one launch.
     summed = {}
@@ -2741,6 +3058,7 @@ def main() -> int:
             library_ms=r["library_ms"], ntasks=r["ntasks"],
             service_launches=service_launches.get(kind, 0),
             training_launches=training_launches.get(kind, 0),
+            tuning_launches=tuning_launches.get(kind, 0),
             **({"fp64_ms": r["fp64_ms"]} if "fp64_ms" in r else {}),
             **({"computes": Q_FORMATION} if kind.startswith("Q") else {})))
     for name, path_launches in (("MEGAKERNEL", mega_launches),
@@ -2758,6 +3076,7 @@ def main() -> int:
             library_ms=r["library_ms"], shape=r["shape"],
             service_launches=service_launches.get(name, 0),
             training_launches=training_launches.get(name, 0),
+            tuning_launches=tuning_launches.get(name, 0),
             **({"computes": Q_FORMATION} if "_Q" in name else {})))
     path_launches = {
         "MHT_PANEL": {k: p["launches"].get("MHT_PANEL", 0)
@@ -2779,6 +3098,7 @@ def main() -> int:
             service_launches=service_launches.get(kind, 0),
             training_launches=(training_launches.get(kind, 0)
                                + training_launches.get(kind + "_Q", 0)),
+            tuning_launches=tuning_launches.get(kind, 0),
             **({"launches_by_path": path_launches[kind],
                 "summed_device_ms_by_path": summed[kind]}
                if kind in path_launches else {})))
@@ -2838,6 +3158,15 @@ def main() -> int:
         tt["leafwise_optimizer_ms"], "| torch.linalg.qr over the stacks",
         tt["torch_linalg_qr_ms"], "| losses", json.dumps(tl["losses"]),
         "| plain-lowering run", json.dumps(tl["plain_losses"]))
+    log("card:", card, "| tuning sweep s", tuning["sweep_seconds"],
+        "| per class best / heuristic us:", json.dumps({
+            k: [v["best"][0], v["best_us"], v["heuristic"], v["heuristic_us"]]
+            for k, v in tuning["classes"].items()}),
+        "| qr ms tuned / heuristic / torch.linalg.qr:", json.dumps({
+            k: [v["tuned"], v["heuristic"], v["torch_linalg_qr"]]
+            for k, v in tuning["routes"]["qr_ms"].items()}),
+        "| DAG depth 2048 / 640:", tuning["dag"]["2048"]["depth"],
+        tuning["dag"]["640"]["depth"])
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

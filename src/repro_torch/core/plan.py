@@ -11,10 +11,17 @@ metadata, so routing decides exactly as the reference does; their
 ``sharded_tiled`` is left).  A method that registers a packed ``factor``
 solves every mode through :func:`_default_solve`, the reference's.
 
-Deliberate differences from the reference, each recorded in ROADMAP §C:
+The ``tuned`` rule consults the measured tuning cache
+(:mod:`repro_torch.tuning`) as the reference's does.  Deliberate
+differences from the reference, each recorded in ROADMAP §C:
 
-  * the ``tuned`` rule is always rejected: the tuning cache is not ported
-    (ROADMAP A13);
+  * a tuned method that cannot honor ``use_kernel=True`` rejects the
+    ``tuned`` rule and routing falls through (the reference plans it and
+    raises, ROADMAP C3);
+  * a tuned ``dispatch_mode`` applies only when the entry measured both
+    lowerings at its block; otherwise the engine's budget rule resolves
+    the mode for the member's own grid (the reference overlays the
+    class edge's mode on every member, ROADMAP C7);
   * ``use_kernel=None`` on ``"cuda"`` resolves to True for a method whose
     kernels are ported, and raises when their per-task working set
     exceeds :data:`DEFAULT_SMEM_BUDGET`, one H100 block's shared memory:
@@ -64,6 +71,7 @@ __all__ = [
     "DEFAULT_TABLE_BUDGET",
     "sign_fix_qr",
     "sign_fix_r",
+    "tuned_dispatch_mode",
 ]
 
 Tensor = torch.Tensor
@@ -106,7 +114,8 @@ class QRConfig:
     and checks.  ``method="auto"`` / ``use_kernel=None`` / ``nblocks=None``
     are resolved by :func:`plan`; ``dispatch_mode`` is the engine lowering
     ("wavefront", "megakernel", None = auto);
-    ``use_tuning_cache`` is accepted but the cache is not ported;
+    ``use_tuning_cache`` lets the ``tuned`` rule consult the measured
+    cache;
     ``verify`` turns on the health-checked solve of :func:`repro_torch.qr`
     (True / False, or None for the ``REPRO_VERIFY`` environment
     default)."""
@@ -386,13 +395,132 @@ _ROUTE_RULES = ("degenerate_empty", "explicit", "tuned", "tsqr_tall_skinny",
                 "tpu_kernel_panel_fits", "single_panel", "blocked_default")
 
 
+# The "decide for me" defaults the tuned overlay respects: a measured
+# config only overrides knobs the caller left untouched.
+_DEFAULT_CONFIG = QRConfig()
+
+
+def tuned_dispatch_mode(entry) -> Optional[str]:
+    """The dispatch mode a measured entry decides for every member of its
+    shape class: its best pick's mode when the entry timed both kernel
+    lowerings at that block, else None (the engine's budget rule decides
+    for each member's own grid; ROADMAP C7).  A class is measured at its
+    edge, where the megakernel may be over budget while a smaller
+    member's grid fits it (640^2 in the 768^2 class)."""
+    best = entry.best
+    timed = entry.timings_dict
+    if best.use_kernel and best.dispatch_mode is not None and all(
+            f"tiled[b{best.block},{mode}]" in timed
+            for mode in ("wavefront", "megakernel")):
+        return best.dispatch_mode
+    return None
+
+
+def _apply_tuned_config(resolved: QRConfig, requested: QRConfig, entry,
+                        decisions: List[RouteDecision]) -> QRConfig:
+    """Overlay the measured best config onto the knobs the caller left at
+    their defaults — explicit knobs always win over the cache.  Records a
+    ``tuned_config`` resolve decision when anything changed, or when the
+    entry's dispatch mode was left to the engine's budget rule."""
+    best = entry.best
+    applied = []
+    if (requested.block == _DEFAULT_CONFIG.block
+            and best.block != resolved.block):
+        resolved = dataclasses.replace(resolved, block=best.block)
+        applied.append(f"block={best.block}")
+    left = None
+    if (requested.dispatch_mode is None and resolved.use_kernel
+            and best.dispatch_mode is not None
+            and best.dispatch_mode != resolved.dispatch_mode):
+        mode = tuned_dispatch_mode(entry)
+        if mode is not None:
+            resolved = dataclasses.replace(resolved, dispatch_mode=mode)
+            applied.append(f"dispatch_mode={mode}")
+        else:
+            left = (f"dispatch_mode={best.dispatch_mode} not applied: the "
+                    f"entry did not measure both lowerings at block "
+                    f"{best.block} (its class edge "
+                    f"{entry.shape_class[0]}x{entry.shape_class[1]} need "
+                    f"not be this grid) — the engine's budget rule decides")
+    if (requested.q_method == _DEFAULT_CONFIG.q_method
+            and best.q_method != resolved.q_method):
+        resolved = dataclasses.replace(resolved, q_method=best.q_method)
+        applied.append(f"q_method={best.q_method}")
+    if requested.use_kernel is None and resolved.use_kernel:
+        applied.append("use_kernel=True")
+    if applied or left:
+        why = ("measured config applied: " + ", ".join(applied)
+               if applied else "")
+        decisions.append(RouteDecision(
+            "tuned_config", "resolved",
+            "; ".join(x for x in (why, left) if x)))
+    return resolved
+
+
+def _tuned_lookup(m: int, n: int, dtype, config: QRConfig, backend: str,
+                  batched: bool):
+    """Consult the measured tuning cache: ``(decision, entry-or-None)``.
+
+    A hit must also pass the capability guards the selected method will
+    face in :func:`plan` (mode, batched, aspect, and ``use_kernel=True``,
+    ROADMAP C3) — an incompatible measured pick records a rejected
+    decision and routing falls through."""
+    if not config.use_tuning_cache:
+        return RouteDecision(
+            "tuned", "rejected",
+            "use_tuning_cache=False pins the heuristic rules"), None
+    from repro_torch.tuning import cache as _tcache
+
+    cache = _tcache.active_cache()
+    if len(cache) == 0:
+        return RouteDecision(
+            "tuned", "rejected",
+            f"no tuning cache loaded (source: {cache.source}) — "
+            f"heuristic rules apply"), None
+    cls = _tcache.shape_class(m, n)
+    dt = _tcache.dtype_name(dtype)
+    entry = cache.lookup(backend=backend, m=m, n=n, dtype=dtype)
+    if entry is None:
+        return RouteDecision(
+            "tuned", "rejected",
+            f"cache miss: no measured entry for shape-class "
+            f"{cls[0]}x{cls[1]} ({backend}, {dt}) — "
+            f"heuristic rules apply"), None
+    best = entry.best
+    spec = _REGISTRY.get(best.method)
+    why_unfit = (
+        f"tuned pick {best.method!r} is not registered" if spec is None else
+        f"tuned pick {best.method!r} is thin-only vs mode='full'"
+        if config.mode == "full" and not spec.supports_full_q else
+        f"tuned pick {best.method!r} does not support batched inputs"
+        if batched and not spec.batched else
+        f"tuned pick {best.method!r} needs m >= {spec.min_aspect:g}n"
+        if spec.min_aspect > 0 and m < spec.min_aspect * n else
+        f"tuned pick {best.method!r} has no kernel-backed realization "
+        f"vs use_kernel=True"
+        if config.use_kernel and not spec.kernel_backed else None)
+    if why_unfit is not None:
+        return RouteDecision("tuned", "rejected", why_unfit), None
+    knobs = f"block={best.block}"
+    if best.use_kernel:
+        knobs += f", dispatch={best.dispatch_mode}"
+    return RouteDecision(
+        "tuned", "selected",
+        f"measured: {best.method}[{knobs}] {entry.best_us:.0f} us vs "
+        f"heuristic {entry.heuristic_method} {entry.heuristic_us:.0f} us "
+        f"on {entry.backend}/{entry.device_kind} shape-class "
+        f"{cls[0]}x{cls[1]} ({entry.dtype})"), entry
+
+
 def _default_ndevices(backend: str) -> int:
     return torch.cuda.device_count() if backend == "cuda" else 1
 
 
 def _route(shape, dtype, config: QRConfig, backend: Optional[str],
            ndevices: Optional[int]):
-    """The routing table with its reasoning: ``(method, decisions)``."""
+    """The routing table with its reasoning: ``(method, decisions,
+    tuned_entry)``; ``tuned_entry`` is the measured cache entry when the
+    ``"tuned"`` rule won, else None."""
     _ensure_builtins()
     dec: List[RouteDecision] = []
     m, n = int(shape[-2]), int(shape[-1])
@@ -404,21 +532,21 @@ def _route(shape, dtype, config: QRConfig, backend: Optional[str],
             why += (f" (overrides config.method={config.method!r}: no "
                     f"backend factors an empty matrix)")
         dec.append(RouteDecision("degenerate_empty", "selected", why))
-        return "degenerate", dec
+        return "degenerate", dec, None
     if config.method != "auto":
         dec.append(RouteDecision(
             "explicit", "selected",
             f"config.method={config.method!r} bypasses auto routing"))
-        return config.method, dec
+        return config.method, dec, None
     backend = "cuda" if backend is None else backend
     ndevices = _default_ndevices(backend) if ndevices is None else int(ndevices)
     aspect = m / n if n else float("inf")
 
-    dec.append(RouteDecision(
-        "tuned", "rejected",
-        "use_tuning_cache=False pins the heuristic rules"
-        if not config.use_tuning_cache else
-        "tuning cache not yet ported (ROADMAP A13) — heuristic rules apply"))
+    tuned_dec, tuned = _tuned_lookup(m, n, dtype, config, backend,
+                                     batched=len(shape) > 2)
+    dec.append(tuned_dec)
+    if tuned is not None:
+        return tuned.best.method, dec, tuned
 
     tspec = _REGISTRY.get("tsqr")
     if (tspec is not None and config.mode != "full" and n >= 1 and m >= 8
@@ -427,7 +555,7 @@ def _route(shape, dtype, config: QRConfig, backend: Optional[str],
             "tsqr_tall_skinny", "selected",
             f"aspect {aspect:.2f} >= {tspec.min_aspect:g} "
             f"({m}x{n}, mode={config.mode!r})"))
-        return "tsqr", dec
+        return "tsqr", dec, None
     if tspec is not None:
         dec.append(RouteDecision(
             "tsqr_tall_skinny", "rejected",
@@ -454,7 +582,7 @@ def _route(shape, dtype, config: QRConfig, backend: Optional[str],
             f"({backend}), aspect {max(m, n) / min(m, n):.2f} < "
             f"{_TILED_MAX_ASPECT:g}, max dim {max(m, n)} <= "
             f"{_TILED_MAX_DIM}"))
-        return "tiled", dec
+        return "tiled", dec, None
     if "tiled" in _REGISTRY:
         dec.append(RouteDecision(
             "tiled_near_square", "rejected",
@@ -472,7 +600,7 @@ def _route(shape, dtype, config: QRConfig, backend: Optional[str],
             "sharded_past_ceiling", "selected",
             f"near-square {m}x{n} <= sharded ceiling {sharded_ceiling} "
             f"({ndevices} devices x {_TILED_MAX_DIM})"))
-        return "sharded_tiled", dec
+        return "sharded_tiled", dec, None
     if "sharded_tiled" in _REGISTRY:
         dec.append(RouteDecision(
             "sharded_past_ceiling", "rejected",
@@ -502,7 +630,7 @@ def _route(shape, dtype, config: QRConfig, backend: Optional[str],
             "single_panel", "selected",
             f"min dim {min(m, n)} <= block {config.block} — one "
             f"unblocked panel (geqr2_ht)"))
-        return "geqr2_ht", dec
+        return "geqr2_ht", dec, None
     dec.append(RouteDecision(
         "single_panel", "rejected",
         f"min dim {min(m, n)} > block {config.block} — needs blocking"))
@@ -510,7 +638,7 @@ def _route(shape, dtype, config: QRConfig, backend: Optional[str],
         "blocked_default", "selected",
         f"no specialized rule matched {m}x{n} on {backend} — blocked "
         f"geqrf_ht default"))
-    return "geqrf_ht", dec
+    return "geqrf_ht", dec, None
 
 
 def select_method(shape, dtype, config: QRConfig, *,
@@ -552,7 +680,7 @@ def plan(shape, dtype=torch.float32, config: Optional[QRConfig] = None, *,
     backend = "cuda" if backend is None else backend
     dtype = as_torch_dtype(dtype)
 
-    name, decisions = _route(shape, dtype, cfg, backend, ndevices)
+    name, decisions, tuned = _route(shape, dtype, cfg, backend, ndevices)
     # Fallbacks of the routing table count here, once per plan: _route is
     # a pure query.  Resolve hooks count the fallbacks they append.
     for d in decisions:
@@ -574,16 +702,24 @@ def plan(shape, dtype=torch.float32, config: Optional[QRConfig] = None, *,
 
     use_kernel = cfg.use_kernel
     if use_kernel is None:
-        # On the card a method whose kernels are ported runs them, or the
-        # plan raises; it never resolves quietly to the plain lowering.
-        use_kernel = (backend == "cuda" and spec.kernel_backed
-                      and spec.smem_bytes is not None)
-        if use_kernel:
-            _require_kernel_fits(spec, m, n, cfg, dtype)
+        if tuned is not None:
+            # The lowering the sweep measured for this class.
+            use_kernel = bool(tuned.best.use_kernel) and spec.kernel_backed
+        else:
+            # On the card a method whose kernels are ported runs them, or
+            # the plan raises; it never resolves quietly to the plain
+            # lowering.
+            use_kernel = (backend == "cuda" and spec.kernel_backed
+                          and spec.smem_bytes is not None)
     elif use_kernel and not spec.kernel_backed:
         raise ValueError(f"method {name!r} has no kernel-backed realization")
 
     resolved = dataclasses.replace(cfg, method=name, use_kernel=bool(use_kernel))
+    if tuned is not None:
+        resolved = _apply_tuned_config(resolved, cfg, tuned, decisions)
+    if cfg.use_kernel is None and resolved.use_kernel \
+            and spec.smem_bytes is not None:
+        _require_kernel_fits(spec, m, n, resolved, dtype)
     if spec.resolve is not None:
         resolved = spec.resolve(m, n, resolved, dtype=dtype, explain=decisions)
     _metrics.counter("planner.plans", method=name).inc()

@@ -33,6 +33,10 @@ __all__ = [
     "levelize",
     "wavefronts",
     "wavefront_count",
+    "domain_rows",
+    "domain_wavefronts",
+    "merge_levels",
+    "sharded_wavefront_count",
     "tile_grid",
     "tiled_qr",
     "tiled_qr_batched",
@@ -132,6 +136,57 @@ def wavefront_count(p: int, q: int) -> int:
     if p < 1 or q < 1:
         raise ValueError(f"grid must be at least 1x1, got {p}x{q}")
     return p + 2 * q - 2 if p >= q else 3 * p - 1
+
+
+# ---------------------------------------------------------------------------
+# row-block domains (the sharded schedule's arithmetic, for DAG analysis)
+# ---------------------------------------------------------------------------
+#
+# The sharded schedule partitions the p x q grid into d contiguous
+# row-block domains, each running the flat-tree schedule on its own
+# (p_i x q) sub-grid, and merges their R factors through a binary tree
+# of ceil(log2 d) rounds: the cross-device critical path is
+# wavefront_count(ceil(p / d), q) + ceil(log2 d).  Executing it is
+# ROADMAP A14; these helpers are its schedule, the reference's ints.
+
+def domain_rows(p: int, d: int) -> Tuple[Tuple[int, int], ...]:
+    """Contiguous per-domain tile-row ranges ``((start, stop), ...)``:
+    p rows over d domains, the first ``p % d`` one row longer.  Requires
+    ``1 <= d <= p``."""
+    if d < 1 or d > p:
+        raise ValueError(f"need 1 <= d <= p, got d={d}, p={p}")
+    base, extra = divmod(p, d)
+    out, start = [], 0
+    for i in range(d):
+        stop = start + base + (1 if i < extra else 0)
+        out.append((start, stop))
+        start = stop
+    return tuple(out)
+
+
+def domain_wavefronts(p: int, q: int, d: int) -> List[List[List[TileTask]]]:
+    """Per-domain wavefront schedules: ``out[i]`` is the wavefront list of
+    domain i's local (p_i x q) DAG (domain-local task indices)."""
+    return [wavefronts(stop - start, q) if stop > start else []
+            for start, stop in domain_rows(p, d)]
+
+
+def merge_levels(d: int) -> int:
+    """Depth of the binary R-merge tree over d domains."""
+    if d < 1:
+        raise ValueError(f"need d >= 1, got {d}")
+    return (d - 1).bit_length()
+
+
+def sharded_wavefront_count(p: int, q: int, d: int) -> int:
+    """Cross-device critical path of the d-domain schedule: p pads to
+    ``d * ceil(p / d)`` rows, so it is the local schedule of ceil(p / d)
+    rows plus the merge rounds; ``d=1`` is :func:`wavefront_count`."""
+    if d < 1:
+        raise ValueError(f"need d >= 1, got {d}")
+    if d == 1:
+        return wavefront_count(p, q)
+    return wavefront_count(-(-p // d), q) + merge_levels(d)
 
 
 # ---------------------------------------------------------------------------

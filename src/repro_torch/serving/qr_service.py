@@ -26,7 +26,7 @@ staging buffer.
 **Prepared-plan cache.**  The port compiles no executables (its kernels
 are built once per process); what a bucket's dispatch needs prepared is
 kept in an LRU of :class:`_BucketPlan` keyed on ``(BucketKey,
-padded_batch, rung, tuning fingerprint)``: the rung, the tile grid, the
+padded_batch, rung)``: the rung, the tile grid, the
 device-resident task tables, level indices and CTA runs (uploaded
 through :func:`repro_torch.core.engine.prepare_dispatch`), and a pinned
 host staging buffer (made on the first host array staged).  Building one
@@ -34,10 +34,11 @@ is the only site that counts ``compiles`` and the only site of the
 ``compile`` fault; it runs the engine's dispatch guards for its rung, so
 a budget (``vmem``) rejection walks ``megakernel -> wavefront`` at plan
 time, as the reference's does at compile time.  A steady-state stream (warmed cache) builds nothing and
-uploads nothing but its requests.  The tuning fingerprint is a constant
-until the tuning cache is ported (:func:`_tuning_fingerprint`); the
-reference also drops every plan and resets the breakers when it
-changes.
+uploads nothing but its requests.  A prepared plan bakes in the rung
+the measured tuning cache chose (:meth:`QRService._initial_rung`), so
+when the active cache changes (:func:`_tuning_fingerprint`) the service
+drops every plan (``plan_invalidations``) and resets its open circuit
+breakers (``breaker_resets``), as the reference does.
 
 **Failure hardening** (:mod:`repro_torch.robustness`).  Three lines of
 defense, each named and counted:
@@ -89,7 +90,8 @@ import numpy as np
 import torch
 
 from repro_torch.core import engine
-from repro_torch.core.plan import as_torch_dtype, resolve_device
+from repro_torch.core.plan import (as_torch_dtype, resolve_device,
+                                   tuned_dispatch_mode)
 from repro_torch.core.tilegraph import _factor_stack_padded
 from repro_torch.kernels import _build
 from repro_torch.observability import metrics as _metrics
@@ -98,6 +100,7 @@ from repro_torch.robustness import escalate as _escalate
 from repro_torch.robustness import guards as _guards
 from repro_torch.robustness import inject as _inject
 from repro_torch.robustness import verify as _verify
+from repro_torch.tuning import cache as _tcache
 from repro_torch.serving.bucketing import (
     BucketKey, BucketingPolicy, bucketize, pad_batch)
 
@@ -150,10 +153,13 @@ class QRResult:
 
 
 def _tuning_fingerprint() -> Tuple:
-    """Identity of the active measured tuning cache, whose routing a
-    prepared plan would bake in: the plan LRU's key carries it.  The port
-    has no tuning cache yet, so this is a constant."""
-    return ("untuned",)
+    """Identity of the active measured tuning cache (source + contents
+    summary).  Prepared bucket plans bake in its routing (the dispatch
+    mode of a shape class), so a new cache — a sweep installed with
+    ``set_active_cache`` or ``$REPRO_TORCH_TUNING_CACHE`` — invalidates
+    them."""
+    info = _tcache.active_cache_info()
+    return (info["source"], info["entries"], tuple(info["classes"]))
 
 
 @dataclasses.dataclass
@@ -239,6 +245,7 @@ class QRService:
         self._real_esc: Set[BucketKey] = set()   # counted a real failure
         self._breaker_open: Set[BucketKey] = set()
         self.escalations: List[_escalate.Escalation] = []
+        self._tuning_fp = _tuning_fingerprint()
         self._next_rid = 0
         self._copy_stream = (torch.cuda.Stream(self.device)
                              if self.device.type == "cuda" else None)
@@ -320,21 +327,50 @@ class QRService:
         nb = min(self.policy.tile, key.m, key.n)
         return -(-key.m // nb), -(-key.n // nb), nb
 
+    def _check_tuning(self) -> None:
+        """Tuning-cache refresh: every prepared plan may bake in a rung the
+        new measurements contradict — drop them all (they rebuild lazily
+        on next use).  An open circuit breaker also resets: the new
+        measurements may route the bucket around whatever kept failing."""
+        fp = _tuning_fingerprint()
+        if fp == self._tuning_fp:
+            return
+        self._tuning_fp = fp
+        if self._plans:
+            self._count("plan_invalidations")
+            self._count("cache_evictions", len(self._plans))
+            self._plans.clear()
+        if self._breaker_open or self._esc_counts:
+            self._count("breaker_resets", len(self._breaker_open) or 1)
+            self._breaker_open.clear()
+            self._esc_counts.clear()
+            self._real_esc.clear()
+
     def _initial_rung(self, key: BucketKey) -> str:
-        """The ladder rung a fresh bucket plan starts at: the forced or
-        budget-resolved dispatch mode on the kernel path, "oracle" on the
-        plain path."""
+        """The ladder rung a fresh bucket plan starts at on the kernel
+        path: the forced dispatch mode, else the measured tuning entry's
+        where it decides one for this grid (it measured both lowerings at
+        the bucket's tile: :func:`repro_torch.core.plan.
+        tuned_dispatch_mode`), else the engine's budget rule; "oracle" on
+        the plain path."""
         if not self.use_kernel:
             return "oracle"
         if self.dispatch_mode is not None:
             return self.dispatch_mode
         p, q, nb = self._grid(key)
+        entry = _tcache.active_cache().lookup(
+            backend=self.device.type, m=key.m, n=key.n, dtype=key.dtype)
+        if entry is not None and entry.best.block == nb:
+            mode = tuned_dispatch_mode(entry)
+            if mode is not None:
+                return mode
         return engine.resolve_dispatch_mode(
             p, q, nb, np.dtype(key.dtype).itemsize)
 
     def _plan_for(self, key: BucketKey, batch: int, *,
                   rung: str) -> _BucketPlan:
-        cache_key = (key, batch, rung, _tuning_fingerprint())
+        self._check_tuning()
+        cache_key = (key, batch, rung)
         plan = self._plans.get(cache_key)
         if plan is not None:
             self._plans.move_to_end(cache_key)
@@ -579,6 +615,7 @@ class QRService:
         Failure-atomic: if an exception escapes (escalation disabled or
         non-recoverable), every request not yet resolved to a result is
         restored to the pending queue before the exception propagates."""
+        self._check_tuning()
         with _trace.span("serving.bucketize", service=self._sid):
             work = self._chunks()
         results: Dict[int, QRResult] = {}
@@ -746,8 +783,9 @@ class QRService:
         served over batch slots dispatched (1.0 = every slot carried a
         real request); ``cache_hit_rate`` is plan-cache hits over
         lookups; ``breaker_open`` counts buckets currently pinned to the
-        fallback path; ``plan_invalidations`` (a tuning-cache change) stays
-        0 until the port has a tuning cache.
+        fallback path; ``plan_invalidations`` counts tuning-cache changes
+        that dropped resident plans, ``breaker_resets`` the breakers they
+        reset.
 
         Counters are a view over this instance's ``serving.*`` series in
         the process-global metrics registry (``service=<id>`` label)."""
@@ -765,6 +803,7 @@ class QRService:
             cache_misses=self._count_value("cache_misses"),
             cache_evictions=self._count_value("cache_evictions"),
             plan_invalidations=self._count_value("plan_invalidations"),
+            breaker_resets=self._count_value("breaker_resets"),
             plans_cached=len(self._plans),
             padded_slots=padded,
             bucket_fill_ratio=(served / slots) if slots else 1.0,

@@ -555,7 +555,7 @@ def test_service_runs_one_batched_megakernel_per_bucket_on_hopper():
     tmo.reset_launch_counts()
     results = svc.submit_many(wave)
     launches = {k: v for k, v in tmo.LAUNCHES.items() if v}
-    buckets = {k for k, _, _, _ in svc._plans}
+    buckets = {k for k, _, _ in svc._plans}
     assert launches == {"MEGAKERNEL_BATCHED": len(buckets),
                         "MEGAKERNEL_Q_BATCHED": len(buckets)}
     assert svc.stats()["compiles"] == compiles
@@ -664,3 +664,34 @@ def test_training_step_on_hopper():
         losses.append([m["loss"] for m in tr.run()["history"]])
     assert np.isfinite(losses).all()
     np.testing.assert_allclose(losses[0], losses[1], rtol=1e-3)
+
+
+@pytest.mark.cuda
+def test_sweep_writes_a_cache_plan_selects_on_hopper(tmp_path):
+    """A 256^2 sweep on the card (reps 1) times the kernel candidates,
+    writes a cache that passes its gate, and ``plan`` then selects the
+    entry's pick through the ``tuned`` rule; the active cache is restored
+    afterwards."""
+    from repro_torch.tuning import TuningCache, set_active_cache
+    from repro_torch.tuning.sweep import check_cache, sweep_shapes
+
+    _need_hopper()
+    tmo.reset_launch_counts()
+    cache = sweep_shapes([(256, 256)], reps=1, device="cuda")
+    (e,) = cache.entries()
+    assert e.backend == "cuda"
+    assert e.device_kind == torch.cuda.get_device_name()
+    assert {"tiled[b32,wavefront]", "tiled[b32,megakernel]",
+            "tiled[b64,wavefront]", "geqrf_ht"} <= set(e.timings_dict)
+    assert tmo.LAUNCHES["MEGAKERNEL"] > 0 and tmo.LAUNCHES["SSRFB"] > 0
+    assert check_cache(cache) == []
+    path = str(tmp_path / "sweep.json")
+    cache.save(path)
+    prev = set_active_cache(TuningCache.load(path))
+    try:
+        s = repro_torch.plan((256, 256), torch.float32, explain=True)
+        assert s.explain.selected.rule == "tuned"
+        assert (s.config.method, s.config.use_kernel) == (
+            e.best.method, e.best.use_kernel)
+    finally:
+        set_active_cache(prev)

@@ -2,10 +2,10 @@
 (``repro.serving``): bucketing properties on the port's copy, service
 correctness, and prepared-plan cache behavior, on the CPU.
 
-Each test twins one of tests/test_qr_service.py, except
-``test_tuning_refresh_invalidates_plans``, which needs the tuning cache
-(ROADMAP A13): the port's tuning fingerprint is a constant until then.
-The card-only service checks are in tests/test_torch_cuda.py.
+Each test twins one of tests/test_qr_service.py; the tuning-cache tests
+(a new cache drops the plans, a measured entry sets a bucket's rung) run
+the port's own ``repro_torch.tuning``.  The card-only service checks are
+in tests/test_torch_cuda.py.
 
 Comparison with the reference: the same seeded request stream goes
 through ``repro.serving.QRService`` (its jnp oracle) and the port's
@@ -300,7 +300,7 @@ def test_kernel_megakernel_serving_path():
     for a, res in zip(arrs, svc.submit_many(arrs)):
         _check_qr(a, res.q, res.r)
     assert svc.stats()["dispatches"] == 1
-    ((key, batch, rung, _),) = svc._plans
+    ((key, batch, rung),) = svc._plans
     assert (key.m, key.n, batch, rung) == (48, 32, 2, "megakernel")
 
 
@@ -442,8 +442,96 @@ def test_stream_matches_reference(mode):
                 assert x.shape == y.shape
                 assert float(np.abs(x.numpy() - y).max()) <= tol
     mine_keys = [(dataclasses.astuple(k), b, rung)
-                 for k, b, rung, _ in mine._plans]
+                 for k, b, rung in mine._plans]
     assert mine_keys == [(dataclasses.astuple(k), b, rung)
                          for k, b, rung in ref._plans]
     s, t = mine.stats(), ref.stats()
     assert {k: s[k] for k in _STATS_KEYS} == {k: t[k] for k in _STATS_KEYS}
+
+
+# ------------------------------------------------------------ tuning cache
+
+def test_tuning_refresh_invalidates_plans():
+    """A tuning-cache swap drops every resident bucket plan (a plan bakes
+    in the rung the old cache chose), counting ``plan_invalidations``
+    once; steady state under the new cache builds nothing — the
+    reference's counters on the same stream."""
+    from repro.tuning import cache as jcache
+    from repro_torch.tuning import cache as tcache
+
+    rng = np.random.default_rng(11)
+    mine = QRService(policy=BucketingPolicy(tile=16, max_batch=4),
+                     device="cpu")
+    ref = jserving.QRService(policy=jserving.BucketingPolicy(
+        tile=16, max_batch=4), use_kernel=False)
+    keys = ("plan_invalidations", "compiles", "cache_evictions",
+            "plans_cached")
+
+    def go():
+        a = rng.standard_normal((48, 48)).astype(np.float32)
+        mine.submit_many([a])
+        ref.submit_many([a])
+        s, t = mine.stats(), ref.stats()
+        assert {k: s[k] for k in keys} == {k: t[k] for k in keys}
+        return s
+
+    prev, jprev = tcache.active_cache(), jcache.active_cache()
+    try:
+        s = go()
+        assert s["plans_cached"] > 0 and s["plan_invalidations"] == 0
+        compiles = s["compiles"]
+        assert go()["compiles"] == compiles      # same cache: no rebuild
+        tcache.set_active_cache(tcache.TuningCache(source="test:refresh"))
+        jcache.set_active_cache(jcache.TuningCache(source="test:refresh"))
+        s = go()                                 # new fingerprint
+        assert s["plan_invalidations"] == 1
+        assert s["compiles"] == compiles + 1
+        s = go()                                 # the new steady state
+        assert s["plan_invalidations"] == 1
+        assert s["compiles"] == compiles + 1
+    finally:
+        tcache.set_active_cache(prev)
+        jcache.set_active_cache(jprev)
+
+
+def _rung_entry(mode, timed_modes, backend="cpu", cls=(128, 128)):
+    from repro_torch.tuning import TunedConfig, TuningEntry
+
+    timings = tuple(sorted((f"tiled[b32,{m}]", 100.0 + i)
+                           for i, m in enumerate(timed_modes)))
+    return TuningEntry(
+        backend=backend, device_kind=backend, shape_class=cls,
+        dtype="float32",
+        best=TunedConfig(method="tiled", block=32, dispatch_mode=mode,
+                         use_kernel=True),
+        best_us=100.0, heuristic_method="tiled", heuristic_us=101.0,
+        timings=timings)
+
+
+@pytest.mark.parametrize("timed,want", [
+    (("wavefront", "megakernel"), "wavefront"),
+    (("wavefront",), "megakernel"),
+])
+def test_kernel_rung_follows_a_measured_entry(timed, want):
+    """A bucket's first rung follows the measured entry's dispatch mode
+    where the entry timed both lowerings at the bucket's tile; an entry
+    that timed one lowering (at its class edge) leaves the rung to the
+    engine's budget rule, which gives a 4 x 4 grid the megakernel
+    (ROADMAP C7).  Installing the cache drops the resident plans."""
+    from repro_torch.tuning import TuningCache, set_active_cache
+
+    svc = QRService(policy=BucketingPolicy(tile=32, max_batch=4),
+                    use_kernel=True, device="cpu")
+    key = bucket_key(128, 128, np.float32, "r", svc.policy)
+    assert svc._initial_rung(key) == "megakernel"
+    a = np.random.default_rng(3).standard_normal((120, 128)).astype(np.float32)
+    svc.submit_many([a], mode="r")
+    prev = set_active_cache(TuningCache([_rung_entry("wavefront", timed)]))
+    try:
+        assert svc._initial_rung(key) == want
+        out = svc.submit_many([a], mode="r")[0]
+        assert out.ok
+        assert [rung for _, _, rung in svc._plans] == [want]
+        assert svc.stats()["plan_invalidations"] == 1
+    finally:
+        set_active_cache(prev)

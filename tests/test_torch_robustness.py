@@ -5,9 +5,8 @@ and the port's answers held against the reference's.
 
 Each test class twins one of tests/test_robustness.py.  Left out, with
 the modules they need: ``TestBatchedOrthoChaos`` (the optimizer, ROADMAP
-A10), ``TestWatchdogMedian`` and the LM fault-tolerance drill (A14), and
-``TestCircuitBreaker::test_resets_on_tuning_fingerprint_change`` (the
-tuning cache, A13).  The reference's jaxpr pins have no counterpart (the
+A10), ``TestWatchdogMedian`` and the LM fault-tolerance drill (A14).
+The reference's jaxpr pins have no counterpart (the
 port traces no programs); their twins check that verify-off runs the
 plain solve and gives its bits.
 
@@ -630,6 +629,40 @@ class TestCircuitBreaker:
                 out = pinned.submit_many([_randn(24, 12, seed=s)])[0]
                 assert out.ok
         assert pinned.stats()["breaker_open"] == 1
+
+    def test_resets_on_tuning_fingerprint_change(self):
+        """A new tuning cache resets an open breaker (the new
+        measurements may route the bucket around what kept failing), as
+        the reference's does on the same steps."""
+        from repro.tuning import cache as jcache
+        from repro_torch.tuning import cache as tcache
+
+        mine = _svc(verify=True, breaker_threshold=1)
+        ref = _ref_svc(verify=True, breaker_threshold=1)
+        arrs = [_randn(24, 12, seed=12)]
+        with inject.active(inject.Fault(site="dispatch", match="32x16")):
+            mine.submit_many(arrs)
+        with jinject.active(jinject.Fault(site="dispatch", match="32x16")):
+            ref.submit_many(arrs)
+        assert mine.stats()["breaker_open"] == ref.stats()["breaker_open"] == 1
+        prev = tcache.set_active_cache(tcache.TuningCache(
+            source="test:breaker-reset"))
+        jprev = jcache.set_active_cache(jcache.TuningCache(
+            source="test:breaker-reset"))
+        try:
+            outs = mine.submit_many([_randn(24, 12, seed=13)])
+            ref.submit_many([_randn(24, 12, seed=13)])
+            assert outs[0].ok
+            assert mine.stats()["breaker_open"] == \
+                ref.stats()["breaker_open"] == 0
+            assert mine.stats()["breaker_resets"] == 1
+            assert metrics.counter_value(
+                "serving.breaker_resets", service=mine._sid) == \
+                jmetrics.counter_value("serving.breaker_resets",
+                                       service=ref._sid)
+        finally:
+            tcache.set_active_cache(prev)
+            jcache.set_active_cache(jprev)
 
     def test_trip_matches_reference(self):
         """The breaker's records, hop for hop, beside the reference's."""

@@ -100,7 +100,8 @@ def test_routing_matches_reference(shape, backend, ndevices, expected):
                                ndevices=ndevices) == expected
     ref_method, ref_dec, _ = jplan._route(shape, jnp.float32, jplan.QRConfig(
         use_tuning_cache=False), ref_backend, ndevices)
-    method, dec = tplan._route(shape, torch.float32, heur, mine_backend, ndevices)
+    method, dec, _ = tplan._route(shape, torch.float32, heur, mine_backend,
+                                  ndevices)
     assert method == ref_method == expected
     if backend != "tpu":
         assert [(d.rule, d.outcome, d.reason) for d in dec] == \

@@ -155,14 +155,6 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM data-sheet peaks, read from ``repro_torch.launch.roofline``
-# (the tuner's pruning reads the same numbers) once the package is on
-# the path (:func:`load_peaks`).  The kernels' fp32 work runs as FMA on
-# the CUDA cores, so FP32 SIMT is their compute roof (the fp64 update
-# products' DMMA rate is not a roof any row reports).
-PEAK_FLOPS = {}
-PEAK_BYTES = None
-
 N = 2048          # main-path matrix size (the tiled route's single-device ceiling)
 NB = 32           # default tile
 P = Q = N // NB   # 64 x 64 tile grid
@@ -218,15 +210,6 @@ PANEL_PATHS = (
 )
 
 
-def load_peaks():
-    global PEAK_BYTES
-    from repro_torch.launch import roofline
-
-    PEAK_FLOPS.update((k, roofline.PEAK_FLOPS[k])
-                      for k in ("float32", "float64"))
-    PEAK_BYTES = roofline.HBM_BW
-
-
 # Levels of the tiled factorization each main-path phase dispatched on
 # the wavefront kernels (counted by :func:`count_levels`), keyed by label.
 DISPATCHED_LEVELS = {}
@@ -275,12 +258,10 @@ def batch_elems(kind, idx_np, nb):
 
 
 def bound(kind, idx_np, nb, dtype_name):
-    """Least time the card could take for the batch ``idx_np``:
-    max(FLOPs / peak, bytes / HBM rate), bytes from :func:`batch_elems`."""
-    itemsize = 4 if dtype_name == "float32" else 8
-    t_ops = len(idx_np) * FLOPS[kind](nb) / PEAK_FLOPS[dtype_name]
-    t_bytes = batch_elems(kind, idx_np, nb) * itemsize / PEAK_BYTES
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
+    """Least time the card could take for the batch ``idx_np``
+    (:func:`bound_ms`), bytes from :func:`batch_elems`."""
+    return bound_ms(len(idx_np) * FLOPS[kind](nb),
+                    batch_elems(kind, idx_np, nb), dtype_name)
 
 
 # A spin kernel of this many cycles (~1 ms) holds the stream while the host
@@ -1073,6 +1054,8 @@ def megakernel_bound(engine, p, q, nb, batch, dtype_name):
     the four reflector arrays written once.  Also the byte bounds of the
     per-task traffic (each task's tiles in and out) and of the
     reference's modeled megakernel traffic."""
+    from repro_torch.launch.roofline import HBM_BW, PEAK_FLOPS
+
     itemsize = 4 if dtype_name == "float32" else 8
     table = engine.megakernel_task_table(p, q)[0]
     kinds = ("GEQRT", "LARFB", "TSQRT", "SSRFB")
@@ -1082,14 +1065,14 @@ def megakernel_bound(engine, p, q, nb, batch, dtype_name):
     elems = batch * (2 * p * q * nb * nb + r * nb * nb + r * nb
                      + p * r * nb * nb + p * r * nb)
     t_ops = flops / PEAK_FLOPS[dtype_name]
-    t_bytes = elems * itemsize / PEAK_BYTES
+    t_bytes = elems * itemsize / HBM_BW
     task_bytes = sum(count[k] * ELEMS[k](nb) for k in kinds) * itemsize
     modeled = engine.modeled_dma_bytes(p, q, nb, itemsize)["megakernel"] * batch
     return dict(bound_ms=max(t_ops, t_bytes) * 1e3,
                 bound_by="operations" if t_ops > t_bytes else "bytes",
                 flops=flops, bytes=elems * itemsize,
-                task_traffic_bound_ms=task_bytes / PEAK_BYTES * 1e3,
-                modeled_dma_bound_ms=modeled / PEAK_BYTES * 1e3)
+                task_traffic_bound_ms=task_bytes / HBM_BW * 1e3,
+                modeled_dma_bound_ms=modeled / HBM_BW * 1e3)
 
 
 def phase_task_bodies(torch, engine, macro_ops):
@@ -1281,10 +1264,16 @@ def panel_flops(m, b):
 
 
 def bound_ms(flops, elems, dtype_name):
-    """max(FLOPs / peak, bytes / HBM rate) in ms, and what bounds it."""
+    """max(FLOPs / peak, bytes / HBM rate) in ms, and what bounds it.
+    The peaks are the H100 SXM data-sheet figures of
+    ``repro_torch.launch.roofline`` (the tuner's pruning reads the same):
+    the kernels' fp32 work runs as FMA on the CUDA cores, so FP32 SIMT is
+    their compute roof."""
+    from repro_torch.launch.roofline import HBM_BW, PEAK_FLOPS
+
     itemsize = 4 if dtype_name == "float32" else 8
     t_ops = flops / PEAK_FLOPS[dtype_name]
-    t_bytes = elems * itemsize / PEAK_BYTES
+    t_bytes = elems * itemsize / HBM_BW
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
 
 
@@ -2843,13 +2832,21 @@ def tuning_routes(torch, repro_torch, cache, engine, plan_mod):
     return out
 
 
-def tuning_service(torch, serving, inject, engine, plan_mod, cache):
+def tuning_service(torch, serving, inject, engine, plan_mod, macro_ops,
+                   cache):
     """(d) A warm service on the card with an open breaker; installing
     the fresh cache drops its plans once (``plan_invalidations`` 1) and
-    resets the breaker; a 768^2 bucket's first rung follows the 768^2
-    entry's dispatch mode where the entry's pick is the tiled kernels at
-    the service's tile, else the engine's budget rule."""
-    from repro_torch.tuning import set_active_cache
+    resets the breaker.  A bucket's first rung follows an entry only
+    where :func:`repro_torch.core.plan.tuned_dispatch_mode` decides one
+    (the entry measured both lowerings at the service's tile), else the
+    engine's budget rule: the 768^2 bucket reports which of the two
+    decided; at 512^2 (16 x 16 tiles, the megakernel fits) an entry
+    built from the sweep's own 512^2 timings, its pick set to the
+    wavefront lowering, must move a served request off the megakernel,
+    which it runs without that entry."""
+    import dataclasses
+
+    from repro_torch.tuning import TunedConfig, TuningCache, set_active_cache
 
     set_active_cache(None)                     # the default: no cache
     svc = serving.QRService(verify=True, breaker_threshold=1)
@@ -2864,14 +2861,43 @@ def tuning_service(torch, serving, inject, engine, plan_mod, cache):
     after = svc.stats()
     svc.submit_many(wave)
     steady = svc.stats()
-    key = serving.BucketKey(768, 768, "float32", "reduced")
-    entry = cache.lookup(backend="cuda", m=768, n=768, dtype=torch.float32)
-    rung = svc._initial_rung(key)
-    best = entry.best
-    follows = (best.method == "tiled" and best.use_kernel
-               and best.block == svc.policy.tile)
-    want = (best.dispatch_mode if follows else engine.resolve_dispatch_mode(
-        768 // svc.policy.tile, 768 // svc.policy.tile, svc.policy.tile))
+    nb = svc.policy.tile
+
+    def bucket(e):
+        return serving.BucketKey(e, e, "float32", "reduced")
+
+    def decides(entry):
+        return (plan_mod.tuned_dispatch_mode(entry)
+                if entry is not None and entry.best.block == nb else None)
+
+    e768 = cache.lookup(backend="cuda", m=768, n=768, dtype=torch.float32)
+    rung_768 = svc._initial_rung(bucket(768))
+    want_768 = decides(e768) or engine.resolve_dispatch_mode(
+        768 // nb, 768 // nb, nb)
+    e512 = cache.lookup(backend="cuda", m=512, n=512, dtype=torch.float32)
+    timed = e512.timings_dict
+    labels = [f"tiled[b{nb},{mode}]" for mode in ("wavefront", "megakernel")]
+    assert all(k in timed for k in labels), (labels, timed)
+    wave_pick = dataclasses.replace(
+        e512, best=TunedConfig(method="tiled", block=nb,
+                               dispatch_mode="wavefront", use_kernel=True),
+        best_us=timed[labels[0]])
+    assert decides(wave_pick) == "wavefront"
+    others = [e for e in cache.entries() if e.key != e512.key]
+    a512 = wave_of([(512, 512)], 3200)
+    served = {}
+    for label, c in (("without_entry", TuningCache(others)),
+                     ("entry_picks_wavefront",
+                      TuningCache(others + [wave_pick]))):
+        set_active_cache(c)
+        macro_ops.reset_launch_counts()
+        res = svc.submit_many(a512)
+        torch.cuda.synchronize()
+        served[label] = dict(rung=svc._initial_rung(bucket(512)),
+                             launches=launch_counts(macro_ops),
+                             ok=res[0].ok,
+                             bar_ratio=bar_ratio(torch, a512, res, "reduced"))
+    set_active_cache(cache)
     out = dict(
         before={k: before[k] for k in ("plans_cached", "breaker_open",
                                        "plan_invalidations")},
@@ -2879,14 +2905,24 @@ def tuning_service(torch, serving, inject, engine, plan_mod, cache):
                                      "plan_invalidations", "breaker_resets",
                                      "cache_evictions")},
         steady_invalidations=steady["plan_invalidations"],
-        bucket_768_rung=rung, entry_768=best.to_dict(),
-        rung_follows_entry=follows,
+        bucket_768=dict(rung=rung_768, entry=e768.best.to_dict(),
+                        decided_by="entry" if decides(e768) else
+                        "budget rule"),
+        bucket_512=served,
         bar_ratio=bar_ratio(torch, wave, results, "reduced"))
     log("tuning service:", json.dumps(out))
     assert after["plan_invalidations"] == 1 == steady["plan_invalidations"], out
     assert after["breaker_open"] == 0 and after["breaker_resets"] == 1, out
     assert all(r.ok for r in results) and out["bar_ratio"] <= 1, out
-    assert rung == want, out
+    assert rung_768 == want_768, out
+    without, with_ = served["without_entry"], served["entry_picks_wavefront"]
+    mega = ("MEGAKERNEL", "MEGAKERNEL_BATCHED")
+    assert without["rung"] == "megakernel" and any(
+        without["launches"].get(k) for k in mega), out
+    assert with_["rung"] == "wavefront" and not any(
+        with_["launches"].get(k) for k in mega) and with_["launches"].get(
+        "SSRFB"), out
+    assert all(v["ok"] and v["bar_ratio"] <= 1 for v in served.values()), out
     return out
 
 
@@ -2942,7 +2978,7 @@ def phase_tuning(torch, macro_ops, repro_torch, mega_row, span_2048_ms):
         out["routes"] = tuning_routes(torch, repro_torch, cache, engine,
                                       plan_mod)
         out["service"] = tuning_service(torch, serving, inject, engine,
-                                        plan_mod, cache)
+                                        plan_mod, macro_ops, cache)
     finally:
         set_active_cache(None)
     d = repro_torch.plan((N_MEGA, N_MEGA), torch.float32,
@@ -2974,8 +3010,6 @@ def main() -> int:
     from repro_torch.core import engine, tilegraph
     from repro_torch.core import blocked
     from repro_torch.kernels import _build, macro_ops, ops, tile_ops
-
-    load_peaks()
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

@@ -17,7 +17,9 @@ differences from the reference, each recorded in ROADMAP §C:
 
   * a tuned method that cannot honor ``use_kernel=True`` rejects the
     ``tuned`` rule and routing falls through (the reference plans it and
-    raises, ROADMAP C3);
+    raises, ROADMAP C3); so does, on ``"cuda"``, a kernel-backed pick
+    measured on its plain lowering, unless ``use_kernel=False`` asks for
+    that lowering;
   * a tuned ``dispatch_mode`` applies only when the entry measured both
     lowerings at its block; otherwise the engine's budget rule resolves
     the mode for the member's own grid (the reference overlays the
@@ -72,6 +74,7 @@ __all__ = [
     "sign_fix_qr",
     "sign_fix_r",
     "tuned_dispatch_mode",
+    "default_use_kernel",
 ]
 
 Tensor = torch.Tensor
@@ -457,14 +460,25 @@ def _apply_tuned_config(resolved: QRConfig, requested: QRConfig, entry,
     return resolved
 
 
+def default_use_kernel(method: str, backend: str) -> bool:
+    """``use_kernel=None`` as :func:`plan` resolves it with no measured
+    entry: on the card a method whose kernels are ported runs them (or
+    the plan raises); elsewhere the plain lowering runs."""
+    spec = get_method(method)
+    return (backend == "cuda" and spec.kernel_backed
+            and spec.smem_bytes is not None)
+
+
 def _tuned_lookup(m: int, n: int, dtype, config: QRConfig, backend: str,
                   batched: bool):
     """Consult the measured tuning cache: ``(decision, entry-or-None)``.
 
     A hit must also pass the capability guards the selected method will
     face in :func:`plan` (mode, batched, aspect, and ``use_kernel=True``,
-    ROADMAP C3) — an incompatible measured pick records a rejected
-    decision and routing falls through."""
+    ROADMAP C3; on the card a kernel-backed pick measured on its plain
+    lowering, which :func:`plan` would not run there unasked) — an
+    incompatible measured pick records a rejected decision and routing
+    falls through."""
     if not config.use_tuning_cache:
         return RouteDecision(
             "tuned", "rejected",
@@ -498,7 +512,11 @@ def _tuned_lookup(m: int, n: int, dtype, config: QRConfig, backend: str,
         if spec.min_aspect > 0 and m < spec.min_aspect * n else
         f"tuned pick {best.method!r} has no kernel-backed realization "
         f"vs use_kernel=True"
-        if config.use_kernel and not spec.kernel_backed else None)
+        if config.use_kernel and not spec.kernel_backed else
+        f"tuned pick {best.method!r} was measured on its plain lowering; "
+        f"on the card its kernels run unless use_kernel=False"
+        if (config.use_kernel is None and not best.use_kernel
+            and default_use_kernel(best.method, backend)) else None)
     if why_unfit is not None:
         return RouteDecision("tuned", "rejected", why_unfit), None
     knobs = f"block={best.block}"
@@ -703,14 +721,11 @@ def plan(shape, dtype=torch.float32, config: Optional[QRConfig] = None, *,
     use_kernel = cfg.use_kernel
     if use_kernel is None:
         if tuned is not None:
-            # The lowering the sweep measured for this class.
+            # The lowering the sweep measured for this class (on the
+            # card a kernel-backed pick measured plain was rejected).
             use_kernel = bool(tuned.best.use_kernel) and spec.kernel_backed
         else:
-            # On the card a method whose kernels are ported runs them, or
-            # the plan raises; it never resolves quietly to the plain
-            # lowering.
-            use_kernel = (backend == "cuda" and spec.kernel_backed
-                          and spec.smem_bytes is not None)
+            use_kernel = default_use_kernel(name, backend)
     elif use_kernel and not spec.kernel_backed:
         raise ValueError(f"method {name!r} has no kernel-backed realization")
 

@@ -88,61 +88,14 @@ def _ffn_flops(cfg: ModelConfig, t: int) -> float:
     return 2 * mats * t * cfg.d_model * cfg.d_ff
 
 
-def _moe_flops(cfg: ModelConfig, t: int) -> float:
-    moe = cfg.moe
-    cap = max(8, min(t, math.ceil(t * moe.top_k / moe.num_experts
-                                  * moe.capacity_factor + 7) // 8 * 8))
-    mats = 3 if cfg.ffn_act in ("swiglu", "geglu") else 2
-    routed = 2 * mats * (moe.num_experts * cap) * cfg.d_model * moe.d_expert
-    shared = 2 * mats * t * cfg.d_model * (moe.num_shared * moe.d_expert)
-    router = 2 * t * cfg.d_model * moe.num_experts
-    return routed + shared + router
-
-
-def _mamba_flops(cfg: ModelConfig, t: int) -> float:
-    d = cfg.d_model
-    di = cfg.d_inner or 2 * d
-    ds = cfg.d_state
-    dtr = cfg.dt_rank or math.ceil(d / 16)
-    proj = 2 * t * d * 2 * di + 2 * t * di * d
-    conv = 2 * t * di * cfg.conv_kernel
-    ssm_in = 2 * t * di * (dtr + 2 * ds) + 2 * t * dtr * di
-    scan = 8 * t * di * ds
-    return proj + conv + ssm_in + scan
-
-
-def _mlstm_flops(cfg: ModelConfig, t: int) -> float:
-    d = cfg.d_model
-    di = int(cfg.mlstm_proj_factor * d)
-    h = cfg.n_heads
-    dh = di // h
-    proj = 2 * t * d * 2 * di + 2 * t * di * d
-    qkv = 3 * 2 * t * di * dh                  # block-diagonal per head
-    cell = 6 * t * h * dh * dh
-    return proj + qkv + cell + 2 * t * di * cfg.conv_kernel
-
-
-def _slstm_flops(cfg: ModelConfig, t: int) -> float:
-    d = cfg.d_model
-    h = cfg.n_heads
-    dh = d // h
-    gates = 2 * t * d * 4 * d
-    rec = 2 * t * h * dh * 4 * dh
-    ffn_dim = int(round(cfg.slstm_ffn_factor * d / 64) * 64)
-    return gates + rec + 2 * t * d * d + 6 * t * d * ffn_dim + \
-        2 * t * d * cfg.conv_kernel
-
-
 def _layer_flops(cfg: ModelConfig, spec, t: int, s_ctx: int) -> float:
+    """The port's mixers and FFNs only: MoE and the recurrent mixers are
+    costed with their port (A16); :func:`_param_counts` raises first."""
     mixer = {
         "attn": lambda: _attn_flops(cfg, t, s_ctx),
         "attn_local": lambda: _attn_flops(cfg, t, s_ctx, window=cfg.window),
-        "mamba": lambda: _mamba_flops(cfg, t),
-        "mlstm": lambda: _mlstm_flops(cfg, t),
-        "slstm": lambda: _slstm_flops(cfg, t),
     }[spec.mixer]()
     ffn = {"dense": lambda: _ffn_flops(cfg, t),
-           "moe": lambda: _moe_flops(cfg, t),
            "none": lambda: 0.0}[spec.ffn]()
     return mixer + ffn
 

@@ -97,15 +97,12 @@ def _heuristic_config(m: int, n: int, dtype, backend: str):
 
 
 def _resolved_use_kernel(cfg, backend: str) -> bool:
-    """``cfg.use_kernel`` as the planner resolves it on ``backend``: None
-    means the kernels on "cuda" for a method whose kernels are ported."""
-    from repro_torch.core.plan import get_method
+    """``cfg.use_kernel`` as the planner resolves it on ``backend``."""
+    from repro_torch.core.plan import default_use_kernel
 
     if cfg.use_kernel is not None:
         return bool(cfg.use_kernel)
-    spec = get_method(cfg.method)
-    return (backend == "cuda" and spec.kernel_backed
-            and spec.smem_bytes is not None)
+    return default_use_kernel(cfg.method, backend)
 
 
 def candidates(m: int, n: int, dtype, backend: str

@@ -288,7 +288,11 @@ def test_c7_entry_that_measured_both_modes_decides():
 
 def test_tuned_kernel_pick_on_cuda_runs_the_kernels():
     """A measured kernel pick resolves ``use_kernel`` as the sweep ran
-    it; a plain pick runs the plain lowering, on the trail."""
+    it.  On the card a kernel-backed pick measured on its plain lowering
+    is unfit (the plan never moves the card's work off the kernels
+    unasked): ``tuned`` is rejected with the reason and the heuristic
+    routes, on the kernels; ``use_kernel=False`` asks for the plain
+    lowering and then the entry applies."""
     set_active_cache(TuningCache([
         _entry(m=256, n=256, method="geqrf_ht", block=32, backend="cuda",
                use_kernel=True),
@@ -297,6 +301,15 @@ def test_tuned_kernel_pick_on_cuda_runs_the_kernels():
     s = plan((256, 256), torch.float32, backend="cuda", explain=True)
     assert (s.config.method, s.config.use_kernel) == ("geqrf_ht", True)
     s = plan((300, 300), torch.float32, backend="cuda", explain=True)
+    d = s.explain.decision("tuned")
+    assert d.outcome == "rejected" and "plain lowering" in d.reason
+    assert s.explain.selected.rule != "tuned" and s.config.use_kernel
+    assert (s.config.method, s.config.use_kernel) == (
+        plan((300, 300), torch.float32, QRConfig(use_tuning_cache=False),
+             backend="cuda").config.method, True)
+    s = plan((300, 300), torch.float32, QRConfig(use_kernel=False),
+             backend="cuda", explain=True)
+    assert s.explain.selected.rule == "tuned"
     assert (s.config.method, s.config.block, s.config.use_kernel) == (
         "tiled", 64, False)
 

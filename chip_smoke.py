@@ -122,6 +122,31 @@ Phases, each of which exits non-zero when it fails:
      cache is installed, and its 768^2 bucket's rung follows the entry;
      (e) the sweep's launches of every kernel; the active cache is
      restored afterwards.
+ 16. the distributed layer, on ranks spawned with ``torch.multiprocessing``
+     (``spawn``: gloo process groups through a ``file://`` store under
+     ``$TMPDIR``; every rank time-shares the one card, so the times are
+     correctness and cost numbers, not scaling): (a) ``repro_torch.qr`` on
+     a seeded 4096^2 fp32 matrix through the auto route at d = 2 and d = 4
+     ranks (``sharded_tiled`` at block 64: per-domain wavefront sweeps and
+     the butterfly merge on the panel kernels) — each rank's launches
+     equal to the schedule's, the conformance bar and the tight gate 4
+     sqrt(N) eps on ||Q^T Q - I|| and ||A - QR|| / ||A|| (which a
+     TF32-rounded control fails), R against fp64 ``torch.linalg.qr`` up to
+     column signs, the same bits of Q and R on every rank; ``qr`` ms per
+     rank (median of 3), the merge's and the collectives' share of a
+     traced call, beside ``torch.linalg.qr`` and the one-process ``qr``;
+     (b) ``distributed_qr`` of a 49152 x 576 matrix over 4 ranks, the same
+     checks; (c) ``compressed_psum`` of a 1e6-element vector a rank over
+     2 ranks, against the mean of the decoded contributions (fp32
+     rounding) and the true mean (1/127 of the block max); (d) SmolLM-135M
+     (phase 14's configuration): a run stopped at step 3 of 4 with
+     checkpoints every 2 under ``$TMPDIR``, a restored run to step 4 and
+     an uninterrupted one — the restored state equal to the saved one bit
+     for bit, the step-4 losses within 1e-3; the checkpoint's bytes, the
+     snapshot ms a non-blocking save costs the step loop and the write
+     seconds; (e) 3 steps with ``grad_compression``: finite losses within
+     5e-2 of the uncompressed run's, the codec's ms a step.  A rank that
+     fails fails the phase.
 
 Each correctness check is shown to reject a control whose answer is only
 TF32-grade: the kernels' written outputs rounded to TF32 (fp64: to fp32),
@@ -133,7 +158,8 @@ Every phase prints its seconds.
 The second-to-last line of output is a JSON object with one record per
 kernel (``service_launches``: its launches on phase 13's service paths;
 ``training_launches``: on phase 14's warm-up and timed steps;
-``tuning_launches``: in phase 15's sweep);
+``tuning_launches``: in phase 15's sweep; ``distributed_launches``: in
+phase 16, per rank for each sharded cell and in the restart run);
 the last is ``{"ok": true, "device": {...}}``.  Without a CUDA
 device the script exits with status 1 and prints no result.
 """
@@ -2988,6 +3014,470 @@ def phase_tuning(torch, macro_ops, repro_torch, mega_row, span_2048_ms):
     return out, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the distributed QR layer, checkpoint/restart, compression
+# ---------------------------------------------------------------------------
+
+DIST_N = 4096                 # the 4096^2 cell one process sends to geqrf_ht
+DIST_BLOCK = 64               # the tile _resolve_sharded grows it to
+DIST_TSQR = (49152, 576)      # the TSQR cell, 12,288 rows a rank at d = 4
+DIST_PSUM = 1_000_000         # elements a rank contributes to compressed_psum
+DIST_REPS = 3
+DIST_TIMEOUT_S = 300          # every collective of a rank ends within this
+RESTART_LOSS_ATOL = 1e-3      # the reference's restart bar
+COMPRESSION_LOSS_RTOL = 5e-2
+
+
+def sha(torch, x):
+    import hashlib
+
+    return hashlib.sha256(x.detach().cpu().contiguous().numpy()
+                          .tobytes()).hexdigest()
+
+
+def qr_gates(torch, a, q, r):
+    """The conformance bar (100 eps N) and the tight backward-error gate
+    (4 sqrt(N) eps) on ||Q^T Q - I||_max and ||A - QR||_F / ||A||_F, for
+    ``(q, r)`` and for a TF32-grade control (both rounded to TF32), which
+    the bar cannot tell apart at these sizes and the tight gate must."""
+    eps = float(torch.finfo(torch.float32).eps)
+    m, n = a.shape
+    a64 = a.double()
+    norm_a = float(torch.linalg.norm(a64))
+    eye = torch.eye(q.shape[1], dtype=torch.float64, device=a.device)
+
+    def measures(qq, rr):
+        q64, r64 = qq.double(), rr.double()
+        return (float((q64.T @ q64 - eye).abs().max()),
+                float(torch.linalg.norm(a64 - q64 @ r64)) / norm_a)
+
+    ortho, resid = measures(q, r)
+    c_ortho, c_resid = measures(round_low(torch, q), round_low(torch, r))
+    bar, tight = 100 * eps * max(m, n), 4 * max(m, n) ** 0.5 * eps
+    finite = bool(torch.isfinite(q).all() and torch.isfinite(r).all())
+    return dict(ortho=ortho, resid=resid, bar=bar, tight=tight,
+                tf32_control_ortho=c_ortho, tf32_control_resid=c_resid,
+                finite=finite, triangular=float(torch.tril(
+                    r[:, :min(m, n)], -1).abs().max()) == 0.0,
+                ok=(finite and max(ortho, resid) <= tight <= bar
+                    and max(c_ortho, c_resid) > tight))
+
+
+def r_vs_fp64(torch, a, r):
+    """max |R - R64 diag(s)| over max |R64|: R against fp64
+    ``torch.linalg.qr`` up to the column signs s."""
+    r64 = torch.linalg.qr(a.double(), mode="r")[1]
+    s = torch.sign(torch.diagonal(r.double())) * torch.sign(
+        torch.diagonal(r64))
+    return float((r.double() * s[:, None] - r64).abs().max()
+                 / r64.abs().max())
+
+
+def barrier_ms(torch, dist, fn, reps=DIST_REPS):
+    """Host ms of ``fn`` per run, median of ``reps`` after a warm-up, each
+    run started together on every rank (a barrier) and ended by a
+    synchronize."""
+    fn()
+    times = []
+    for _ in range(reps):
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), times
+
+
+def traced_shares(torch, fn):
+    """``fn()`` once with the trace on (spans that synchronize the card):
+    its host ms, the ms of its domain sweeps, merges and collectives (by
+    op), and the merge's and the collectives' shares of the call."""
+    from repro_torch.observability import instrument, trace
+
+    trace.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with instrument.enabled_scope(tracing=True, annotations=False):
+        fn()
+        torch.cuda.synchronize()
+    total = (time.perf_counter() - t0) * 1e3
+    spans = trace.spans()
+    trace.clear()
+    ms = lambda name: sum(s.duration_us for s in spans if s.name == name) / 1e3
+    by_op = {}
+    for s in spans:
+        if s.name == "distributed.collective":
+            by_op[s.labels["op"]] = by_op.get(s.labels["op"], 0.0) \
+                + s.duration_us / 1e3
+    merge = ms("tsqr.butterfly_merge_r")
+    return dict(total_ms=total, sweep_ms=ms("distgraph.domain_r"),
+                merge_ms=merge, collective_ms=by_op,
+                merge_share=merge / total,
+                collective_share=sum(by_op.values()) / total)
+
+
+def sharded_launches(engine, p_dom, q, mode, n, d, passes):
+    """One sharded ``qr``'s launches on a computing rank: each domain
+    sweep's wavefront (or megakernel) launches, once per pass, and each
+    merge's combine, a blocked panel-path QR of a (2n, n) stack at block
+    32 (one ``mht_panel`` a panel, one ``wy_trailing`` where columns
+    trail it), log2(d) rounds a pass."""
+    out = {k: v * passes for k, v in
+           engine.dispatch_counts(p_dom, q, mode).items() if v}
+    panels = -(-n // 32)
+    rounds = (d - 1).bit_length() * passes
+    out.update(MHT_PANEL=panels * rounds, WY_TRAILING=(panels - 1) * rounds)
+    return out
+
+
+def rank_sharded(torch, dist, rank, world):
+    """(a) ``repro_torch.qr(a)`` on a seeded 4096^2 fp32 matrix through
+    the auto route on ``world`` ranks: its plan, launches, gates, R against
+    fp64 (rank 0), the bits of Q and R, timing, and one traced call."""
+    import repro_torch
+    from repro_torch.core import engine
+    from repro_torch.kernels import macro_ops
+
+    rng = np.random.default_rng(DIST_N)
+    a = torch.from_numpy(rng.standard_normal((DIST_N, DIST_N)).astype(
+        np.float32)).cuda()
+    solver = repro_torch.plan(a.shape, a.dtype, backend="cuda", explain=True)
+    cfg = solver.config
+    plan = dict(method=cfg.method, block=cfg.block, ndomains=cfg.ndomains,
+                dispatch_mode=cfg.dispatch_mode, use_kernel=cfg.use_kernel,
+                q_method=cfg.q_method,
+                decisions=[[x.rule, x.outcome] for x in
+                           solver.explain.decisions])
+    assert solver.explain.selected.rule == "sharded_past_ceiling", plan
+    assert (cfg.method, cfg.ndomains, cfg.block, cfg.use_kernel) == (
+        "sharded_tiled", world, DIST_BLOCK, True), plan
+    repro_torch.qr(a)
+    torch.cuda.synchronize()
+    dist.barrier()
+    macro_ops.reset_launch_counts()
+    q, r = repro_torch.qr(a)
+    torch.cuda.synchronize()
+    launches = launch_counts(macro_ops)
+    p_dom = -(-DIST_N // cfg.block) // world
+    expected = sharded_launches(engine, p_dom, DIST_N // cfg.block,
+                                cfg.dispatch_mode, DIST_N, world, passes=2)
+    gates = qr_gates(torch, a, q, r)
+    out = dict(plan=plan, launches=launches, expected=expected, gates=gates,
+               q_sha=sha(torch, q), r_sha=sha(torch, r))
+    if rank == 0:
+        out["r_vs_fp64"] = r_vs_fp64(torch, a, r)
+    del q, r
+    out["qr_ms"], out["qr_ms_all"] = barrier_ms(
+        torch, dist, lambda: repro_torch.qr(a))
+    out["spans"] = traced_shares(torch, lambda: repro_torch.qr(a))
+    return out
+
+
+def rank_tsqr(torch, dist, rank, world):
+    """(b) ``distributed_qr`` of a seeded 49152 x 576 fp32 matrix, rank i
+    holding rows i x 12,288 on (the kernels on every leaf and merge)."""
+    from repro_torch.core import tsqr
+    from repro_torch.distributed import sharding
+    from repro_torch.kernels import macro_ops
+
+    m, n = DIST_TSQR
+    rows = m // world
+    rng = np.random.default_rng(m)
+    a = torch.from_numpy(rng.standard_normal((m, n)).astype(
+        np.float32)).cuda()
+    mine = a[rank * rows:(rank + 1) * rows]
+
+    def run():
+        return tsqr.distributed_qr(mine, None, use_kernel=True)
+
+    run()
+    torch.cuda.synchronize()
+    dist.barrier()
+    macro_ops.reset_launch_counts()
+    q_local, r = run()
+    torch.cuda.synchronize()
+    launches = launch_counts(macro_ops)
+    # Two trees (CQR2), each the leaf's blocked QR and log2(world) merges,
+    # every one over n columns at block 32.
+    panels, trees = -(-n // 32), 2 * (1 + (world - 1).bit_length())
+    expected = dict(MHT_PANEL=trees * panels, WY_TRAILING=trees * (panels - 1))
+    q = sharding.all_gather_rows(q_local, None)
+    gates = qr_gates(torch, a, q, r)
+    out = dict(launches=launches, expected=expected, gates=gates,
+               q_sha=sha(torch, q), r_sha=sha(torch, r), rows=rows)
+    if rank == 0:
+        out["r_vs_fp64"] = r_vs_fp64(torch, a, r)
+    del q, q_local, r
+    out["qr_ms"], out["qr_ms_all"] = barrier_ms(torch, dist, run)
+    out["spans"] = traced_shares(torch, run)
+    return out
+
+
+def rank_psum(torch, dist, rank, world):
+    """(c) ``compressed_psum`` of one seeded 1e6-element fp32 vector a
+    rank: the mean against the mean of every rank's decoded contribution
+    (fp32 rounding) and against the true mean (1/127 of each block's
+    largest magnitude over the ranks)."""
+    from repro_torch.distributed import compressed_psum, dequantize, quantize
+
+    g = [torch.from_numpy(np.random.default_rng(1600 + i).standard_normal(
+        DIST_PSUM).astype(np.float32)).cuda() for i in range(world)]
+    zero = torch.zeros_like(g[rank])
+
+    def run():
+        return compressed_psum({"g": g[rank]}, None, {"g": zero})
+
+    red, err = run()
+    got = red["g"]
+    dec = torch.stack([dequantize(*quantize(x), x.shape) for x in g])
+    mean_dec = dec.mean(0)
+    true = torch.stack(g).mean(0)
+    pad = (-DIST_PSUM) % 256
+    blockmax = torch.nn.functional.pad(torch.stack(g).abs().amax(0), (0, pad)
+                                       ).reshape(-1, 256).amax(1)
+    bound = (blockmax / 127).repeat_interleave(256)[:DIST_PSUM]
+    eps = float(torch.finfo(torch.float32).eps)
+    out = dict(
+        vs_decoded=float((got - mean_dec).abs().max()),
+        decoded_tol=4 * eps * float(mean_dec.abs().max()),
+        vs_true_over_bound=float(((got - true).abs() / bound).max()),
+        residual_exact=bool(torch.equal(err["g"], g[rank] - dec[rank])),
+        sha=sha(torch, got))
+    out["ms"], out["ms_all"] = barrier_ms(torch, dist, run)
+    return out
+
+
+RANK_JOBS = {"sharded": rank_sharded, "tsqr": rank_tsqr, "psum": rank_psum}
+
+
+def rank_main(rank, world, store, outdir, jobs):
+    """One rank of phase 16, in a process of its own (``spawn``: nothing of
+    the parent's state is inherited): the TF32 flags off, the card, a gloo
+    group through a ``file://`` store (ranks that share one card cannot
+    use NCCL), the kernel library the parent built, then ``jobs`` in
+    order; writes ``rank<i>.json`` to ``outdir``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    from repro_torch.kernels import _build
+
+    _build.library()
+    dist.init_process_group(
+        "gloo", init_method="file://" + store, rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=DIST_TIMEOUT_S))
+    out = {job: RANK_JOBS[job](torch, dist, rank, world) for job in jobs}
+    with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def spawn_ranks(world, jobs):
+    """Run ``jobs`` on ``world`` spawned ranks; raises when any rank fails
+    (``torch.multiprocessing`` then ends the others).  Returns each rank's
+    results."""
+    import shutil
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ranks_")
+    try:
+        mp.start_processes(rank_main, args=(world, os.path.join(tmp, "store"),
+                                            tmp, jobs),
+                           nprocs=world, join=True, start_method="spawn")
+        outs = []
+        for rank in range(world):
+            with open(os.path.join(tmp, f"rank{rank}.json")) as f:
+                outs.append(json.load(f))
+        return outs
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def check_cell(label, cells):
+    """Every rank's gates and launches (each kernel of the cell's path
+    launched, the expected number of times), the same bits on every rank,
+    R against fp64 on rank 0."""
+    for i, c in enumerate(cells):
+        assert c["gates"]["ok"], (label, i, c["gates"])
+        assert c["gates"]["triangular"], (label, i)
+        assert c["launches"] == c["expected"], (label, i, c["launches"],
+                                                c["expected"])
+        assert all(c["expected"].values()) and {
+            "MHT_PANEL", "WY_TRAILING"} <= set(c["expected"]), c["expected"]
+    assert len({c["r_sha"] for c in cells}) == 1, (label, "R differs")
+    assert len({c["q_sha"] for c in cells}) == 1, (label, "Q differs")
+    assert cells[0]["r_vs_fp64"] <= cells[0]["gates"]["bar"], cells[0]
+
+
+def restart_leaves(trainer):
+    from repro_torch.checkpoint.manager import _leaves_with_path
+
+    return [(k, x.detach().clone() if hasattr(x, "detach") else x)
+            for k, x in _leaves_with_path(trainer.checkpoint_tree())]
+
+
+def phase_restart(torch, macro_ops):
+    """(d) SmolLM-135M at full width (phase 14's configuration) on the
+    card: trainer A runs to step 3 of 4 saving every 2 (a crash after
+    step 3), B restores and runs step 4, C runs the 4 steps without a
+    break; (e) 3 steps with ``grad_compression`` from the same weights.
+    The checkpoints live under ``$TMPDIR`` and are removed."""
+    import shutil
+    import tempfile
+
+    from repro_torch.observability import instrument, trace
+    from repro_torch.training import RunConfig, Trainer
+
+    cfg, data, _, tcfg = train_setup(torch)
+    ckdir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    out = {}
+    try:
+        run = RunConfig(total_steps=4, warmup_steps=1, log_every=1,
+                        checkpoint_every=2, checkpoint_dir=ckdir, seed=0)
+        a = Trainer(cfg, tcfg, run, data, device="cuda", log_fn=log)
+        start = copy.deepcopy(a.state.params)
+        torch.cuda.synchronize()
+        macro_ops.reset_launch_counts()
+        a.run(stop_at=3)
+        torch.cuda.synchronize()
+        launches = launch_counts(macro_ops)
+        saved = restart_leaves(a)
+        cursor = a.pipeline.state_dict()
+        assert a.ckpt.all_steps() == [2, 3], a.ckpt.all_steps()
+        t0 = time.perf_counter()
+        a._save(blocking=False)
+        snapshot_ms = (time.perf_counter() - t0) * 1e3
+        a.ckpt.wait_until_finished()
+        write_s = time.perf_counter() - t0 - snapshot_ms / 1e3
+        step_dir = os.path.join(ckdir, "step_00000003")
+        nbytes = sum(os.path.getsize(os.path.join(step_dir, f))
+                     for f in os.listdir(step_dir))
+        del a
+        torch.cuda.empty_cache()
+
+        b = Trainer(cfg, tcfg, run, data, device="cuda", log_fn=log)
+        t0 = time.perf_counter()
+        assert b.maybe_restore() and b.step_idx == 3, b.step_idx
+        restore_s = time.perf_counter() - t0
+        got = restart_leaves(b)
+        assert [k for k, _ in got] == [k for k, _ in saved]
+        unequal = [k for (k, x), (_, y) in zip(got, saved)
+                   if not (torch.equal(x, y) if hasattr(x, "dtype")
+                           else x == y)]
+        cursor_ok = b.pipeline.state_dict() == cursor
+        nleaves = len(saved)
+        del saved, got
+        b.run(resume=False)
+        loss_b = b.metrics_history[-1]["loss"]
+        p_b = params_of(b)
+        del b
+        torch.cuda.empty_cache()
+
+        c = Trainer(cfg, tcfg, RunConfig(total_steps=4, warmup_steps=1,
+                                         log_every=1, seed=0),
+                    data, device="cuda", log_fn=log,
+                    params=copy.deepcopy(start))
+        c.run()
+        losses_c = [m["loss"] for m in c.metrics_history]
+        p_c = params_of(c)
+        max_param_diff = max(float((p_b[k] - p_c[k]).abs().max())
+                             for k in p_c)
+        del c, p_b, p_c
+        torch.cuda.empty_cache()
+        out["restart"] = dict(
+            checkpoint_bytes=nbytes, snapshot_ms=snapshot_ms,
+            write_s=write_s, restore_s=restore_s, leaves=nleaves,
+            unequal_leaves=unequal, cursor=cursor, cursor_ok=cursor_ok,
+            loss_b=loss_b, loss_c=losses_c[-1], losses_c=losses_c,
+            loss_diff=abs(loss_b - losses_c[-1]),
+            max_param_diff=max_param_diff, launches=launches)
+        log("restart:", json.dumps(out["restart"]))
+        assert not unequal and cursor_ok, out["restart"]
+        assert out["restart"]["loss_diff"] < RESTART_LOSS_ATOL, out["restart"]
+
+        e = Trainer(cfg, dataclasses.replace(tcfg, grad_compression=True),
+                    RunConfig(total_steps=4, warmup_steps=1, log_every=1,
+                              seed=0),
+                    data, device="cuda", log_fn=log, params=start)
+        trace.clear()
+        with instrument.enabled_scope(tracing=True, annotations=False):
+            e.run(stop_at=3)
+        codec = [s.duration_us / 1e3 for s in trace.spans()
+                 if s.name == "train.grad_compression"]
+        trace.clear()
+        losses_e = [m["loss"] for m in e.metrics_history]
+        rel = [abs(x - y) / abs(y) for x, y in zip(losses_e, losses_c)]
+        del e, start
+        torch.cuda.empty_cache()
+        out["compression"] = dict(losses=losses_e, uncompressed=losses_c[:3],
+                                  rel_diff=rel, codec_ms=codec,
+                                  rtol=COMPRESSION_LOSS_RTOL)
+        log("compression:", json.dumps(out["compression"]))
+        assert len(losses_e) == 3 and len(codec) == 3, out["compression"]
+        assert all(math.isfinite(x) for x in losses_e), out["compression"]
+        assert max(rel) <= COMPRESSION_LOSS_RTOL, out["compression"]
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    return out
+
+
+def phase_distributed(torch, macro_ops, repro_torch):
+    """Phase 16: the sharded tiled QR at d = 2 and d = 4 ranks (one card
+    time-shared by spawned gloo ranks: correctness and cost, not
+    scaling), ``distributed_qr`` at d = 4, ``compressed_psum`` over 2
+    ranks, then checkpoint/restart and gradient compression in this
+    process.  Returns the results and each rank's launches per cell."""
+    two = spawn_ranks(2, ["sharded", "psum"])
+    four = spawn_ranks(4, ["sharded", "tsqr"])
+    cells = {"4096_d2": [o["sharded"] for o in two],
+             "4096_d4": [o["sharded"] for o in four],
+             "tsqr_d4": [o["tsqr"] for o in four]}
+    for label, c in cells.items():
+        check_cell(label, c)
+    psum = [o["psum"] for o in two]
+    for p in psum:
+        assert p["vs_decoded"] <= p["decoded_tol"], psum
+        assert p["vs_true_over_bound"] <= 1.0 and p["residual_exact"], psum
+    assert len({p["sha"] for p in psum}) == 1, psum
+
+    a = torch.from_numpy(np.random.default_rng(DIST_N).standard_normal(
+        (DIST_N, DIST_N)).astype(np.float32)).cuda()
+    t = torch.from_numpy(np.random.default_rng(DIST_TSQR[0]).standard_normal(
+        DIST_TSQR).astype(np.float32)).cuda()
+
+    def ms(fn):
+        return host_ms(lambda: (fn(), torch.cuda.synchronize()), DIST_REPS)
+
+    beside = dict(torch_linalg_qr_4096_ms=ms(lambda: torch.linalg.qr(a)),
+                  qr_4096_one_process_ms=ms(lambda: repro_torch.qr(a)),
+                  torch_linalg_qr_tsqr_ms=ms(lambda: torch.linalg.qr(t)),
+                  qr_tsqr_one_process_ms=ms(lambda: repro_torch.qr(t)))
+    del a, t
+    torch.cuda.empty_cache()
+    summary = {label: dict(
+        qr_ms=[c["qr_ms"] for c in outs], launches=[c["launches"] for c in outs],
+        gates=outs[0]["gates"], r_vs_fp64=outs[0]["r_vs_fp64"],
+        spans=[c["spans"] for c in outs],
+        plan=outs[0].get("plan")) for label, outs in cells.items()}
+    summary["psum"] = psum
+    summary["beside"] = beside
+    log("distributed:", json.dumps(summary))
+    out = dict(cells=summary, **phase_restart(torch, macro_ops))
+    launches = {label: [c["launches"] for c in outs]
+                for label, outs in cells.items()}
+    launches["restart_training"] = out["restart"]["launches"]
+    return out, launches
+
+
 def host_ms(fn, reps, warmup=1):
     for _ in range(warmup):
         fn()
@@ -3070,6 +3560,16 @@ def main() -> int:
     tuning, tuning_launches = phase(
         "tuning", phase_tuning, torch, macro_ops, repro_torch,
         mega_rows["MEGAKERNEL"], breakdown_2048["spun_device_span_ms"])
+    distributed, distributed_launches = phase(
+        "distributed", phase_distributed, torch, macro_ops, repro_torch)
+
+    def dist_launches(*kinds):
+        """Phase 16's launches of ``kinds`` (summed): per rank for each
+        sharded cell, and the restart run's."""
+        return {label: ([sum(r.get(k, 0) for k in kinds) for r in per_rank]
+                        if isinstance(per_rank, list) else
+                        sum(per_rank.get(k, 0) for k in kinds))
+                for label, per_rank in distributed_launches.items()}
     # Each panel-path kernel's device time summed over one call of each
     # traced path (the profiler's spans), beside launches x one launch.
     summed = {}
@@ -3093,6 +3593,7 @@ def main() -> int:
             service_launches=service_launches.get(kind, 0),
             training_launches=training_launches.get(kind, 0),
             tuning_launches=tuning_launches.get(kind, 0),
+            distributed_launches=dist_launches(kind),
             **({"fp64_ms": r["fp64_ms"]} if "fp64_ms" in r else {}),
             **({"computes": Q_FORMATION} if kind.startswith("Q") else {})))
     for name, path_launches in (("MEGAKERNEL", mega_launches),
@@ -3111,6 +3612,7 @@ def main() -> int:
             service_launches=service_launches.get(name, 0),
             training_launches=training_launches.get(name, 0),
             tuning_launches=tuning_launches.get(name, 0),
+            distributed_launches=dist_launches(name),
             **({"computes": Q_FORMATION} if "_Q" in name else {})))
     path_launches = {
         "MHT_PANEL": {k: p["launches"].get("MHT_PANEL", 0)
@@ -3133,6 +3635,7 @@ def main() -> int:
             training_launches=(training_launches.get(kind, 0)
                                + training_launches.get(kind + "_Q", 0)),
             tuning_launches=tuning_launches.get(kind, 0),
+            distributed_launches=dist_launches(kind, kind + "_Q"),
             **({"launches_by_path": path_launches[kind],
                 "summed_device_ms_by_path": summed[kind]}
                if kind in path_launches else {})))
@@ -3201,6 +3704,21 @@ def main() -> int:
             for k, v in tuning["routes"]["qr_ms"].items()}),
         "| DAG depth 2048 / 640:", tuning["dag"]["2048"]["depth"],
         tuning["dag"]["640"]["depth"])
+    dc, rs, cp = (distributed["cells"], distributed["restart"],
+                  distributed["compression"])
+    log("card:", card, "| distributed qr ms per rank (ranks share the card):",
+        json.dumps({k: dc[k]["qr_ms"] for k in ("4096_d2", "4096_d4",
+                                                  "tsqr_d4")}),
+        "| merge / collective share (rank 0):", json.dumps({
+            k: [dc[k]["spans"][0]["merge_share"],
+                dc[k]["spans"][0]["collective_share"]]
+            for k in ("4096_d2", "4096_d4", "tsqr_d4")}),
+        "| beside:", json.dumps(dc["beside"]),
+        "| compressed_psum ms:", json.dumps([p["ms"] for p in dc["psum"]]),
+        "| checkpoint bytes / snapshot ms / write s:", rs["checkpoint_bytes"],
+        rs["snapshot_ms"], rs["write_s"], "| restart loss diff",
+        rs["loss_diff"], "max param diff", rs["max_param_diff"],
+        "| codec ms a step:", json.dumps(cp["codec_ms"]))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,5 @@
+"""Atomic, asynchronous checkpointing in the reference's on-disk layout."""
+
+from repro_torch.checkpoint.manager import CheckpointManager
+
+__all__ = ["CheckpointManager"]

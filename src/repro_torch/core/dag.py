@@ -230,7 +230,7 @@ def analyze_sharded_tiled(n: int, tile: int = 16, ndomains: int = 4
                           ) -> DagStats:
     """DAG stats for the multi-device sharded tiled QR on an n x n matrix.
 
-    The schedule (ROADMAP A14 executes it) runs d independent
+    The schedule (``core/distgraph.py`` executes it) runs d independent
     row-block domains — each a (p/d x q) flat-tree tile DAG — then a
     binary merge tree of stacked-triangle QR nodes over the per-domain R
     factors.  A level is one cross-device wavefront

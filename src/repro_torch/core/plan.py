@@ -4,12 +4,13 @@ Counterpart of the reference's ``repro.core.plan``, on PyTorch.  The
 planner's backend string is ``"cuda"`` or ``"cpu"``: it names the device
 the solve runs on.  Routing follows the reference rule for rule
 (:data:`_ROUTE_RULES`, the same decision slugs and reasons), with the
-tiled floor of 256 on ``"cuda"`` as on the reference's TPU.  Methods not
-ported yet are registered as **capability cards** with the reference's
-metadata, so routing decides exactly as the reference does; their
-``solve`` raises ``NotImplementedError`` naming the ROADMAP item (only
-``sharded_tiled`` is left).  A method that registers a packed ``factor``
-solves every mode through :func:`_default_solve`, the reference's.
+tiled floor of 256 on ``"cuda"`` as on the reference's TPU.  Every
+method of the reference is registered.  A method that registers a packed
+``factor`` solves every mode through :func:`_default_solve`, the
+reference's.  The sharded routing rule counts the ranks of the default
+``torch.distributed`` process group (1 without one), the ranks a
+``sharded_tiled`` solve runs over, where the reference counts
+``jax.local_device_count()``.
 
 The ``tuned`` rule consults the measured tuning cache
 (:mod:`repro_torch.tuning`) as the reference's does.  Deliberate
@@ -261,6 +262,7 @@ def _ensure_builtins() -> None:
         return
     _BUILTINS_LOADED = True
     import repro_torch.core.blocked  # noqa: F401
+    import repro_torch.core.distgraph  # noqa: F401
     import repro_torch.core.householder  # noqa: F401
     import repro_torch.core.mht  # noqa: F401
     import repro_torch.core.tilegraph  # noqa: F401
@@ -327,7 +329,7 @@ def sign_fix_r(r: Tensor) -> Tensor:
 
 
 # ---------------------------------------------------------------------------
-# degenerate (zero-dim) shapes and capability cards of unported methods
+# degenerate (zero-dim) shapes
 # ---------------------------------------------------------------------------
 
 def _solve_degenerate(a: Tensor, cfg: QRConfig):
@@ -349,27 +351,6 @@ register_method(MethodSpec(
                 "torch.linalg.qr semantics — the planner's early-return "
                 "for empty matrices",
 ))
-
-
-def _not_ported(name: str, item: str) -> Callable:
-    def solve(a, cfg):
-        raise NotImplementedError(
-            f"method {name!r} is not ported to repro_torch yet "
-            f"(ROADMAP {item})")
-    return solve
-
-
-# (name, ROADMAP item, metadata copied from the reference's registration)
-for _name, _item, _meta in (
-        ("sharded_tiled", "A14", dict(
-            supports_full_q=False, batched=False, kernel_backed=True,
-            kernel_policy="macro_ops",
-            description="multi-device tiled QR: per-device row-block "
-                        "wavefront domains + TSQR-style hierarchical R "
-                        "merge")),
-):
-    register_method(MethodSpec(name=_name, solve=_not_ported(_name, _item),
-                               **_meta))
 
 
 # ---------------------------------------------------------------------------
@@ -530,8 +511,14 @@ def _tuned_lookup(m: int, n: int, dtype, config: QRConfig, backend: str,
         f"{cls[0]}x{cls[1]} ({entry.dtype})"), entry
 
 
-def _default_ndevices(backend: str) -> int:
-    return torch.cuda.device_count() if backend == "cuda" else 1
+def _default_ndevices() -> int:
+    """The ranks a sharded solve would run over: the default process
+    group's size, 1 without one (the reference's
+    ``jax.local_device_count()``, the devices its ``shard_map`` uses).
+    Cards present but not joined in a group do not count."""
+    from repro_torch.distributed import sharding
+
+    return sharding.world_size()
 
 
 def _route(shape, dtype, config: QRConfig, backend: Optional[str],
@@ -557,7 +544,7 @@ def _route(shape, dtype, config: QRConfig, backend: Optional[str],
             f"config.method={config.method!r} bypasses auto routing"))
         return config.method, dec, None
     backend = "cuda" if backend is None else backend
-    ndevices = _default_ndevices(backend) if ndevices is None else int(ndevices)
+    ndevices = _default_ndevices() if ndevices is None else int(ndevices)
     aspect = m / n if n else float("inf")
 
     tuned_dec, tuned = _tuned_lookup(m, n, dtype, config, backend,
@@ -743,7 +730,7 @@ def plan(shape, dtype=torch.float32, config: Optional[QRConfig] = None, *,
         record = PlanExplain(
             shape=(m, n), dtype=str(dtype).replace("torch.", ""),
             backend=backend,
-            ndevices=(_default_ndevices(backend) if ndevices is None
+            ndevices=(_default_ndevices() if ndevices is None
                       else int(ndevices)),
             requested_method=cfg.method, method=name,
             use_kernel=bool(use_kernel),

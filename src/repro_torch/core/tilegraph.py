@@ -146,8 +146,8 @@ def wavefront_count(p: int, q: int) -> int:
 # row-block domains, each running the flat-tree schedule on its own
 # (p_i x q) sub-grid, and merges their R factors through a binary tree
 # of ceil(log2 d) rounds: the cross-device critical path is
-# wavefront_count(ceil(p / d), q) + ceil(log2 d).  Executing it is
-# ROADMAP A14; these helpers are its schedule, the reference's ints.
+# wavefront_count(ceil(p / d), q) + ceil(log2 d).  ``core/distgraph.py``
+# executes it; these helpers are its schedule, the reference's ints.
 
 def domain_rows(p: int, d: int) -> Tuple[Tuple[int, int], ...]:
     """Contiguous per-domain tile-row ranges ``((start, stop), ...)``:
@@ -327,18 +327,16 @@ def _planned_itemsize(cfg: QRConfig, dtype) -> int:
     return as_torch_dtype(dtype).itemsize if dtype is not None else 4
 
 
-def _resolve_tiled(m: int, n: int, cfg: QRConfig, *, dtype=None,
-                   explain=None) -> QRConfig:
-    # cfg.block doubles as the tile size; never exceed the matrix itself.
-    cfg = cfg.replace(block=min(cfg.block, m, n))
-    if not cfg.use_kernel:
-        return cfg
-    p, q = tile_grid(m, n, cfg.block)
+def _resolve_dispatch(p: int, q: int, cfg: QRConfig, dtype,
+                      explain) -> QRConfig:
+    """The engine lowering the kernel path will run on a (p, q) grid at
+    ``cfg.block``: a forced megakernel's table checked, or the auto rule
+    resolved and recorded (megakernel iff its task table and working set
+    fit; a ``megakernel_over_budget`` fallback otherwise), as the
+    reference's tiled and sharded resolve hooks share it."""
     if cfg.dispatch_mode == "megakernel":
         engine.check_table(p, q)
     elif cfg.dispatch_mode is None:
-        # Record the lowering the kernel path will run, as the reference
-        # does (megakernel iff its task table and working set fit).
         mode, why = engine.explain_dispatch_mode(
             p, q, cfg.block, _planned_itemsize(cfg, dtype))
         if mode == "wavefront":
@@ -351,6 +349,15 @@ def _resolve_tiled(m: int, n: int, cfg: QRConfig, *, dtype=None,
                 RouteDecision("dispatch_mode_auto", "resolved", why))
         cfg = cfg.replace(dispatch_mode=mode)
     return cfg
+
+
+def _resolve_tiled(m: int, n: int, cfg: QRConfig, *, dtype=None,
+                   explain=None) -> QRConfig:
+    # cfg.block doubles as the tile size; never exceed the matrix itself.
+    cfg = cfg.replace(block=min(cfg.block, m, n))
+    if not cfg.use_kernel:
+        return cfg
+    return _resolve_dispatch(*tile_grid(m, n, cfg.block), cfg, dtype, explain)
 
 
 def _solve_tiled_batched(a: torch.Tensor, cfg: QRConfig):

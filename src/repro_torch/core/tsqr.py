@@ -8,8 +8,18 @@ the card a panel step of a whole level is one ``mht_panel`` launch and
 one ``wy_trailing`` launch; a ``(B, m, n)`` stack of matrices runs its
 levels together too.  ``Q = A R^{-1}`` is a triangular solve
 (``torch.linalg.solve_triangular``), as the reference computes it
-outside its kernels.  The collective layer (``butterfly_merge_r``,
-``tsqr_tree_sharded``, ``distributed_qr``) is ROADMAP A14.
+outside its kernels.
+
+The collective layer — :func:`butterfly_merge_r`,
+:func:`tsqr_tree_sharded`, :func:`distributed_qr` — runs over a
+``torch.distributed`` process group where the reference runs inside
+``shard_map`` over a mesh axis: every rank of the group calls it with
+its own rows (SPMD), and the n x n triangles travel through
+:mod:`repro_torch.distributed.sharding`'s exchanges (a host copy on
+gloo, device memory on NCCL).  The merge's combine is :func:`_local_r`
+with the caller's ``use_kernel``, so on the card it runs the panel
+kernels; the reference's merge inside ``sharded_tiled`` runs jnp
+(ROADMAP §C).
 """
 
 from __future__ import annotations
@@ -22,9 +32,12 @@ from repro_torch.core.blocked import geqrf
 from repro_torch.core.householder import unpack_r
 from repro_torch.core.plan import (MethodSpec, QRConfig, RouteDecision,
                                    register_method, sign_fix_qr, sign_fix_r)
+from repro_torch.distributed import sharding
 from repro_torch.observability import metrics as _metrics
+from repro_torch.observability import trace as _trace
 
-__all__ = ["tsqr_r", "tsqr_qr", "triangular_inverse_apply", "default_nblocks"]
+__all__ = ["tsqr_r", "tsqr_qr", "triangular_inverse_apply", "default_nblocks",
+           "butterfly_merge_r", "tsqr_tree_sharded", "distributed_qr"]
 
 Tensor = torch.Tensor
 
@@ -108,6 +121,61 @@ def tsqr_qr(a: Tensor, *, nblocks: int = 4, refine: bool = True,
         r2 = tsqr_r(q, **kw)
         return triangular_inverse_apply(q, r2), r2 @ r1
     return q, r1
+
+
+# ---------------------------------------------------------------------------
+# collective versions (over a process group)
+# ---------------------------------------------------------------------------
+
+def butterfly_merge_r(r: Tensor, group, combine) -> Tensor:
+    """Merge every rank's (n x n) R into the global R, on every rank of
+    ``group`` — the TSQR combine tree, shared with the sharded tiled QR.
+
+    Round ``level`` exchanges the current R with the partner ``rank XOR
+    2^level``, stacks the pair with the lower rank's on top and reduces it
+    with ``combine((2n x n) stack) -> (n x n) R``.  After log2(P) rounds
+    every rank holds the same R, bit for bit when ``combine`` is
+    deterministic (both partners reduce the same stack).  One n x n
+    triangle crosses each link a round.  The group's size must be a power
+    of two."""
+    p = sharding.group_size(group)
+    if p & (p - 1):
+        raise ValueError(f"butterfly_merge_r needs a power-of-two group, "
+                         f"got {p} ranks")
+    rank = sharding.group_rank(group)
+    with _trace.span("tsqr.butterfly_merge_r", ranks=p) as sp:
+        for level in range(p.bit_length() - 1):
+            stride = 1 << level
+            partner = sharding.exchange(r, rank ^ stride, group)
+            top, bot = (r, partner) if (rank & stride) == 0 else (partner, r)
+            r = combine(torch.cat([top, bot], dim=0))
+        return sp.sync(r)
+
+
+def tsqr_tree_sharded(a_local: Tensor, group, *, qr_block: int = 32,
+                      use_kernel: bool = False) -> Tensor:
+    """Global R of a row-sharded tall matrix: this rank's rows
+    ``a_local`` (at least n of them) factored by blocked MHT, then the
+    :func:`butterfly_merge_r` tree; every rank of ``group`` ends with the
+    same R."""
+    kw = dict(qr_block=qr_block, use_kernel=use_kernel)
+    return butterfly_merge_r(_local_r(a_local, **kw), group,
+                             lambda stack: _local_r(stack, **kw))
+
+
+def distributed_qr(a_local: Tensor, group, *, refine: bool = True,
+                   qr_block: int = 32, use_kernel: bool = False
+                   ) -> Tuple[Tensor, Tensor]:
+    """Thin QR of a row-sharded matrix: ``(q_local, r)``, this rank's rows
+    of the thin Q and the global R (the same on every rank).  ``refine``
+    runs the CQR2 second pass (a second merge tree)."""
+    kw = dict(qr_block=qr_block, use_kernel=use_kernel)
+    r1 = tsqr_tree_sharded(a_local, group, **kw)
+    q_local = triangular_inverse_apply(a_local, r1)
+    if refine:
+        r2 = tsqr_tree_sharded(q_local, group, **kw)
+        return triangular_inverse_apply(q_local, r2), r2 @ r1
+    return q_local, r1
 
 
 def _solve_tsqr_batched(a: Tensor, cfg: QRConfig):

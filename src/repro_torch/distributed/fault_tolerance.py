@@ -4,7 +4,7 @@ Counterpart of the reference's ``repro.distributed.fault_tolerance``
 (``StepWatchdog`` and ``_median``).  ``StepWatchdog`` tracks a robust
 step-time median; a step slower than ``threshold x median`` fires the
 straggler callback and the ``fault.straggler_steps`` counter.  The
-elastic re-mesh (``plan_elastic_mesh``) waits for ROADMAP A14.
+elastic re-mesh (``plan_elastic_mesh``) waits for ROADMAP A21.
 """
 
 from __future__ import annotations

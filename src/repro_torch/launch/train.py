@@ -2,14 +2,18 @@
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
         --steps 200 --batch 8 --seq 512 --optimizer muon-qr [--smoke] \\
-        [--batched-ortho] [--device cpu]
+        [--batched-ortho] [--device cpu] [--checkpoint-dir DIR] \\
+        [--checkpoint-every N] [--grad-compression]
 
 The reference's flags (``repro.launch.train``), plus ``--device`` ("cuda"
 by default; "cpu" to run without a card) and ``--batched-ortho`` (one
 QR-Muon orthogonalization dispatch per shape class: on the card, the
-kernels).  ``--smoke`` selects the reduced config.  ``--mesh``,
-``--grad-compression`` and ``--checkpoint-dir`` wait for the distributed
-layer (ROADMAP A14) and raise.
+kernels).  ``--smoke`` selects the reduced config.  With
+``--checkpoint-dir`` the run resumes from the directory's latest
+committed checkpoint and saves every ``--checkpoint-every`` steps and at
+the end; ``--grad-compression`` runs the int8 error-feedback codec on
+the gradients.  ``--mesh`` waits for mesh training (ROADMAP A21) and
+raises.
 """
 
 from __future__ import annotations
@@ -48,7 +52,7 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
     if args.mesh:
         raise NotImplementedError(
-            "--mesh needs the distributed layer (ROADMAP A14)")
+            "--mesh needs mesh training (ROADMAP A21)")
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     data_cfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,

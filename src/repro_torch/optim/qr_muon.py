@@ -22,7 +22,7 @@ orthogonalized as one stack.
 
 ``muon_update`` runs on ``"cuda"`` unless ``device="cpu"``; every tensor
 it is given must lie on that device, and without a card it raises.
-``qr_shard_leaves`` waits for the distributed layer (ROADMAP A14).
+``qr_shard_leaves`` waits for mesh training (ROADMAP A21).
 """
 
 from __future__ import annotations
@@ -227,7 +227,7 @@ def muon_update(
     passed in is written."""
     if qr_shard_leaves:
         raise NotImplementedError(
-            "qr_shard_leaves needs the distributed layer (ROADMAP A14)")
+            "qr_shard_leaves needs mesh training (ROADMAP A21)")
     dev = check_device(device, params, grads, state.mu)
     step = state.step + 1
     bc1, bc2 = bias_corrections(step, adam_b1, adam_b2)

@@ -1,5 +1,6 @@
 """Training step: fused chunked LM loss, microbatch gradient accumulation,
-global-norm clipping, the QR-Muon / AdamW update.
+global-norm clipping, optional int8 error-feedback gradient compression,
+the QR-Muon / AdamW update.
 
 Counterpart of the reference's ``repro.training.train_step``.  Gradients
 come from autograd through plain torch ops (the reference has no custom
@@ -8,8 +9,10 @@ and softmax cross-entropy run chunk by chunk over the sequence, each
 chunk recomputed in the backward pass; microbatches accumulate their
 gradients, so live activations are one microbatch deep.
 
-The step runs on ``"cuda"`` unless ``device="cpu"``.  Gradient
-compression waits for the distributed layer (ROADMAP A14).
+The step runs on ``"cuda"`` unless ``device="cpu"``.  With
+``grad_compression`` the clipped gradients pass through
+:func:`repro_torch.distributed.compression.ef_compress_tree` and the
+residual rides in ``TrainState.ef_error``, as the reference's step does.
 """
 
 from __future__ import annotations
@@ -22,6 +25,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.plan import QRConfig, resolve_device
+from repro_torch.distributed.compression import (ef_compress_tree,
+                                                 init_error_state)
 from repro_torch.models.layers import softcap as apply_softcap
 from repro_torch.models.transformer import (ParamTree, as_tree,
                                             forward_hidden, lm_head_weight)
@@ -58,6 +63,9 @@ class TrainConfig:
 class TrainState(NamedTuple):
     params: ParamTree               # updated in place by the step
     opt: Any
+    ef_error: Any                   # error-feedback residuals (name ->
+                                    # tensor), or a 0-d zero without
+                                    # compression
 
 
 def _chunk_loss(xi: Tensor, head_w: Tensor, li: Tensor,
@@ -139,7 +147,10 @@ def init_train_state(params: ParamTree, train_cfg: TrainConfig) -> TrainState:
         opt = adamw_init(named)
     else:
         raise ValueError(f"unknown optimizer {train_cfg.optimizer!r}")
-    return TrainState(params=params, opt=opt)
+    leaf = next(iter(named.values()))
+    ef = (init_error_state(named) if train_cfg.grad_compression else
+          torch.zeros((), dtype=torch.float32, device=leaf.device))
+    return TrainState(params=params, opt=opt, ef_error=ef)
 
 
 def _autograd(loss, leaves):
@@ -184,23 +195,24 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig, *,
     ``batch`` holds tensors on that device; the parameters update in
     place, the optimizer state is replaced."""
     dev = resolve_device(device)
-    if train_cfg.grad_compression:
-        raise NotImplementedError(
-            "grad_compression needs the distributed layer (ROADMAP A14)")
 
     def train_step(state: TrainState, batch, lr):
         with _trace.span("train.fwd_bwd") as sp:
             loss, metrics, grads = sp.sync(_grads(state.params, batch,
                                                   model_cfg, train_cfg))
+        ef = state.ef_error
         with _trace.span("train.optimizer", optimizer=train_cfg.optimizer,
                          batched_ortho=train_cfg.batched_ortho) as sp:
             grads, gnorm = _clip_by_global_norm(grads, train_cfg.grad_clip)
+            if train_cfg.grad_compression:
+                with _trace.span("train.grad_compression") as codec:
+                    grads, ef = codec.sync(ef_compress_tree(grads, ef))
             new, opt = sp.sync(_update(state, grads, lr))
         with torch.no_grad():
             for k, p in state.params.named_parameters():
                 p.copy_(new[k])
         metrics = dict(metrics, loss=loss, grad_norm=gnorm)
-        return TrainState(params=state.params, opt=opt), metrics
+        return TrainState(params=state.params, opt=opt, ef_error=ef), metrics
 
     def _update(state: TrainState, grads, lr):
         params = {k: p.detach() for k, p in state.params.named_parameters()}

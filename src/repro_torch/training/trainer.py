@@ -1,11 +1,13 @@
-"""Trainer: the orchestration loop on one device.
+"""Trainer: the fault-tolerant orchestration loop on one device.
 
 Counterpart of the reference's ``repro.training.trainer``: pipeline ->
-device placement -> train step -> watchdog.  Runs on ``"cuda"`` unless
-``device="cpu"`` (raises without a card).  Meshes, sharding rules and
-checkpointing (``mesh``, ``rules``, ``RunConfig.checkpoint_dir``) wait for
-the distributed layer and ``checkpoint/manager.py`` (ROADMAP A14) and
-raise ``NotImplementedError``.
+device placement -> train step -> watchdog -> asynchronous checkpoints.
+Restart-safe: :meth:`Trainer.run` resumes from the latest committed
+checkpoint (parameters, optimizer state, error-feedback residuals, the
+data cursor and the step index) and replays the same batches.  Runs on
+``"cuda"`` unless ``device="cpu"`` (raises without a card).  Meshes and
+sharding rules (``mesh``, ``rules``) wait for mesh training (ROADMAP
+A21) and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -16,13 +18,15 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.plan import resolve_device
 from repro_torch.data import DataConfig, make_pipeline
 from repro_torch.distributed import StepWatchdog
 from repro_torch.models import ParamTree, init_params, params_from_numpy
 from repro_torch.optim import warmup_cosine
-from repro_torch.training.train_step import (TrainConfig, init_train_state,
+from repro_torch.training.train_step import (TrainConfig, TrainState,
+                                             init_train_state,
                                              make_train_step)
 
 __all__ = ["Trainer", "RunConfig"]
@@ -52,11 +56,7 @@ class Trainer:
                  params=None):
         if mesh is not None or rules is not None:
             raise NotImplementedError(
-                "meshes and sharding rules need the distributed layer "
-                "(ROADMAP A14)")
-        if run_cfg.checkpoint_dir:
-            raise NotImplementedError(
-                "checkpointing needs checkpoint/manager.py (ROADMAP A14)")
+                "meshes and sharding rules need mesh training (ROADMAP A21)")
         self.model_cfg = model_cfg
         self.train_cfg = train_cfg
         self.run_cfg = run_cfg
@@ -66,6 +66,8 @@ class Trainer:
         self.watchdog = watchdog if watchdog is not None else StepWatchdog(
             on_straggler=lambda s, dt, med: log_fn(
                 f"[watchdog] straggler step {s}: {dt:.2f}s vs median {med:.2f}s"))
+        self.ckpt = (CheckpointManager(run_cfg.checkpoint_dir)
+                     if run_cfg.checkpoint_dir else None)
         self.metrics_history: list = []
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(run_cfg.seed)
@@ -76,14 +78,56 @@ class Trainer:
         self._step = make_train_step(model_cfg, train_cfg, device=self.device)
         self.step_idx = 0
 
+    # -------------------------------------------------------------- ckpt
+
+    def checkpoint_tree(self) -> TrainState:
+        """What a checkpoint holds: the state with the parameters as the
+        reference's tree (``.params[...]``, ``.opt``, ``.ef_error``)."""
+        s = self.state
+        return TrainState(params=s.params.tree(), opt=s.opt,
+                          ef_error=s.ef_error)
+
+    def _save(self, blocking=False) -> None:
+        if self.ckpt is None:
+            return
+        self.ckpt.save(self.step_idx, self.checkpoint_tree(),
+                       metadata={"data": self.pipeline.state_dict(),
+                                 "step": self.step_idx},
+                       blocking=blocking)
+
+    def maybe_restore(self) -> bool:
+        """Load the latest committed checkpoint, if any: parameters (in
+        place), optimizer state, residuals, data cursor, step index."""
+        if self.ckpt is None:
+            return False
+        latest = self.ckpt.latest_step()
+        if latest is None:
+            return False
+        meta = self.ckpt.metadata(latest)
+        got = self.ckpt.restore(latest, self.checkpoint_tree())
+        with torch.no_grad():
+            _copy_into(self.state.params.tree(), got.params)
+        self.state = TrainState(params=self.state.params, opt=got.opt,
+                                ef_error=got.ef_error)
+        self.pipeline.load_state_dict(meta["data"])
+        self.step_idx = int(meta["step"])
+        self.log(f"[trainer] restored step {self.step_idx}")
+        return True
+
+    # --------------------------------------------------------------- run
+
     def _place_batch(self, batch) -> dict:
         return {k: torch.from_numpy(np.asarray(v)).to(self.device)
                 for k, v in batch.items()}
 
-    def run(self, *, stop_at: Optional[int] = None) -> dict:
-        """Train from the current step; ``stop_at`` ends the loop early
-        without changing the LR schedule's horizon.  (No checkpoint to
-        resume from until ROADMAP A14.)"""
+    def run(self, *, resume: bool = True,
+            stop_at: Optional[int] = None) -> dict:
+        """Train from the latest checkpoint (``resume``) or the current
+        step; ``stop_at`` ends the loop early (a crash, a partial run)
+        without changing the LR schedule's horizon.  Saves every
+        ``checkpoint_every`` steps without blocking, and at the end."""
+        if resume:
+            self.maybe_restore()
         rc = self.run_cfg
         it = iter(self.pipeline)
         limit = rc.total_steps if stop_at is None else min(stop_at, rc.total_steps)
@@ -104,6 +148,23 @@ class Trainer:
                 self.log(f"[trainer] step {self.step_idx} "
                          f"loss={m['loss']:.4f} acc={m['accuracy']:.3f} "
                          f"gnorm={m['grad_norm']:.2f} ({dt:.2f}s)")
+            if self.ckpt and self.step_idx % rc.checkpoint_every == 0:
+                self._save(blocking=False)
+        if self.ckpt:
+            self._save(blocking=True)
+            self.ckpt.wait_until_finished()
         return {"final_step": self.step_idx,
                 "history": self.metrics_history,
                 "stragglers": self.watchdog.straggler_steps}
+
+
+def _copy_into(dst, src) -> None:
+    """Copy the tensors of tree ``src`` into those of ``dst``, in place."""
+    if isinstance(dst, dict):
+        for k in dst:
+            _copy_into(dst[k], src[k])
+    elif isinstance(dst, (tuple, list)):
+        for d, s in zip(dst, src):
+            _copy_into(d, s)
+    else:
+        dst.copy_(src)

@@ -373,7 +373,7 @@ def test_optimizers_reduce_loss(opt):
 
 def test_muon_update_device_rules():
     """The step runs on "cuda" unless asked; never on a device its
-    tensors are not on; ``qr_shard_leaves`` waits for A14."""
+    tensors are not on; ``qr_shard_leaves`` waits for A21."""
     params, grads = _lm_like()
     tp = {k: torch.from_numpy(v) for k, v in _flat(params).items()}
     tg = {k: torch.from_numpy(v) for k, v in _flat(grads).items()}
@@ -383,7 +383,7 @@ def test_muon_update_device_rules():
             T.muon_update(tg, state, tp, lr=0.02)
         with pytest.raises(RuntimeError, match="no CUDA device"):
             T.batched_orthogonalize([tp["layers.wq"]])
-    with pytest.raises(NotImplementedError, match="A14"):
+    with pytest.raises(NotImplementedError, match="A21"):
         T.muon_update(tg, state, tp, lr=0.02, qr_shard_leaves=True,
                       device="cpu")
 

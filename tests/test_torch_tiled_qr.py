@@ -177,9 +177,14 @@ def test_forced_megakernel_verify_and_backend_raise():
     assert float((q @ r - torch.from_numpy(a)).abs().max()) < 1e-4
     with pytest.raises(ValueError, match="backend"):
         tplan.plan((64, 64), torch.float32, backend="tpu")
-    with pytest.raises(NotImplementedError, match="A14"):
-        repro_torch.qr(np.eye(8, dtype=np.float32), device="cpu",
-                       config=tplan.QRConfig(method="sharded_tiled"))
+    # sharded_tiled is ported: without a process group it is the tiled
+    # backend, bit for bit.
+    eye = np.eye(8, dtype=np.float32)
+    got = repro_torch.qr(eye, device="cpu",
+                         config=tplan.QRConfig(method="sharded_tiled"))
+    want = repro_torch.qr(eye, device="cpu",
+                          config=tplan.QRConfig(method="tiled"))
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
 def test_entry_points_without_card_raise(monkeypatch):

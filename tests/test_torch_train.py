@@ -179,22 +179,100 @@ def test_other_optimizers_train(opt):
     assert np.isfinite(losses).all() and losses[-1] < losses[0]
 
 
-def test_trainer_device_and_a14_rules():
-    """The trainer runs on "cuda" unless asked, and raises for what waits
-    for the distributed layer (ROADMAP A14)."""
+def test_trainer_device_and_a14_rules(tmp_path):
+    """The trainer runs on "cuda" unless asked; checkpoints and gradient
+    compression (ROADMAP A14) are ported; meshes raise for mesh training
+    (ROADMAP A21)."""
     cfg = get_smoke_config("smollm-135m")
     args = (cfg, TrainConfig(), RunConfig(total_steps=1), _data(cfg))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             Trainer(*args)
-    with pytest.raises(NotImplementedError, match="A14"):
+    with pytest.raises(NotImplementedError, match="A21"):
         Trainer(*args, device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="A14"):
-        Trainer(cfg, TrainConfig(), RunConfig(checkpoint_dir="/nonexistent"),
-                _data(cfg), device="cpu")
-    with pytest.raises(NotImplementedError, match="A14"):
-        Trainer(cfg, TrainConfig(grad_compression=True), RunConfig(),
-                _data(cfg), device="cpu")
+    tr = Trainer(cfg, TrainConfig(),
+                 RunConfig(total_steps=1, checkpoint_dir=str(tmp_path)),
+                 _data(cfg), device="cpu", log_fn=lambda s: None)
+    assert tr.run()["final_step"] == 1 and tr.ckpt.latest_step() == 1
+    tr = Trainer(cfg, TrainConfig(grad_compression=True),
+                 RunConfig(total_steps=1), _data(cfg), device="cpu",
+                 log_fn=lambda s: None)
+    assert set(tr.state.ef_error) == {k for k, _ in
+                                      tr.state.params.named_parameters()}
+    assert np.isfinite(tr.run()["history"][0]["loss"])
+
+
+@pytest.mark.parametrize("compression", [False, True],
+                         ids=["plain", "grad_compression"])
+def test_restart_is_bitexact_continuation(compression, tmp_path):
+    """Twin of ``test_train_integration.py::
+    test_trainer_restart_is_bitexact_continuation`` (6 steps, a crash at
+    4, checkpoints every 2): the restored state equals the saved one bit
+    for bit — every tensor of the parameters, the optimizer state and the
+    error-feedback residuals, the step index and the data cursor — and
+    the resumed run's losses equal the uninterrupted run's (the
+    reference's bar is 1e-3; on the CPU the bits agree)."""
+    from repro_torch.checkpoint.manager import _leaves_with_path
+
+    cfg = get_smoke_config("smollm-135m")
+    tcfg = TrainConfig(optimizer="muon-qr", lr=0.02, batched_ortho=True,
+                       grad_compression=compression)
+
+    def run_cfg(ckpt):
+        return RunConfig(total_steps=6, warmup_steps=1, log_every=1,
+                         checkpoint_every=2, checkpoint_dir=ckpt)
+
+    def trainer(ckpt=None):
+        return Trainer(cfg, tcfg, run_cfg(ckpt), _data(cfg), device="cpu",
+                       log_fn=lambda s: None)
+
+    crashed = trainer(str(tmp_path))
+    crashed.run(stop_at=4)
+    saved = list(_leaves_with_path(crashed.checkpoint_tree()))
+    resumed = trainer(str(tmp_path))
+    assert resumed.maybe_restore() and resumed.step_idx == 4
+    assert resumed.pipeline.state_dict() == crashed.pipeline.state_dict()
+    got = list(_leaves_with_path(resumed.checkpoint_tree()))
+    assert [k for k, _ in got] == [k for k, _ in saved]
+    assert any(k.startswith(".ef_error[") for k, _ in got) == compression
+    for (k, x), (_, y) in zip(got, saved):
+        same = torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
+        assert same, k
+    tail = [m["loss"] for m in resumed.run(resume=False)["history"]]
+    whole = [m["loss"] for m in trainer().run()["history"]]
+    assert tail == whole[4:]
+
+
+def test_training_with_compression_converges():
+    """Twin of ``test_train_integration.py::
+    test_training_with_compression_converges``: 12 AdamW steps with the
+    int8 error-feedback codec lower the loss."""
+    cfg = get_smoke_config("smollm-135m")
+    tr = Trainer(cfg, TrainConfig(optimizer="adamw", lr=2e-3,
+                                  grad_compression=True),
+                 RunConfig(total_steps=12, warmup_steps=2, log_every=1),
+                 _data(cfg), device="cpu", log_fn=lambda s: None)
+    losses = [m["loss"] for m in tr.run()["history"]]
+    assert losses[-1] < losses[0] - 0.5
+    assert np.isfinite(losses).all()
+
+
+def test_grad_compression_matches_reference_from_carried_weights():
+    """Three QR-Muon steps with ``grad_compression`` from the reference's
+    weights and batches (fp32): every loss within 1e-4 relative of the
+    reference's (the uncompressed run's 1e-5, with room for an int8 code
+    that rounds the other way on an ulp of gradient)."""
+    rc = ref_smoke("smollm-135m").scaled(dtype="float32")
+    tc = get_smoke_config("smollm-135m").scaled(dtype="float32")
+    kw = dict(optimizer="muon-qr", lr=0.02, grad_compression=True)
+    start, ref = _ref_run(rc, kw)
+    tr = Trainer(tc, TrainConfig(**kw),
+                 RunConfig(total_steps=3, warmup_steps=1, log_every=1),
+                 _data(tc), device="cpu", log_fn=lambda s: None,
+                 params=start)
+    mine = [m["loss"] for m in tr.run()["history"]]
+    assert len(mine) == len(ref) == 3
+    np.testing.assert_allclose(mine, ref, rtol=1e-4, atol=0)
 
 
 # ------------------------------------------------------------- launcher
@@ -210,11 +288,24 @@ def test_launcher_smoke_on_cpu(extra, capsys):
 
 
 @pytest.mark.parametrize("flag", [["--mesh", "2,1"], ["--grad-compression"],
-                                  ["--checkpoint-dir", "/nonexistent"]])
-def test_launcher_a14_flags_raise(flag):
-    with pytest.raises(NotImplementedError, match="A14"):
-        launcher.main(["--arch", "smollm-135m", "--smoke", "--steps", "1",
-                       "--device", "cpu"] + flag)
+                                  ["--checkpoint-dir", "CKPT"]])
+def test_launcher_a14_flags_raise(flag, tmp_path, capsys):
+    """``--grad-compression`` and ``--checkpoint-dir`` (ROADMAP A14) run
+    (a second launch resumes from the checkpoint); ``--mesh`` raises for
+    mesh training (ROADMAP A21)."""
+    base = ["--arch", "smollm-135m", "--smoke", "--steps", "1", "--device",
+            "cpu"]
+    flag = [str(tmp_path) if f == "CKPT" else f for f in flag]
+    if flag[0] == "--mesh":
+        with pytest.raises(NotImplementedError, match="A21"):
+            launcher.main(base + flag)
+        return
+    assert launcher.main(base + flag)["final_step"] == 1
+    if flag[0] == "--checkpoint-dir":
+        capsys.readouterr()
+        assert launcher.main(base[:4] + ["2"] + base[5:] + flag)[
+            "final_step"] == 2
+        assert "[trainer] restored step 1" in capsys.readouterr().out
 
 
 # ------------------------------------------------------------- watchdog

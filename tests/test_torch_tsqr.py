@@ -87,3 +87,70 @@ def test_tsqr_stack_is_one_tree():
     with pytest.raises(ValueError, match="thin Q only"):
         repro_torch.qr(a, config=QRConfig(method="tsqr", mode="full"),
                        device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# the collective layer (more ranks: tests/test_torch_distgraph.py)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("use_kernel", [False, True], ids=["plain", "kernel"])
+def test_collective_tsqr_on_one_rank_matches_jax(use_kernel):
+    """Without a process group (one rank, no merge round)
+    ``tsqr_tree_sharded`` and ``distributed_qr`` against the reference's
+    ``shard_map`` versions on a one-device mesh, within ``10 * eps * m``
+    (scaled by max |R|) and the conformance bar."""
+    from jax.sharding import PartitionSpec as P
+    from repro.compat import shard_map
+
+    m, n = 96, 12
+    a = np.random.default_rng(21).standard_normal((m, n)).astype(np.float32)
+    mesh = jax.make_mesh((1,), ("x",))
+    rows = P("x", None)
+    want_r = np.asarray(shard_map(
+        lambda x: jtsqr.tsqr_tree_sharded(x, "x", qr_block=4), mesh=mesh,
+        in_specs=rows, out_specs=P())(jnp.asarray(a)))
+    want_q, want_r2 = (np.asarray(x) for x in shard_map(
+        lambda x: jtsqr.distributed_qr(x, "x", qr_block=4), mesh=mesh,
+        in_specs=rows, out_specs=(rows, P()))(jnp.asarray(a)))
+    ta = torch.from_numpy(a)
+    tol = 10 * float(np.finfo(np.float32).eps) * m
+    _close(ttsqr.tsqr_tree_sharded(ta, None, qr_block=4,
+                                   use_kernel=use_kernel).numpy(), want_r, tol)
+    q, r = ttsqr.distributed_qr(ta, None, qr_block=4, use_kernel=use_kernel)
+    _close(q.numpy(), want_q, tol)
+    _close(r.numpy(), want_r2, tol)
+    bar = 100 * float(np.finfo(np.float32).eps) * m
+    q64, r64 = q.double().numpy(), r.double().numpy()
+    assert np.abs(q64.T @ q64 - np.eye(n)).max() <= bar
+    assert np.linalg.norm(a - q64 @ r64) / np.linalg.norm(a) <= bar
+
+
+def test_butterfly_stacks_the_lower_rank_on_top(monkeypatch):
+    """Both partners of a round reduce the same stack — the lower rank's R
+    on top — so they end with the same bits (two ranks simulated: the
+    exchange hands each the other's R)."""
+    from repro_torch.distributed import sharding
+
+    g = torch.Generator().manual_seed(0)
+    r0, r1 = (torch.triu(torch.randn(6, 6, generator=g)) for _ in range(2))
+    stacks, results = [], []
+
+    def combine(stack):
+        stacks.append(stack.clone())
+        return ttsqr._local_r(stack, qr_block=4)
+
+    for rank, mine, theirs in ((0, r0, r1), (1, r1, r0)):
+        monkeypatch.setattr(sharding, "group_size", lambda group=None: 2)
+        monkeypatch.setattr(sharding, "group_rank",
+                            lambda group=None, rank=rank: rank)
+
+        def exchange(t, peer, group, rank=rank, theirs=theirs):
+            assert peer == 1 - rank and torch.equal(t, (r0, r1)[rank])
+            return theirs
+
+        monkeypatch.setattr(sharding, "exchange", exchange)
+        results.append(ttsqr.butterfly_merge_r(mine, None, combine))
+    assert torch.equal(stacks[0], stacks[1])
+    assert torch.equal(stacks[0][:6], r0)
+    assert torch.equal(results[0], results[1])

@@ -146,7 +146,39 @@ Phases, each of which exits non-zero when it fails:
      snapshot ms a non-blocking save costs the step loop and the write
      seconds; (e) 3 steps with ``grad_compression``: finite losses within
      5e-2 of the uncompressed run's, the codec's ms a step.  A rank that
-     fails fails the phase.
+     fails fails the phase.  Phase 16(a) opts in to the sharded route
+     (``QRConfig(ndomains=d)``: a rank's own ``qr`` never counts the
+     group otherwise, ROADMAP C10) and prints the copies check's cost.
+ 17. mesh training (``Trainer(mesh=...)``, phase 14's model, weights and
+     batches, ``TrainConfig(optimizer="muon-qr", qr_shard_leaves=True)``):
+     (a) on a (1, 1) ``("data", "model")`` CUDA mesh in this process (a
+     one-rank gloo group) and without a mesh, one warm-up and three timed
+     steps each: the losses within 1e-3 relative and the Muon leaves'
+     first update within 1e-4 of the mesh-free run's (a run with TF32
+     products in the optimizer failing the latter), every O of the
+     warm-up step (the mesh route, whole) through phase 14's gates, step
+     ms and tokens/s beside the mesh-free run's, the step's launches
+     (the 1536 x 576 class's 90 slices on the wavefront rung, one batched
+     megakernel launch and one over its Q table per 576^2 stack); (b) two
+     spawned gloo ranks sharing the card on a (2, 1) mesh (FSDP on
+     "data"; DTensor's collectives staged through host memory: gloo
+     crashes on CUDA tensors): every rank's losses equal and within 1e-3
+     of (a)'s, each rank's step launching half of the wavefront launches
+     (15 of each stacked leaf's 30 layers) and the same batched and panel
+     launches, step ms a rank (time-shared: cost, not scaling) and the
+     1536 x 576 class's ms; on each rank, from the warm-up step's inputs,
+     its layer-shard of every O of the mesh route (15-slice stacks)
+     through phase 14's gates against the plain lowering on the same
+     slices, and the update of the mesh route (whole) within 1e-4 of the
+     mesh-free update of the same inputs, the mesh route with TF32
+     products failing it; the whole parameters after step 2 against
+     (a)'s mesh-free run (reported: the ranks' gradients are sums over
+     half batches); (c) 17(b)'s checkpoint of step 3 restored
+     onto the (1, 1) mesh that ``plan_elastic_mesh(failed=[1])`` plans:
+     every leaf's sha256 equal to the saved one, step 4's loss within
+     1e-3 of the uninterrupted run's; (d) C10 on the two ranks: each
+     rank's own matrix raises ``DivergentCopiesError`` on both, and the
+     copies check's ms at 4096^2.
 
 Each correctness check is shown to reject a control whose answer is only
 TF32-grade: the kernels' written outputs rounded to TF32 (fp64: to fp32),
@@ -159,7 +191,8 @@ The second-to-last line of output is a JSON object with one record per
 kernel (``service_launches``: its launches on phase 13's service paths;
 ``training_launches``: on phase 14's warm-up and timed steps;
 ``tuning_launches``: in phase 15's sweep; ``distributed_launches``: in
-phase 16, per rank for each sharded cell and in the restart run);
+phase 16, per rank for each sharded cell and in the restart run;
+``mesh_launches``: in phase 17, (a)'s timed step and each (b) rank's);
 the last is ``{"ok": true, "device": {...}}``.  Without a CUDA
 device the script exits with status 1 and prints no result.
 """
@@ -2417,6 +2450,23 @@ def class_measures(torch, leaves, outs, plain, ctrl):
     return per_class
 
 
+def check_classes(per_class):
+    """Phase 14's gates on every O of each class (:func:`class_measures`):
+    inside the conformance bar, a QR Q of its momentum to ``tol`` in
+    backward error (the TF32 control failing it), and the sign convention
+    (the sign-flip control failing it)."""
+    for label, c in per_class.items():
+        assert c["finite"] and c["ortho_max"] <= c["bar"], (label, c)
+        assert c["backward_error_max"] <= c["tol"], (label, c)
+        assert c["plain_backward_error_max"] <= c["tol"], (label, c)
+        assert c["tf32_control_backward_error_max"] > c["tol"], (
+            "the TF32 control passed", label, c)
+        assert c["sign_margin_min"] >= -c["tol"], (label, c)
+        assert c["plain_sign_margin_min"] >= -c["tol"], (label, c)
+        assert c["flip_control_sign_margin_min"] < -c["tol"], (
+            "the sign-flip control passed", label, c)
+
+
 def ortho_check(torch, macro_ops, dirs):
     """(a) One step's 210 momenta through ``batched_orthogonalize`` on the
     kernels and through the plain lowering on the card: the plan (3
@@ -2461,16 +2511,8 @@ def ortho_check(torch, macro_ops, dirs):
     assert plan.dispatches == 3 and plan.leafwise_matrices == 0, checks
     assert plan.n_matrices == 210, checks
     assert launches == ORTHO_LAUNCHES, checks
-    for label, c in list(momenta.items()) + list(gaussian.items()):
-        assert c["finite"] and c["ortho_max"] <= c["bar"], (label, c)
-        assert c["backward_error_max"] <= c["tol"], (label, c)
-        assert c["plain_backward_error_max"] <= c["tol"], (label, c)
-        assert c["tf32_control_backward_error_max"] > c["tol"], (
-            "the TF32 control passed", label, c)
-        assert c["sign_margin_min"] >= -c["tol"], (label, c)
-        assert c["plain_sign_margin_min"] >= -c["tol"], (label, c)
-        assert c["flip_control_sign_margin_min"] < -c["tol"], (
-            "the sign-flip control passed", label, c)
+    check_classes(momenta)
+    check_classes(gaussian)
     for label, c in gaussian.items():
         assert c["dq_max"] <= c["tol"], (label, c)
         assert c["tf32_control_dq_max"] > c["tol"], (
@@ -3139,10 +3181,15 @@ def rank_sharded(torch, dist, rank, world):
     from repro_torch.core import engine
     from repro_torch.kernels import macro_ops
 
+    from repro_torch.distributed import sharding
+
     rng = np.random.default_rng(DIST_N)
     a = torch.from_numpy(rng.standard_normal((DIST_N, DIST_N)).astype(
         np.float32)).cuda()
-    solver = repro_torch.plan(a.shape, a.dtype, backend="cuda", explain=True)
+    # A rank's own qr counts the group's ranks only on the opt-in (C10).
+    opt_in = repro_torch.QRConfig(ndomains=world)
+    solver = repro_torch.plan(a.shape, a.dtype, opt_in, backend="cuda",
+                              explain=True)
     cfg = solver.config
     plan = dict(method=cfg.method, block=cfg.block, ndomains=cfg.ndomains,
                 dispatch_mode=cfg.dispatch_mode, use_kernel=cfg.use_kernel,
@@ -3152,11 +3199,11 @@ def rank_sharded(torch, dist, rank, world):
     assert solver.explain.selected.rule == "sharded_past_ceiling", plan
     assert (cfg.method, cfg.ndomains, cfg.block, cfg.use_kernel) == (
         "sharded_tiled", world, DIST_BLOCK, True), plan
-    repro_torch.qr(a)
+    repro_torch.qr(a, config=opt_in)
     torch.cuda.synchronize()
     dist.barrier()
     macro_ops.reset_launch_counts()
-    q, r = repro_torch.qr(a)
+    q, r = repro_torch.qr(a, config=opt_in)
     torch.cuda.synchronize()
     launches = launch_counts(macro_ops)
     p_dom = -(-DIST_N // cfg.block) // world
@@ -3169,8 +3216,11 @@ def rank_sharded(torch, dist, rank, world):
         out["r_vs_fp64"] = r_vs_fp64(torch, a, r)
     del q, r
     out["qr_ms"], out["qr_ms_all"] = barrier_ms(
-        torch, dist, lambda: repro_torch.qr(a))
-    out["spans"] = traced_shares(torch, lambda: repro_torch.qr(a))
+        torch, dist, lambda: repro_torch.qr(a, config=opt_in))
+    out["spans"] = traced_shares(torch,
+                                 lambda: repro_torch.qr(a, config=opt_in))
+    out["fingerprint_ms"], _ = barrier_ms(
+        torch, dist, lambda: sharding.check_same_copies(a, None))
     return out
 
 
@@ -3467,7 +3517,9 @@ def phase_distributed(torch, macro_ops, repro_torch):
         qr_ms=[c["qr_ms"] for c in outs], launches=[c["launches"] for c in outs],
         gates=outs[0]["gates"], r_vs_fp64=outs[0]["r_vs_fp64"],
         spans=[c["spans"] for c in outs],
-        plan=outs[0].get("plan")) for label, outs in cells.items()}
+        plan=outs[0].get("plan"),
+        fingerprint_ms=[c.get("fingerprint_ms") for c in outs])
+        for label, outs in cells.items()}
     summary["psum"] = psum
     summary["beside"] = beside
     log("distributed:", json.dumps(summary))
@@ -3476,6 +3528,433 @@ def phase_distributed(torch, macro_ops, repro_torch):
                 for label, outs in cells.items()}
     launches["restart_training"] = out["restart"]["launches"]
     return out, launches
+
+
+# ---------------------------------------------------------------------------
+# phase 17: mesh training
+# ---------------------------------------------------------------------------
+
+MESH_RANKS = 2                # 17(b): data-parallel ranks sharing the card
+MESH_LOSS_RTOL = 1e-3         # losses against the run each is held to
+MESH_UPDATE_RTOL = 1e-4       # the Muon leaves' update against its reference
+MESH_DIR_ENV = "CHIP_SMOKE_MESH_DIR"     # phase 17's files: 17(b)'s
+                                         # checkpoint, (a)'s first update
+WAVEFRONT_KINDS = ("GEQRT", "LARFB", "TSQRT", "SSRFB", "QLARFB", "QSSRFB")
+
+
+def mesh_setup():
+    """Phase 14's model, weights and batches, with ``qr_shard_leaves``:
+    each leaf's stack one planned dispatch (on a mesh, each rank's slice
+    of it)."""
+    from repro_torch.training import TrainConfig
+
+    cfg, data, run, _ = train_setup(None)
+    return cfg, data, run, TrainConfig(optimizer="muon-qr",
+                                       qr_shard_leaves=True)
+
+
+def whole_params(trainer):
+    """Every parameter, whole (a collective on a mesh), cloned."""
+    from repro_torch.distributed import sharding
+
+    return {k: (sharding.full_tensor(p.detach()) if hasattr(p, "device_mesh")
+                else p.detach()).clone()
+            for k, p in trainer.state.params.named_parameters()}
+
+
+def state_shas(torch, trainer):
+    """The sha256 of every leaf of what a checkpoint holds, whole."""
+    from repro_torch.checkpoint.manager import _leaves_with_path
+    from repro_torch.distributed import sharding
+
+    out = {}
+    for k, x in _leaves_with_path(trainer.checkpoint_tree()):
+        if hasattr(x, "device_mesh"):
+            x = sharding.full_tensor(x.detach())
+        out[k] = sha(torch, x) if isinstance(x, torch.Tensor) else repr(x)
+    return out
+
+
+def check_mesh_launches(launches):
+    """One step's launches of the leaf-by-leaf stacks: the 1536 x 576
+    class's 90 slices on the wavefront rung as in phase 14, one batched
+    megakernel launch and one over its Q table for each (30, 576, 576)
+    stack, the panel kernels for the (30, 576, 192) stacks."""
+    for k in WAVEFRONT_KINDS:
+        assert launches.get(k) == ORTHO_LAUNCHES[k], (k, launches)
+    assert launches.get("MEGAKERNEL_BATCHED") == 2, launches
+    assert launches.get("MEGAKERNEL_Q_BATCHED") == 2, launches
+    assert all(launches.get(k, 0) > 0 for k in
+               ("MHT_PANEL", "WY_TRAILING", "WY_TRAILING_Q")), launches
+
+
+def muon_keys(params):
+    from repro_torch.optim import is_muon_param
+
+    return [k for k, p in params.items() if is_muon_param(k, p)]
+
+
+def mesh_single(torch, macro_ops, mesh, first_path):
+    """17(a): phase 14's run with ``qr_shard_leaves`` on a (1, 1) mesh
+    and without one, from the same weights and batches: one warm-up and
+    three timed steps each; every O of the mesh run's warm-up step
+    through phase 14's gates; losses, the first update against a TF32
+    control, step ms and tokens/s, the step's launches.  The Muon leaves
+    at the start and after the mesh-free run's first update go to
+    ``first_path`` (host copies) for 17(b)."""
+    from repro_torch.distributed import sharding
+    from repro_torch.optim import muon_directions
+    from repro_torch.optim.qr_muon import _orthogonalize_leaf
+    from repro_torch.training import Trainer
+
+    cfg, data, run, tcfg = mesh_setup()
+    free = Trainer(cfg, tcfg, run, data, device="cuda", log_fn=log)
+    start_tree = copy.deepcopy(free.state.params)
+    start = whole_params(free)
+    torch.cuda.synchronize()
+    macro_ops.reset_launch_counts()
+    free_ms = train_steps(torch, free, 1)
+    free_launches = launch_counts(macro_ops)
+    free_ms += train_steps(torch, free, 1)
+    free_first = whole_params(free)
+    free_ms += train_steps(torch, free, TRAIN_TIMED - 1)
+    free_losses = [m["loss"] for m in free.metrics_history]
+    del free
+    torch.cuda.empty_cache()
+    muon = muon_keys(start)
+    torch.save({"start": {k: start[k].cpu() for k in muon},
+                "first": {k: free_first[k].cpu() for k in muon}}, first_path)
+
+    rules = sharding.MeshRules(mesh)
+    trainer = Trainer(cfg, tcfg, run, data, device="cuda", mesh=mesh,
+                      rules=rules, log_fn=log,
+                      params=copy.deepcopy(start_tree))
+    placed = all(hasattr(p, "device_mesh")
+                 for p in trainer.state.params.parameters())
+    torch.cuda.synchronize()
+    macro_ops.reset_launch_counts()
+    step_ms, record = recorded_step(torch, trainer)
+    warm = launch_counts(macro_ops)
+    # The warm-up step's momenta through the mesh route, whole.
+    _, dirs = muon_directions(record["grads"], record["state"],
+                              record["params"],
+                              momentum=record["kw"]["momentum"])
+    outs = [sharding.full_tensor(_orthogonalize_leaf(
+        d, "qr", None, shard_leaves=True, rules=rules))
+        for d in dirs.values()]
+    leaves = [sharding.full_tensor(d) for d in dirs.values()]
+    _, plain, ctrl = ortho_runs(torch, leaves)
+    momenta = class_measures(torch, leaves, outs, plain, ctrl)
+    del record, dirs, outs, leaves, plain, ctrl
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    macro_ops.reset_launch_counts()
+    step_ms += train_steps(torch, trainer, 1)
+    step_launches = launch_counts(macro_ops)
+    first = whole_params(trainer)
+    step_ms += train_steps(torch, trainer, TRAIN_TIMED - 1)
+    losses = [m["loss"] for m in trainer.metrics_history]
+    del trainer
+    torch.cuda.empty_cache()
+
+    ctrl_run = Trainer(cfg, tcfg, run, data, device="cuda", mesh=mesh,
+                       rules=rules, log_fn=log,
+                       params=copy.deepcopy(start_tree))
+    with wrapped_update(tf32_update(torch)):
+        ctrl_run.run(stop_at=2)
+    ctrl_first = whole_params(ctrl_run)
+    del ctrl_run, start_tree
+    torch.cuda.empty_cache()
+    timed, free_timed = (statistics.median(step_ms[1:]),
+                         statistics.median(free_ms[1:]))
+    out = dict(
+        placed=placed, losses=losses, mesh_free_losses=free_losses,
+        rel_diff=[abs(a - b) / abs(b) for a, b in zip(losses, free_losses)],
+        first_update=relative_change(torch, first, free_first, start, muon),
+        tf32_control_first_update=relative_change(torch, ctrl_first,
+                                                  free_first, start, muon),
+        step_ms=step_ms, mesh_free_step_ms=free_ms, step_ms_median=timed,
+        mesh_free_step_ms_median=free_timed,
+        tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / (timed / 1e3),
+        mesh_free_tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / (free_timed / 1e3),
+        step_over_mesh_free=timed / free_timed, warmup_launches=warm,
+        mesh_free_warmup_launches=free_launches, launches=step_launches,
+        momenta=momenta)
+    del start, first, free_first, ctrl_first
+    torch.cuda.empty_cache()
+    log("mesh (1, 1):", json.dumps(out))
+    assert placed, out
+    assert all(math.isfinite(x) for x in losses + free_losses), out
+    assert len(losses) == len(free_losses) == 1 + TRAIN_TIMED, out
+    assert max(out["rel_diff"]) <= MESH_LOSS_RTOL, out
+    assert out["first_update"] <= MESH_UPDATE_RTOL, out
+    assert out["tf32_control_first_update"] > MESH_UPDATE_RTOL, (
+        "the TF32 control passed", out)
+    check_classes(momenta)
+    assert warm == free_launches == step_launches, out
+    check_mesh_launches(step_launches)
+    return out
+
+
+def mesh_update_checks(torch, record, rules, lr):
+    """17(b)'s optimizer on this rank, from one step's recorded inputs
+    (``recorded_step``) at the learning rate ``lr``: the rank's
+    layer-shard of every O that the mesh route returns and of its
+    momentum (the 15-slice stacks this rank factors), through phase 14's
+    gates against the plain lowering and its TF32 control on the same
+    slices (:func:`class_measures`); and the Muon leaves' update by the
+    mesh route against the mesh-free update of the same inputs, whole
+    (``||P_mesh - P_free|| / ||P_free - P_start||``), beside the mesh
+    route with TF32 products."""
+    from repro_torch.distributed import sharding
+    from repro_torch.optim import MuonState, muon_directions, muon_update
+    from repro_torch.optim.qr_muon import _orthogonalize_leaf, _shard_spec
+
+    grads, state, params = record["grads"], record["state"], record["params"]
+    kw = dict(record["kw"], lr=lr)
+    _, dirs = muon_directions(grads, state, params, momentum=kw["momentum"])
+    moms, outs = [], []
+    for d in dirs.values():
+        o = _orthogonalize_leaf(d, "qr", None, shard_leaves=True, rules=rules)
+        spec = _shard_spec(tuple(d.shape), rules)
+        places = sharding.placements(
+            sharding.Spec(*spec[:-2], None, None), d.device_mesh)
+        moms.append(sharding.redistribute(d, places).to_local())
+        outs.append(sharding.redistribute(o, places).to_local())
+    leads = {k: int(m.shape[0]) for k, m in zip(dirs, moms)}
+    _, plain, ctrl = ortho_runs(torch, moms)
+    momenta = class_measures(torch, moms, outs, plain, ctrl)
+    del dirs, moms, outs, plain, ctrl
+
+    muon = muon_keys(params)
+
+    def whole(tree):
+        return {k: sharding.full_tensor(tree[k]) for k in tree}
+
+    new = whole(muon_update(grads, state, params, **kw)[0])
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = whole(muon_update(grads, state, params, **kw)[0])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    start = whole(params)
+    free = muon_update(whole(grads), MuonState(
+        step=state.step, mu=whole(state.mu), nu=whole(state.nu)),
+        start, **kw)[0]
+    out = dict(local_leads=leads, momenta=momenta,
+               update=relative_change(torch, new, free, start, muon),
+               tf32_control_update=relative_change(torch, tf32, free, start,
+                                                   muon))
+    del new, tf32, start, free
+    torch.cuda.empty_cache()
+    return out
+
+
+def rank_mesh(torch, dist, rank, world):
+    """17(b)-(d) on one of ``world`` ranks sharing the card: phase 14's
+    run with ``qr_shard_leaves`` on a (world, 1) mesh (data-parallel,
+    parameters and state sharded over "data"): a warm-up step (its
+    inputs recorded), step 2 (timed, its launches, the Muon leaves after
+    it against (a)'s mesh-free run), the optimizer's checks
+    (:func:`mesh_update_checks`, on the warm-up's inputs at step 2's
+    rate), step 3 traced (each class's ms, the step's parts and their
+    redistributions) and then saved, the whole state's sha256, step 4
+    without a break (timed); then C10's divergent copies, and the
+    fingerprint's cost at 4096^2."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core.distgraph import sharded_tiled_qr
+    from repro_torch.distributed import sharding
+    from repro_torch.kernels import macro_ops
+    from repro_torch.observability import instrument, trace
+    from repro_torch.training import Trainer
+
+    cfg, data, run, tcfg = mesh_setup()
+    mesh = init_device_mesh("cuda", (world, 1),
+                            mesh_dim_names=("data", "model"))
+    rules = sharding.MeshRules(mesh)
+    tr = Trainer(cfg, tcfg, run, data, device="cuda", mesh=mesh, rules=rules,
+                 log_fn=log if rank == 0 else (lambda _: None))
+    local = {k: list(p.to_local().shape)
+             for k, p in tr.state.params.named_parameters()}
+    step_ms, record = recorded_step(torch, tr)
+    torch.cuda.synchronize()
+    macro_ops.reset_launch_counts()
+    step_ms += train_steps(torch, tr, 1)
+    launches = launch_counts(macro_ops)
+    single = torch.load(os.path.join(os.environ[MESH_DIR_ENV], "first.pt"))
+    after = whole_params(tr)
+    muon = list(single["start"])
+    first_vs_single = relative_change(
+        torch, after, {k: v.cuda() for k, v in single["first"].items()},
+        {k: v.cuda() for k, v in single["start"].items()}, muon)
+    del single, after
+    torch.cuda.empty_cache()
+    checks = mesh_update_checks(torch, record, rules, tcfg.lr)
+    del record
+    torch.cuda.empty_cache()
+    trace.clear()
+    with instrument.enabled_scope(tracing=True, annotations=False):
+        tr.run(stop_at=3)
+    spans = trace.spans()
+    trace.clear()
+    by_sid = {sp.sid: sp for sp in spans}
+
+    def part(sp):
+        """The step part (top-level span) ``sp`` ran in."""
+        while sp.parent_sid in by_sid:
+            sp = by_sid[sp.parent_sid]
+        return sp.name
+
+    class_ms, parts = {}, {}
+    for sp in spans:
+        ms = sp.duration_us / 1e3
+        if sp.name == "optim.ortho_class":
+            b = sp.labels["bucket"]
+            class_ms[b] = class_ms.get(b, 0.0) + ms
+        elif sp.name in ("train.fwd_bwd", "train.optimizer"):
+            parts[sp.name] = parts.get(sp.name, 0.0) + ms
+        elif sp.name == "distributed.collective" and \
+                sp.labels.get("op") == "redistribute":
+            key = "redistribute in " + part(sp)
+            parts[key] = parts.get(key, 0.0) + ms
+    tr.ckpt = CheckpointManager(os.path.join(os.environ[MESH_DIR_ENV],
+                                             "ckpt"))
+    tr._save(blocking=True)
+    tr.ckpt.wait_until_finished()
+    shas = state_shas(torch, tr)
+    tr.ckpt = None
+    step_ms += train_steps(torch, tr, 1)        # step 4; step 3 was traced
+    losses = [m["loss"] for m in tr.metrics_history]
+    del tr
+    torch.cuda.empty_cache()
+
+    mine = torch.from_numpy(np.random.default_rng(rank).standard_normal(
+        (256, 128))).cuda()
+    try:
+        sharded_tiled_qr(mine, tile=32)
+        raised = ""
+    except ValueError as e:
+        raised = type(e).__name__
+    a = torch.from_numpy(np.random.default_rng(DIST_N).standard_normal(
+        (DIST_N, DIST_N)).astype(np.float32)).cuda()
+    fp_ms, fp_all = barrier_ms(torch, dist,
+                               lambda: sharding.check_same_copies(a, None))
+    return dict(losses=losses, launches=launches, step_ms=step_ms,
+                step_ms_median=statistics.median(step_ms[1:]),
+                class_ms_step3=class_ms, span_ms_step3=parts, shas=shas,
+                local_shapes=local, first_update_vs_single=first_vs_single,
+                **checks,
+                c10=raised, fingerprint_ms=fp_ms, fingerprint_ms_all=fp_all)
+
+
+RANK_JOBS["mesh"] = rank_mesh
+
+
+def elastic_restore(torch, ckdir, ranks):
+    """17(c): ``plan_elastic_mesh`` over the two ranks with rank 1
+    failed gives a (1, 1) mesh; a trainer on it restores 17(b)'s step 3
+    (each leaf's sha256 equal to the saved one, whole) and runs step 4,
+    whose loss is held to the uninterrupted run's."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.distributed import plan_elastic_mesh
+    from repro_torch.training import Trainer
+
+    cfg, data, run, tcfg = mesh_setup()
+    plan = plan_elastic_mesh(list(range(MESH_RANKS)), failed=[1],
+                             prefer_model=1)
+    tr = Trainer(cfg, tcfg, run, data, device="cuda",
+                 mesh=plan.device_mesh("cuda"), log_fn=log)
+    tr.ckpt = CheckpointManager(ckdir)
+    t0 = time.perf_counter()
+    restored = tr.maybe_restore()
+    restore_s = time.perf_counter() - t0
+    step = tr.step_idx
+    shas = state_shas(torch, tr)
+    tr.ckpt = None
+    tr.run(resume=False, stop_at=4)
+    loss = tr.metrics_history[-1]["loss"]
+    del tr
+    torch.cuda.empty_cache()
+    want = ranks[0]["losses"][3]
+    out = dict(plan=[plan.data_size, plan.model_size, plan.dropped_devices],
+               restored=restored, step=step, restore_s=restore_s,
+               leaves=len(shas),
+               unequal_leaves=[k for k in shas if shas[k] != ranks[0]["shas"][k]],
+               step4_loss=loss, uninterrupted_step4_loss=want,
+               rel_diff=abs(loss - want) / abs(want))
+    log("mesh elastic:", json.dumps(out))
+    assert plan.size == 1 and restored and step == 3, out
+    assert set(shas) == set(ranks[0]["shas"]) and not out["unequal_leaves"], out
+    assert out["rel_diff"] <= MESH_LOSS_RTOL, out
+    return out
+
+
+def phase_mesh(torch, macro_ops):
+    """Phase 17: mesh training on the card (a) on a (1, 1) mesh in this
+    process (a one-rank gloo group), (b) on two gloo ranks sharing the
+    card (their DTensor collectives staged through host memory), (c) the
+    elastic restore of (b)'s checkpoint on a (1, 1) mesh, (d) C10 on the
+    two ranks.  Returns the results and the launches: (a)'s step and
+    each rank's step 2."""
+    import datetime
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method="file://" + os.path.join(
+        tmp, "store"), rank=0, world_size=1,
+        timeout=datetime.timedelta(seconds=DIST_TIMEOUT_S))
+    try:
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        single = mesh_single(torch, macro_ops, mesh,
+                             os.path.join(tmp, "first.pt"))
+        os.environ[MESH_DIR_ENV] = tmp
+        ranks = [o["mesh"] for o in spawn_ranks(MESH_RANKS, ["mesh"])]
+        cfg = mesh_setup()[0]
+        for i, r in enumerate(ranks):
+            assert r["losses"] == ranks[0]["losses"], (i, r["losses"])
+            rel = [abs(x - y) / abs(y)
+                   for x, y in zip(r["losses"], single["losses"])]
+            assert len(rel) == 1 + TRAIN_TIMED and max(rel) <= \
+                MESH_LOSS_RTOL, (i, r["losses"], single["losses"])
+            for k, v in single["launches"].items():
+                half = v // MESH_RANKS if k in WAVEFRONT_KINDS else v
+                assert r["launches"].get(k) == half, (i, k, r["launches"])
+            assert set(r["launches"]) == set(single["launches"]), r
+            assert r["c10"] == "DivergentCopiesError", (i, r["c10"])
+            # Each rank factors its 15 of every stack's 30 slices.
+            assert set(r["local_leads"].values()) == {
+                cfg.n_periods // MESH_RANKS}, (i, r["local_leads"])
+            check_classes(r["momenta"])
+            assert r["update"] <= MESH_UPDATE_RTOL, (i, r["update"])
+            assert r["tf32_control_update"] > MESH_UPDATE_RTOL, (
+                "the TF32 control passed", i, r["tf32_control_update"])
+        # FSDP on "data": the down projection's (d_ff, d) slices split d.
+        assert ranks[0]["local_shapes"]["layers.0.ffn.down.w"] == [
+            cfg.n_periods, cfg.d_ff, cfg.d_model // MESH_RANKS], \
+            ranks[0]["local_shapes"]
+        elastic = elastic_restore(torch, os.path.join(tmp, "ckpt"), ranks)
+    finally:
+        os.environ.pop(MESH_DIR_ENV, None)
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    summary = dict(
+        single=single,
+        ranks=[{k: v for k, v in r.items() if k not in ("shas",
+                                                        "local_shapes")}
+               for r in ranks],
+        elastic=elastic)
+    log("mesh:", json.dumps(summary))
+    return summary, dict(a=single["launches"],
+                         b=[r["launches"] for r in ranks])
+
 
 
 def host_ms(fn, reps, warmup=1):
@@ -3562,6 +4041,14 @@ def main() -> int:
         mega_rows["MEGAKERNEL"], breakdown_2048["spun_device_span_ms"])
     distributed, distributed_launches = phase(
         "distributed", phase_distributed, torch, macro_ops, repro_torch)
+    mesh, mesh_launches = phase("mesh", phase_mesh, torch, macro_ops)
+
+    def mesh_of(*kinds):
+        """Phase 17's launches of ``kinds`` (summed): (a)'s timed step on
+        the (1, 1) mesh, and each rank's step 2 in (b)."""
+        return {"a": sum(mesh_launches["a"].get(k, 0) for k in kinds),
+                "b": [sum(r.get(k, 0) for k in kinds)
+                      for r in mesh_launches["b"]]}
 
     def dist_launches(*kinds):
         """Phase 16's launches of ``kinds`` (summed): per rank for each
@@ -3594,6 +4081,7 @@ def main() -> int:
             training_launches=training_launches.get(kind, 0),
             tuning_launches=tuning_launches.get(kind, 0),
             distributed_launches=dist_launches(kind),
+            mesh_launches=mesh_of(kind),
             **({"fp64_ms": r["fp64_ms"]} if "fp64_ms" in r else {}),
             **({"computes": Q_FORMATION} if kind.startswith("Q") else {})))
     for name, path_launches in (("MEGAKERNEL", mega_launches),
@@ -3613,6 +4101,7 @@ def main() -> int:
             training_launches=training_launches.get(name, 0),
             tuning_launches=tuning_launches.get(name, 0),
             distributed_launches=dist_launches(name),
+            mesh_launches=mesh_of(name),
             **({"computes": Q_FORMATION} if "_Q" in name else {})))
     path_launches = {
         "MHT_PANEL": {k: p["launches"].get("MHT_PANEL", 0)
@@ -3636,6 +4125,7 @@ def main() -> int:
                                + training_launches.get(kind + "_Q", 0)),
             tuning_launches=tuning_launches.get(kind, 0),
             distributed_launches=dist_launches(kind, kind + "_Q"),
+            mesh_launches=mesh_of(kind, kind + "_Q"),
             **({"launches_by_path": path_launches[kind],
                 "summed_device_ms_by_path": summed[kind]}
                if kind in path_launches else {})))
@@ -3715,10 +4205,27 @@ def main() -> int:
             for k in ("4096_d2", "4096_d4", "tsqr_d4")}),
         "| beside:", json.dumps(dc["beside"]),
         "| compressed_psum ms:", json.dumps([p["ms"] for p in dc["psum"]]),
+        "| copies check ms at 4096^2 d=2:",
+        json.dumps(dc["4096_d2"]["fingerprint_ms"]),
         "| checkpoint bytes / snapshot ms / write s:", rs["checkpoint_bytes"],
         rs["snapshot_ms"], rs["write_s"], "| restart loss diff",
         rs["loss_diff"], "max param diff", rs["max_param_diff"],
         "| codec ms a step:", json.dumps(cp["codec_ms"]))
+    ms1, mr, me = mesh["single"], mesh["ranks"], mesh["elastic"]
+    log("card:", card, "| mesh (1, 1) step ms", ms1["step_ms_median"],
+        "tokens/s", ms1["tokens_per_s"], "| mesh-free step ms",
+        ms1["mesh_free_step_ms_median"], "tokens/s",
+        ms1["mesh_free_tokens_per_s"], "| ratio", ms1["step_over_mesh_free"],
+        "| first update", ms1["first_update"], "| (2, 1) ranks step ms",
+        json.dumps([r["step_ms_median"] for r in mr]),
+        "| 1536x576 class ms a rank (step 3, traced):",
+        json.dumps([r["class_ms_step3"].get("1536x576") for r in mr]),
+        "| fwd+bwd / optimizer ms and their redistributions a rank (step 3):",
+        json.dumps([r["span_ms_step3"] for r in mr]),
+        "| fingerprint ms at 4096^2 d=2:",
+        json.dumps([r["fingerprint_ms"] for r in mr]),
+        "| elastic restore s", me["restore_s"], "step-4 loss diff",
+        me["rel_diff"])
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -26,7 +26,15 @@ Guarantees the trainer relies on:
     updates parameters in place (the reference's arrays are immutable, so
     its copy can wait for the thread);
   * placement on restore — each leaf is loaded onto the example leaf's
-    device and dtype.
+    device and dtype;
+  * meshes — a DTensor leaf is saved whole: every rank gathers it (the
+    ranks call ``save`` together, in the same order), group rank 0 of the
+    default process group writes, and the other ranks wait for its
+    commit in :meth:`CheckpointManager.wait_until_finished` (a barrier).
+    A DTensor example leaf restores into its own placements, each rank
+    keeping its shard of the whole tensor, so a run saved on one mesh
+    resumes on another.  A tree without DTensors is saved and restored
+    as before, on every rank that calls.
 """
 
 from __future__ import annotations
@@ -40,6 +48,10 @@ from typing import Any, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
+
+from repro_torch.distributed.sharding import full_tensor, shard_like
 
 __all__ = ["CheckpointManager"]
 
@@ -77,7 +89,10 @@ def _rebuild(tree: Any, leaves: Iterator[Any]) -> Any:
 
 
 def _host_copy(x: Any) -> np.ndarray:
-    """A numpy copy of one leaf that no later write to ``x`` reaches."""
+    """A numpy copy of one leaf that no later write to ``x`` reaches (a
+    DTensor gathered whole first: a collective)."""
+    if isinstance(x, DTensor):
+        x = full_tensor(x)
     if isinstance(x, torch.Tensor):
         return x.detach().to("cpu", copy=True).numpy()
     return np.array(x)
@@ -90,6 +105,10 @@ def _shape(x: Any) -> tuple:
 def _place(arr: np.ndarray, example: Any) -> Any:
     """``arr`` as the example leaf's kind: a tensor on its device and
     dtype, a Python number of its type, or a numpy array."""
+    if isinstance(example, DTensor):
+        whole = torch.from_numpy(arr).to(device=example.device,
+                                         dtype=example.dtype)
+        return shard_like(whole, example)
     if isinstance(example, torch.Tensor):
         return torch.from_numpy(arr).to(device=example.device,
                                         dtype=example.dtype)
@@ -107,6 +126,7 @@ class CheckpointManager:
                                         thread_name_prefix="ckpt")
         self._pending: Optional[Future] = None
         self._lock = threading.Lock()
+        self._shared_pending = False    # a mesh save awaiting its barrier
 
     def _dir(self, step: int) -> str:
         return os.path.join(self.root, f"step_{step:08d}")
@@ -120,9 +140,17 @@ class CheckpointManager:
         background thread (:meth:`wait_until_finished` waits for them and
         raises what the write raised)."""
         self.wait_until_finished()
+        leaves = list(_leaves_with_path(tree))
+        shared = any(isinstance(x, DTensor) for _, x in leaves)
         host: List[Tuple[str, np.ndarray]] = [
-            (kp, _host_copy(x)) for kp, x in _leaves_with_path(tree)]
+            (kp, _host_copy(x)) for kp, x in leaves]
         meta = dict(metadata or {})
+        if shared:
+            self._shared_pending = True
+            if dist.get_rank() != 0:
+                if blocking:
+                    self.wait_until_finished()
+                return
 
         def write():
             tmp = os.path.join(self.root, f".tmp-{step}")
@@ -147,16 +175,24 @@ class CheckpointManager:
 
         if blocking:
             write()
+            if shared:
+                self.wait_until_finished()
         else:
             with self._lock:
                 self._pending = self._pool.submit(write)
 
     def wait_until_finished(self) -> None:
+        """Wait for the last save's files (and raise what the write
+        raised); after a save of DTensors, every rank waits here until
+        the writer has committed."""
         with self._lock:
             pending = self._pending
             self._pending = None
         if pending is not None:
             pending.result()
+        if self._shared_pending:
+            self._shared_pending = False
+            dist.barrier()
 
     def _gc(self) -> None:
         for s in self.all_steps()[: -self.keep_n]:

@@ -28,7 +28,12 @@ the part of the reference's replicated global array.
      refined by a second merge (CQR2), then the Q rows are all-gathered,
      so every rank returns the whole thin Q and R.
 
-Ranks at or past ``d`` (a grid with fewer tile rows than ranks) compute
+First, on a group of more than one rank, every rank all-gathers a
+fingerprint of its ``a`` (shape, dtype, float64 checksums), before any
+rank reads the shape or picks a domain count; when the copies differ
+every rank raises :class:`repro_torch.distributed.sharding.DivergentCopiesError`
+(a ``ValueError``), so a rank's own matrix is never mixed with another's
+(ROADMAP C10).  Ranks at or past ``d`` (a grid with fewer tile rows than ranks) compute
 nothing and receive the result from group rank 0.  Degeneracies, as the
 reference's: ``d == 1`` (one rank, no process group, ``ndomains=1``, or
 wide input) is the tiled backend's result bit for bit; ``d`` is capped at
@@ -135,6 +140,9 @@ def sharded_tiled_qr(a, *, tile: int = 32, mode: str = "reduced",
             f"sharded_tiled supports modes 'reduced'/'r', got {mode!r}")
     if device is not None or not isinstance(a, Tensor):
         a = torch.as_tensor(a, device=resolve_device(device))
+    # Every rank must hold the same matrix: checked on all of the group's
+    # ranks before any of them reads its shape (collective).
+    sharding.check_same_copies(a, group)
     m, n = a.shape
     d = effective_domains(m, n, tile, ndomains,
                           device_count=sharding.group_size(group))

@@ -511,11 +511,25 @@ def _tuned_lookup(m: int, n: int, dtype, config: QRConfig, backend: str,
         f"{cls[0]}x{cls[1]} ({entry.dtype})"), entry
 
 
-def _default_ndevices() -> int:
-    """The ranks a sharded solve would run over: the default process
-    group's size, 1 without one (the reference's
-    ``jax.local_device_count()``, the devices its ``shard_map`` uses).
-    Cards present but not joined in a group do not count."""
+def _opted_in(config: QRConfig) -> bool:
+    """Does the caller ask for a solve across ranks?  ``ndomains > 1``
+    (``method="sharded_tiled"`` bypasses the auto route)."""
+    return config.ndomains is not None and config.ndomains > 1
+
+
+def _default_ndevices(config: QRConfig) -> int:
+    """The ranks the auto route may shard a solve over: the default
+    process group's size when the caller opts in (:func:`_opted_in`),
+    else 1.  The reference counts ``jax.local_device_count()``, the
+    devices of one process; a rank's own ``qr`` on a group stays a local
+    solve unless asked (ROADMAP C10).  Cards present but not joined in a
+    group never count."""
+    from repro_torch.distributed import sharding
+
+    return sharding.world_size() if _opted_in(config) else 1
+
+
+def _group_ranks() -> int:
     from repro_torch.distributed import sharding
 
     return sharding.world_size()
@@ -544,7 +558,7 @@ def _route(shape, dtype, config: QRConfig, backend: Optional[str],
             f"config.method={config.method!r} bypasses auto routing"))
         return config.method, dec, None
     backend = "cuda" if backend is None else backend
-    ndevices = _default_ndevices() if ndevices is None else int(ndevices)
+    ndevices = _default_ndevices(config) if ndevices is None else int(ndevices)
     aspect = m / n if n else float("inf")
 
     tuned_dec, tuned = _tuned_lookup(m, n, dtype, config, backend,
@@ -618,6 +632,11 @@ def _route(shape, dtype, config: QRConfig, backend: Optional[str],
             if config.mode == "full" else
             f"wide matrix ({m}x{n}): row-domain sharding needs m >= n"
             if m < n else
+            f"single device available (ndevices={ndevices}); the "
+            f"{_group_ranks()} ranks of the process group count only "
+            f"with an opt-in: QRConfig(ndomains=k > 1) or "
+            f"method='sharded_tiled'"
+            if ndevices <= 1 and _group_ranks() > 1 else
             f"single device available (ndevices={ndevices})"
             if ndevices <= 1 else
             f"max dim {max(m, n)} > sharded ceiling {sharded_ceiling}"
@@ -730,7 +749,7 @@ def plan(shape, dtype=torch.float32, config: Optional[QRConfig] = None, *,
         record = PlanExplain(
             shape=(m, n), dtype=str(dtype).replace("torch.", ""),
             backend=backend,
-            ndevices=(_default_ndevices() if ndevices is None
+            ndevices=(_default_ndevices(cfg) if ndevices is None
                       else int(ndevices)),
             requested_method=cfg.method, method=name,
             use_kernel=bool(use_kernel),

@@ -10,6 +10,9 @@ reference's paths (``embed.table``, ``layers.0.mixer.wq.w``, ...), so the
 optimizer routes the same names and shapes.  The stack is a loop over
 periods; each stacked leaf is unbound once a forward pass, so its
 gradient is stacked once.  ``cfg.remat`` is not applied (ROADMAP C).
+Hidden states pass :func:`repro_torch.distributed.sharding.
+constrain_hidden` after the embedding and at each period, the
+reference's sites (its third, in prefill, comes with prefill).
 
 The ``mamba``, ``mlstm`` and ``slstm`` mixers, the ``moe`` FFN, prefill
 and decode wait for ROADMAP A16 and raise ``NotImplementedError``.
@@ -23,6 +26,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
+from repro_torch.distributed.sharding import constrain_hidden
 from repro_torch.models import attention
 from repro_torch.models.layers import (
     apply_norm, dense, dense_init, embed, embedding_init, ffn, ffn_init,
@@ -76,11 +80,13 @@ def as_tree(params):
     return params.tree() if isinstance(params, ParamTree) else params
 
 
-def _map(fn, tree):
+def map_tree(fn, tree):
+    """``tree`` (nested dicts and tuples) with ``fn`` applied to each
+    leaf."""
     if isinstance(tree, dict):
-        return {k: _map(fn, v) for k, v in tree.items()}
+        return {k: map_tree(fn, v) for k, v in tree.items()}
     if isinstance(tree, (tuple, list)):
-        return tuple(_map(fn, v) for v in tree)
+        return tuple(map_tree(fn, v) for v in tree)
     return fn(tree)
 
 
@@ -137,7 +143,7 @@ def init_params(generator: torch.Generator, cfg: ModelConfig, *,
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab_size)
     if device is not None:
-        params = _map(lambda t: t.to(device), params)
+        params = map_tree(lambda t: t.to(device), params)
     return ParamTree(params)
 
 
@@ -145,7 +151,7 @@ def param_count(params) -> int:
     if isinstance(params, nn.Module):
         return sum(p.numel() for p in params.parameters())
     leaves = []
-    _map(leaves.append, params)
+    map_tree(leaves.append, params)
     return sum(t.numel() for t in leaves)
 
 
@@ -176,6 +182,7 @@ def _stack(layers, x, cfg: ModelConfig):
             raise _a16(f"the {spec.ffn!r} FFN")
     per_period = [_unstack(lp, cfg.n_periods) for lp in layers]
     for i in range(cfg.n_periods):
+        x = constrain_hidden(x)
         for pi, spec in enumerate(cfg.period):
             x = _apply_layer(per_period[pi][i], x, cfg, spec)
     return x
@@ -209,7 +216,7 @@ def forward_hidden(params: Union[ParamTree, dict], batch,
     auxiliary loss (zero: no MoE).  The training loss projects to the
     vocabulary chunk by chunk instead of forming (B, S, V) logits."""
     params = as_tree(params)
-    x = _embed_input(params, batch, cfg)
+    x = constrain_hidden(_embed_input(params, batch, cfg))
     x = _stack(params["layers"], x, cfg)
     x = apply_norm(params["final_norm"], x, cfg.norm)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)

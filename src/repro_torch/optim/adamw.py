@@ -3,7 +3,9 @@
 Counterpart of the reference's ``repro.optim.adamw``, on name -> tensor
 dicts: ``adamw_init(params) -> state``, ``adamw_update(grads, state,
 params, lr=...) -> (new_params, new_state)``.  State is fp32, shaped like
-the params and on their device.  Pure: no tensor passed in is written.
+the params and on their device (DTensors of the params' placements on a
+mesh: every update is elementwise, so it runs on the local shards).
+Pure: no tensor passed in is written.
 """
 
 from __future__ import annotations
@@ -11,6 +13,8 @@ from __future__ import annotations
 from typing import Dict, NamedTuple
 
 import torch
+
+from repro_torch.distributed.sharding import map_local
 
 __all__ = ["AdamWState", "adamw_init", "adamw_update"]
 
@@ -38,14 +42,19 @@ def bias_corrections(step: int, b1: float, b2: float):
 
 
 def adam_leaf(p, g, m, v, *, lr, b1, b2, eps, weight_decay, bc1, bc2):
-    """One AdamW leaf update: ``(new_p, m, v)``."""
-    g = g.to(torch.float32)
-    m = b1 * m + (1 - b1) * g
-    v = b2 * v + (1 - b2) * (g * g)
-    mh = m / bc1.to(m.device)
-    vh = v / bc2.to(v.device)
-    new_p = p - lr * (mh / (torch.sqrt(vh) + eps) + weight_decay * p)
-    return new_p.to(p.dtype), m, v
+    """One AdamW leaf update: ``(new_p, m, v)``.  DTensor leaves (one
+    placement for all four) update shard by shard."""
+
+    def leaf(p, g, m, v):
+        g = g.to(torch.float32)
+        m = b1 * m + (1 - b1) * g
+        v = b2 * v + (1 - b2) * (g * g)
+        mh = m / bc1.to(m.device)
+        vh = v / bc2.to(v.device)
+        new_p = p - lr * (mh / (torch.sqrt(vh) + eps) + weight_decay * p)
+        return new_p.to(p.dtype), m, v
+
+    return map_local(leaf, p, g, m, v)
 
 
 def adamw_update(grads: Params, state: AdamWState, params: Params, *,

@@ -22,7 +22,32 @@ orthogonalized as one stack.
 
 ``muon_update`` runs on ``"cuda"`` unless ``device="cpu"``; every tensor
 it is given must lie on that device, and without a card it raises.
-``qr_shard_leaves`` waits for mesh training (ROADMAP A21).
+
+**``qr_shard_leaves``** keeps the leafwise route (no cross-leaf shape
+classes, as the reference's ``use_batched`` excludes it) and
+orthogonalizes each leaf's stack as one planned dispatch: on ``"cuda"``
+:func:`repro_torch.optim.batched_ortho.batched_orthogonalize` of that
+stack (the kernels), on the CPU the reference's ``geqrf_fori``.  On a
+mesh (DTensor leaves) the stack takes the reference's layer-sharded
+spec under the mesh's ``rules`` (an argument of ``muon_update``, needed
+there): the lead (period) dim over the data axes when it divides; under TP
+the model axis on a second lead dim, else on the QR's column dim; no
+clean sharding falls back to ``q_method="formq"``.  Each rank then factors **its local slice** on its
+own device — the planner never sees a collective (ROADMAP C10) — and the
+Qs are redistributed back to the parameter's placements.
+
+Deliberate differences from GSPMD's in-place sharded QR:
+  * the kernels factor whole matrices, so a stack whose column dim the
+    spec puts on the model axis is gathered over that axis first, and
+    the model axis's ranks factor the same slices;
+  * without ``qr_shard_leaves`` each momentum is gathered whole
+    (``full_tensor()``) and every rank runs the same orthogonalization
+    (the kernels are deterministic: the ranks get the same bits), then
+    keeps its shard; with ``batched_ortho`` the whole momenta form the
+    step's shape classes as on one device;
+  * a custom ``orthogonalize_fn`` gets a DTensor leaf as it is (in the
+    parameter's placements), e.g. to run the collective TSQR on its row
+    shards, and returns a DTensor.
 """
 
 from __future__ import annotations
@@ -31,9 +56,11 @@ import functools
 from typing import Callable, Dict, NamedTuple, Optional, Sequence, Union
 
 import torch
+import torch.distributed.tensor as dtensor
 
 from repro_torch.core.householder import form_q, unpack_r
 from repro_torch.core.plan import QRConfig, plan as qr_plan, resolve_device
+from repro_torch.distributed import sharding
 from repro_torch.optim.adamw import adam_leaf, bias_corrections
 from repro_torch.optim.newton_schulz import newton_schulz_orthogonalize
 
@@ -134,23 +161,109 @@ def qr_orthogonalize_2d(m_in: Tensor, *, block: int = 64,
     return (q.mT if transpose else q).to(m_in.dtype)
 
 
+def _shard_spec(shape, rules: sharding.MeshRules) -> sharding.Spec:
+    """The reference's layer-sharded spec of a ``(lead..., m, n)`` stack
+    (``qr_shard_leaves``): the first lead dim over the data axes when it
+    divides; under TP the model axis on a second lead dim, else (with the
+    first lead dim sharded) on the QR's column dim."""
+    spec = [None] * len(shape)
+    if shape[0] % rules.data_size == 0:
+        spec[0] = rules.data_spec()
+    if rules.tp_enabled:
+        lead = [i for i in range(1, len(shape) - 2)
+                if shape[i] % rules.model_size == 0]
+        if lead:
+            spec[lead[0]] = rules.model_axis
+        elif spec[0] is not None:
+            m, n = shape[-2:]
+            col = len(shape) - 2 + (0 if m <= n else 1)
+            if shape[col] % rules.model_size == 0:
+                spec[col] = rules.model_axis
+    return sharding.Spec(*spec)
+
+
+def _stack_orthogonalizer(q_method: str, config: Optional[QRConfig]):
+    """One leaf's stack as one planned dispatch (``qr_shard_leaves``): on
+    the card the planner's route for the stack (the kernels); on the CPU,
+    where no kernel runs, the reference's own realization
+    (:func:`qr_orthogonalize_2d`), so a CPU run reproduces its numbers."""
+    from repro_torch.optim.batched_ortho import batched_orthogonalize
+
+    cfg = config.replace(q_method=q_method) if config is not None else None
+    fallback = functools.partial(qr_orthogonalize_2d, q_method=q_method,
+                                 config=cfg)
+
+    def run(x):
+        if x.device.type != "cuda":
+            return fallback(x)
+        return batched_orthogonalize([x], config=cfg, fallback=fallback,
+                                     device=x.device)[0]
+
+    return run
+
+
 def _orthogonalize_leaf(mu: Tensor, method: str,
                         orth_fn: Optional[Callable],
                         q_method: str = "formq",
-                        config: Optional[QRConfig] = None) -> Tensor:
+                        shard_leaves: bool = False,
+                        config: Optional[QRConfig] = None,
+                        rules: Optional[sharding.MeshRules] = None
+                        ) -> Tensor:
     """Orthogonalize every trailing matrix of a >= 2-D leaf: the stack in
-    one call, or ``orth_fn`` matrix by matrix."""
+    one call (with ``shard_leaves``: one planned dispatch), or
+    ``orth_fn`` matrix by matrix.  A DTensor leaf runs on its mesh under
+    ``rules`` (module docstring) and returns in its placements."""
+    if isinstance(mu, dtensor.DTensor):
+        if orth_fn is not None:
+            return sharding.redistribute(orth_fn(mu.to(torch.float32)),
+                                         mu.placements)
+        return _orthogonalize_on_mesh(mu, method, q_method, shard_leaves,
+                                      config, rules)
     mats = mu.to(torch.float32)
     if orth_fn is not None:
         flat = mats.reshape((-1,) + mats.shape[-2:])
         return torch.stack([orth_fn(x) for x in flat]).reshape(mats.shape)
+    return _local_orthogonalizer(method, q_method, shard_leaves, config)(mats)
+
+
+def _local_orthogonalizer(method: str, q_method: str, shard_leaves: bool,
+                          config: Optional[QRConfig]) -> Callable:
     if method == "qr":
+        if shard_leaves:
+            return _stack_orthogonalizer(q_method, config)
         if config is not None:
             config = config.replace(q_method=q_method)
-        return qr_orthogonalize_2d(mats, q_method=q_method, config=config)
+        return functools.partial(qr_orthogonalize_2d, q_method=q_method,
+                                 config=config)
     if method == "ns":
-        return newton_schulz_orthogonalize(mats)
+        return newton_schulz_orthogonalize
     raise ValueError(f"unknown orthogonalization {method!r}")
+
+
+def _orthogonalize_on_mesh(mu, method: str, q_method: str,
+                           shard_leaves: bool, config: Optional[QRConfig],
+                           rules: Optional[sharding.MeshRules]):
+    """A DTensor leaf: with ``shard_leaves`` the rank's slice of the
+    stack layer-sharded by ``rules``, else the whole leaf, orthogonalized
+    on the rank's device; the result in ``mu``'s placements."""
+    mesh = mu.device_mesh
+    spec = sharding.Spec(*([None] * mu.ndim))
+    if shard_leaves and mu.ndim >= 3:
+        if rules is None:
+            raise ValueError(
+                "qr_shard_leaves on DTensor leaves needs the mesh's rules "
+                "(muon_update(..., rules=MeshRules(mesh, ...))): they name "
+                "the data axes the stacks shard over")
+        spec = _shard_spec(tuple(mu.shape), rules)
+        if all(s is None for s in spec):
+            q_method = "formq"
+    # The rank factors whole matrices: the matrix dims are gathered.
+    places = sharding.placements(sharding.Spec(*spec[:-2], None, None), mesh)
+    local = sharding.redistribute(mu.to(torch.float32), places).to_local()
+    q = _local_orthogonalizer(method, q_method, shard_leaves, config)(local)
+    out = dtensor.DTensor.from_local(q, mesh, places, run_check=False,
+                                     shape=mu.shape, stride=mu.stride())
+    return sharding.redistribute(out, mu.placements)
 
 
 def _f32(x, device) -> Tensor:
@@ -186,15 +299,23 @@ def muon_directions(grads: Params, state: MuonState, params: Params, *,
     """``(new_mu, directions)`` of the Muon leaves, in ``params`` order:
     each leaf's new momentum and the matrix stack a step orthogonalizes
     (the Nesterov look-ahead ``g + momentum * mu``, or ``mu``)."""
+
+    def leaf(g, mu):
+        g = g.to(torch.float32)
+        mu = momentum * mu + g
+        return mu, (g + momentum * mu if nesterov else mu)
+
     new_mu, directions = {}, {}
     for k, p in params.items():
-        if not is_muon_param(k, p):
-            continue
-        g = grads[k].to(torch.float32)
-        mu = momentum * state.mu[k] + g
-        new_mu[k] = mu
-        directions[k] = g + momentum * mu if nesterov else mu
+        if is_muon_param(k, p):
+            new_mu[k], directions[k] = sharding.map_local(leaf, grads[k],
+                                                          state.mu[k])
     return new_mu, directions
+
+
+def _whole(t: Tensor) -> Tensor:
+    """A DTensor gathered whole on every rank; a tensor as it is."""
+    return sharding.full_tensor(t) if isinstance(t, dtensor.DTensor) else t
 
 
 def muon_update(
@@ -212,6 +333,7 @@ def muon_update(
     qr_config: Optional[QRConfig] = None,
     batched_ortho: bool = False,
     ortho_policy=None,
+    rules: Optional[sharding.MeshRules] = None,
     device=None,
 ):
     """One optimizer step: ``(new_params, new_state)``.  ``lr`` is the
@@ -223,11 +345,11 @@ def muon_update(
     every matrix of the step groups into shape classes and each class
     factors in one planned dispatch (on ``"cuda"``: the kernels).  A custom
     ``orthogonalize_fn`` keeps the leafwise route, applied matrix by
-    matrix.  ``ortho_policy`` overrides the shape-class edges.  No tensor
-    passed in is written."""
-    if qr_shard_leaves:
-        raise NotImplementedError(
-            "qr_shard_leaves needs mesh training (ROADMAP A21)")
+    matrix, and so does ``qr_shard_leaves`` (module docstring).
+    ``ortho_policy`` overrides the shape-class edges.  DTensor leaves (a
+    mesh) keep their placements; ``rules`` are the mesh's sharding rules,
+    which ``qr_shard_leaves`` on such leaves needs.  No tensor passed in is
+    written."""
     dev = check_device(device, params, grads, state.mu)
     step = state.step + 1
     bc1, bc2 = bias_corrections(step, adam_b1, adam_b2)
@@ -237,12 +359,14 @@ def muon_update(
                              eps=adam_eps, weight_decay=weight_decay,
                              bc1=bc1, bc2=bc2)
     use_batched = (batched_ortho and method == "qr"
-                   and orthogonalize_fn is None)
+                   and orthogonalize_fn is None and not qr_shard_leaves)
 
     def finish_muon(p, o):
         d_out, d_in = p.shape[-2], p.shape[-1]
         scale = torch.sqrt(_f32(max(1.0, d_out / d_in), dev))
-        return (p - lr * (scale * o + weight_decay * p)).to(p.dtype)
+        return sharding.map_local(
+            lambda p, o: (p - lr * (scale * o + weight_decay * p)).to(p.dtype),
+            p, o)
 
     new_p, new_nu = {}, {}
     new_mu, pending = muon_directions(grads, state, params,
@@ -255,7 +379,9 @@ def muon_update(
         new_nu[k] = state.nu[k]
         if not use_batched:
             o = _orthogonalize_leaf(pending[k], method, orthogonalize_fn,
-                                    q_method=qr_q_method, config=qr_config)
+                                    q_method=qr_q_method,
+                                    shard_leaves=qr_shard_leaves,
+                                    config=qr_config, rules=rules)
             new_p[k] = finish_muon(p, o)
 
     if pending and use_batched:
@@ -264,12 +390,16 @@ def muon_update(
         cfg = qr_config
         if cfg is not None:
             cfg = cfg.replace(q_method=qr_q_method)
+        # On a mesh the classes form from the whole momenta, on every rank.
         outs = batched_orthogonalize(
-            list(pending.values()), policy=ortho_policy, config=cfg,
+            [_whole(d) for d in pending.values()], policy=ortho_policy,
+            config=cfg,
             fallback=functools.partial(qr_orthogonalize_2d,
                                        q_method=qr_q_method, config=cfg),
             device=dev)
         for k, o in zip(pending, outs):
+            if isinstance(params[k], dtensor.DTensor):
+                o = sharding.shard_like(o, params[k])
             new_p[k] = finish_muon(params[k], o)
     new_p = {k: new_p[k] for k in params}
     new_mu = {k: new_mu[k] for k in params}

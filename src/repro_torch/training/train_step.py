@@ -13,20 +13,49 @@ The step runs on ``"cuda"`` unless ``device="cpu"``.  With
 ``grad_compression`` the clipped gradients pass through
 :func:`repro_torch.distributed.compression.ef_compress_tree` and the
 residual rides in ``TrainState.ef_error``, as the reference's step does.
+
+**On a mesh** (parameters, optimizer state and batch as DTensors, placed
+by :class:`repro_torch.training.Trainer` from the sharding rules) the step
+computes what the reference's GSPMD program computes, data-parallel:
+
+  * each parameter is all-gathered whole (one redistribute a leaf, once a
+    step: the reference gathers FSDP shards just in time, layer by
+    layer);
+  * each rank runs the model as plain tensors on its own batch shard
+    (the batch's dim 0 split over the batch axes; a batch whose spec
+    shards another dim, the batch-1 sequence fallback, is gathered and
+    run whole on every rank: the port's attention has no sequence
+    parallelism), so no DTensor op runs inside the model and no
+    sharding rule of an op is needed;
+  * each rank's gradients, divided by the number of batch shards, are a
+    ``Partial`` sum over the batch axes (``Replicate`` over the other
+    axes, whose ranks ran the same shard) and are reduce-scattered into
+    the parameters' placements; the metrics are all-reduced the same way;
+  * the global norm is one all-reduce of the shards' sums of squares
+    (each counted once); clipping scales the local shards; the gradient
+    codec runs on the whole gradients (its 256-element blocks are the
+    reference's) and keeps each rank's shard of the result and of the
+    residual;
+  * microbatches split each rank's shard: the global microbatch must
+    divide over the batch shards.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.plan import QRConfig, resolve_device
+from repro_torch.distributed import sharding
 from repro_torch.distributed.compression import (ef_compress_tree,
                                                  init_error_state)
+from repro_torch.distributed.sharding import constrain_logits
 from repro_torch.models.layers import softcap as apply_softcap
 from repro_torch.models.transformer import (ParamTree, as_tree,
                                             forward_hidden, lm_head_weight)
@@ -71,6 +100,7 @@ class TrainState(NamedTuple):
 def _chunk_loss(xi: Tensor, head_w: Tensor, li: Tensor,
                 cap: Optional[float]) -> Tuple[Tensor, Tensor]:
     logits = (xi @ head_w.to(xi.dtype)).to(torch.float32)
+    logits = constrain_logits(logits)
     logits = apply_softcap(logits, cap)
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, li[..., None].long())[..., 0]
@@ -129,14 +159,43 @@ def _loss_fn(params, batch, model_cfg: ModelConfig, train_cfg: TrainConfig):
                   "accuracy": acc.detach()}
 
 
+def _sum_squares(grads: Dict[str, Tensor]) -> Tensor:
+    """The sum of every gradient entry's square; on DTensors one
+    all-reduce of the shards' sums, a shard replicated over r ranks
+    counted 1/r on each."""
+    g0 = next(iter(grads.values()))
+    if not isinstance(g0, DTensor):
+        return sum(torch.sum(torch.square(g.to(torch.float32)))
+                   for g in grads.values())
+    mesh = g0.device_mesh
+    local = sum(torch.sum(torch.square(g.to_local().to(torch.float32)))
+                / math.prod(mesh.size(i) for i, p in enumerate(g.placements)
+                            if not isinstance(p, Shard))
+                for g in grads.values())
+    return sharding.mesh_sum(local, mesh)
+
+
 def _clip_by_global_norm(grads: Dict[str, Tensor], max_norm: float):
     if max_norm <= 0:
         g0 = next(iter(grads.values()))
         return grads, torch.zeros((), dtype=torch.float32, device=g0.device)
-    norm = torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
-                          for g in grads.values()))
+    norm = torch.sqrt(_sum_squares(grads))
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
-    return {k: g * scale for k, g in grads.items()}, norm
+    return {k: sharding.map_local(lambda x: x * scale, g)
+            for k, g in grads.items()}, norm
+
+
+def _compress(grads: Dict[str, Tensor], ef):
+    """The error-feedback codec; DTensor gradients and residuals go
+    through it whole and come back as their shards."""
+    g0 = next(iter(grads.values()))
+    if not isinstance(g0, DTensor):
+        return ef_compress_tree(grads, ef)
+    dec, res = ef_compress_tree(
+        {k: sharding.full_tensor(g) for k, g in grads.items()},
+        {k: sharding.full_tensor(e) for k, e in ef.items()})
+    return ({k: sharding.shard_like(dec[k], g) for k, g in grads.items()},
+            {k: sharding.shard_like(res[k], e) for k, e in ef.items()})
 
 
 def init_train_state(params: ParamTree, train_cfg: TrainConfig) -> TrainState:
@@ -160,38 +219,100 @@ def _autograd(loss, leaves):
                                materialize_grads=True)
 
 
-def _grads(params: ParamTree, batch, model_cfg, train_cfg):
-    """``(loss, metrics, grads)``: the whole batch, or microbatches whose
+def _accumulate(params, leaves, batch, n_micro: int, model_cfg, train_cfg):
+    """``(loss, metrics, grads)`` of ``params`` (a tree whose tensors are
+    ``leaves``) on ``batch``: whole, or in ``n_micro`` microbatches whose
     gradients and metrics average."""
-    names, leaves = zip(*params.named_parameters())
-    mb = train_cfg.microbatch
-    b = batch["labels"].shape[0]
-    if mb <= 0 or mb >= b:
+    if n_micro == 1:
         loss, metrics = _loss_fn(params, batch, model_cfg, train_cfg)
-        grads = _autograd(loss, leaves)
-        return loss.detach(), metrics, dict(zip(names, grads))
-    if b % mb != 0:
-        raise ValueError(f"batch {b} not divisible by microbatch {mb}")
-    n_micro = b // mb
-    grads = {k: torch.zeros_like(p, dtype=torch.float32)
-             for k, p in zip(names, leaves)}
+        return loss.detach(), metrics, list(_autograd(loss, leaves))
+    mb = batch["labels"].shape[0] // n_micro
+    grads = [torch.zeros_like(p, dtype=torch.float32) for p in leaves]
     loss_a = leaves[0].new_zeros((), dtype=torch.float32)
     metrics_a = {"nll": 0.0, "aux": 0.0, "accuracy": 0.0}
     for i in range(n_micro):
         part = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
         loss, metrics = _loss_fn(params, part, model_cfg, train_cfg)
-        for k, g in zip(names, _autograd(loss, leaves)):
-            grads[k] += g.to(torch.float32) / n_micro
+        for acc, g in zip(grads, _autograd(loss, leaves)):
+            acc += g.to(torch.float32) / n_micro
         metrics_a = {k: metrics_a[k] + metrics[k] / n_micro
                      for k in metrics_a}
         loss_a = loss_a + loss.detach() / n_micro
     return loss_a, metrics_a, grads
 
 
+def _n_micro(b: int, mb: int) -> int:
+    if mb <= 0 or mb >= b:
+        return 1
+    if b % mb != 0:
+        raise ValueError(f"batch {b} not divisible by microbatch {mb}")
+    return b // mb
+
+
+def _grads(params: ParamTree, batch, model_cfg, train_cfg):
+    """``(loss, metrics, grads)``: the whole batch, or microbatches whose
+    gradients and metrics average."""
+    names, leaves = zip(*params.named_parameters())
+    if isinstance(leaves[0], DTensor):
+        return _mesh_grads(params, names, leaves, batch, model_cfg, train_cfg)
+    n_micro = _n_micro(batch["labels"].shape[0], train_cfg.microbatch)
+    loss, metrics, grads = _accumulate(params, leaves, batch, n_micro,
+                                       model_cfg, train_cfg)
+    return loss, metrics, dict(zip(names, grads))
+
+
+def _local_batch(batch):
+    """``(local batch, batch mesh dims)``: each rank's shard when the
+    batch is split along dim 0 only, else the whole batch (and no batch
+    dims)."""
+    places = {tuple(v.placements) for v in batch.values()}
+    (first, *rest) = places
+    if not rest and all(p == Shard(0) or isinstance(p, Replicate)
+                        for p in first):
+        return ({k: v.to_local() for k, v in batch.items()},
+                [i for i, p in enumerate(first) if p == Shard(0)])
+    return {k: sharding.full_tensor(v) for k, v in batch.items()}, []
+
+
+def _mesh_grads(params: ParamTree, names, leaves, batch, model_cfg,
+                train_cfg):
+    """The data-parallel step's gradients on a mesh (module docstring):
+    whole parameters, the rank's batch shard, gradients reduce-scattered
+    into the parameters' placements, metrics all-reduced."""
+    from repro_torch.models.transformer import map_tree
+
+    mesh = leaves[0].device_mesh
+    local, dims = _local_batch(batch)
+    shards = math.prod(mesh.size(i) for i in dims)
+    n_micro = _n_micro(batch["labels"].shape[0], train_cfg.microbatch)
+    if local["labels"].shape[0] % n_micro:
+        raise ValueError(
+            f"microbatch {train_cfg.microbatch} does not divide over the "
+            f"{shards} batch shards")
+    whole = [sharding.full_tensor(p.detach()).requires_grad_(True)
+             for p in leaves]
+    by_id = {id(p): w for p, w in zip(leaves, whole)}
+    tree = map_tree(lambda t: by_id[id(t)], params.tree())
+    loss, metrics, grads = _accumulate(tree, whole, local, n_micro,
+                                       model_cfg, train_cfg)
+    partial = [Partial() if i in dims else Replicate()
+               for i in range(mesh.ndim)]
+    out = {k: sharding.redistribute(DTensor.from_local(
+               g / shards, mesh, partial, run_check=False), p.placements)
+           for k, p, g in zip(names, leaves, grads)}
+    keys = ("nll", "aux", "accuracy")
+    vals = sharding.mesh_sum(torch.stack(
+        [loss] + [metrics[k] for k in keys]).to(torch.float32) / shards,
+        mesh, dims)
+    return vals[0], dict(zip(keys, vals[1:])), out
+
+
 def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig, *,
-                    device=None):
+                    device=None, rules=None):
     """``train_step(state, batch, lr) -> (state, metrics)`` on ``device``
     ("cuda" unless the caller asks for the CPU; raises without a card).
+    ``rules``: the mesh's sharding rules when the state is placed on one
+    (QR-Muon's ``qr_shard_leaves`` shards its stacks by them).
     ``batch`` holds tensors on that device; the parameters update in
     place, the optimizer state is replaced."""
     dev = resolve_device(device)
@@ -206,7 +327,7 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig, *,
             grads, gnorm = _clip_by_global_norm(grads, train_cfg.grad_clip)
             if train_cfg.grad_compression:
                 with _trace.span("train.grad_compression") as codec:
-                    grads, ef = codec.sync(ef_compress_tree(grads, ef))
+                    grads, ef = codec.sync(_compress(grads, ef))
             new, opt = sp.sync(_update(state, grads, lr))
         with torch.no_grad():
             for k, p in state.params.named_parameters():
@@ -229,7 +350,7 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig, *,
                                    qr_shard_leaves=train_cfg.qr_shard_leaves,
                                    qr_config=train_cfg.qr_config,
                                    batched_ortho=train_cfg.batched_ortho,
-                                   device=dev)
+                                   rules=rules, device=dev)
         return new, opt
 
     return train_step

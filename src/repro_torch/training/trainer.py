@@ -1,17 +1,25 @@
-"""Trainer: the fault-tolerant orchestration loop on one device.
+"""Trainer: the fault-tolerant orchestration loop.
 
 Counterpart of the reference's ``repro.training.trainer``: pipeline ->
-device placement -> train step -> watchdog -> asynchronous checkpoints.
-Restart-safe: :meth:`Trainer.run` resumes from the latest committed
-checkpoint (parameters, optimizer state, error-feedback residuals, the
-data cursor and the step index) and replays the same batches.  Runs on
-``"cuda"`` unless ``device="cpu"`` (raises without a card).  Meshes and
-sharding rules (``mesh``, ``rules``) wait for mesh training (ROADMAP
-A21) and raise ``NotImplementedError``.
+device placement (mesh placements) -> train step -> watchdog ->
+asynchronous checkpoints.  Restart-safe: :meth:`Trainer.run` resumes
+from the latest committed checkpoint (parameters, optimizer state,
+error-feedback residuals, the data cursor and the step index) and
+replays the same batches.  Runs on ``"cuda"`` unless ``device="cpu"``
+(raises without a card).
+
+With ``mesh`` (a ``DeviceMesh`` with named dims over the process group;
+every rank builds the same trainer) the parameters and optimizer state
+are placed by :func:`repro_torch.distributed.sharding.param_specs` and
+``state_specs`` as DTensors, each rank slicing its shard out of the same
+starting weights, and each batch by ``batch_specs``.  Steps run under
+the rules' activation policy; checkpoints hold whole tensors, so a run
+restores onto any mesh (resharding) or onto one device.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable, Optional
 
@@ -23,6 +31,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.plan import resolve_device
 from repro_torch.data import DataConfig, make_pipeline
 from repro_torch.distributed import StepWatchdog
+from repro_torch.distributed import sharding
 from repro_torch.models import ParamTree, init_params, params_from_numpy
 from repro_torch.optim import warmup_cosine
 from repro_torch.training.train_step import (TrainConfig, TrainState,
@@ -46,7 +55,10 @@ class Trainer:
     """``params``: starting weights — a :class:`ParamTree`, or the
     reference's parameter tree as numpy arrays (carried by
     :func:`repro_torch.models.params_from_numpy`); None draws fresh ones
-    from ``torch.Generator(device).manual_seed(run_cfg.seed)``."""
+    from ``torch.Generator(device).manual_seed(run_cfg.seed)``.
+    ``mesh`` / ``rules``: a ``DeviceMesh`` of the device's type and its
+    :class:`~repro_torch.distributed.sharding.MeshRules` (either one
+    implies the other with the default rules)."""
 
     def __init__(self, model_cfg: ModelConfig, train_cfg: TrainConfig,
                  run_cfg: RunConfig, data_cfg: DataConfig, *,
@@ -54,9 +66,11 @@ class Trainer:
                  watchdog: Optional[StepWatchdog] = None,
                  log_fn: Callable[[str], None] = print,
                  params=None):
-        if mesh is not None or rules is not None:
-            raise NotImplementedError(
-                "meshes and sharding rules need mesh training (ROADMAP A21)")
+        if rules is not None and mesh is None:
+            mesh = rules.mesh
+        if mesh is not None and rules is None:
+            rules = sharding.MeshRules(mesh)
+        self.mesh, self.rules = mesh, rules
         self.model_cfg = model_cfg
         self.train_cfg = train_cfg
         self.run_cfg = run_cfg
@@ -74,9 +88,31 @@ class Trainer:
             params = init_params(gen, model_cfg)
         elif not isinstance(params, ParamTree):
             params = params_from_numpy(params, self.device)
-        self.state = init_train_state(params.to(self.device), train_cfg)
-        self._step = make_train_step(model_cfg, train_cfg, device=self.device)
+        state = init_train_state(params.to(self.device), train_cfg)
+        if mesh is not None:
+            state = self._place_state(state)
+        self.state = state
+        self._step = make_train_step(model_cfg, train_cfg, device=self.device,
+                                     rules=self.rules)
         self.step_idx = 0
+
+    def _place_state(self, state: TrainState) -> TrainState:
+        """The state as DTensors on the mesh (the reference's
+        ``param_specs`` / ``state_specs`` placement)."""
+        if self.mesh.device_type != self.device.type:
+            raise ValueError(f"the mesh is on {self.mesh.device_type!r}, the "
+                             f"trainer on {self.device.type!r}")
+        tree = state.params.tree()
+        pspecs = sharding.param_specs(tree, self.rules)
+        params = ParamTree(sharding.distribute_tree(tree, pspecs, self.mesh))
+
+        def place(sub):
+            return sharding.distribute_tree(
+                sub, sharding.state_specs(tree, pspecs, sub, self.rules),
+                self.mesh)
+
+        return TrainState(params=params, opt=place(state.opt),
+                          ef_error=place(state.ef_error))
 
     # -------------------------------------------------------------- ckpt
 
@@ -117,8 +153,12 @@ class Trainer:
     # --------------------------------------------------------------- run
 
     def _place_batch(self, batch) -> dict:
-        return {k: torch.from_numpy(np.asarray(v)).to(self.device)
-                for k, v in batch.items()}
+        out = {k: torch.from_numpy(np.asarray(v)).to(self.device)
+               for k, v in batch.items()}
+        if self.mesh is not None:
+            out = sharding.distribute_tree(
+                out, sharding.batch_specs(out, self.rules), self.mesh)
+        return out
 
     def run(self, *, resume: bool = True,
             stop_at: Optional[int] = None) -> dict:
@@ -126,6 +166,11 @@ class Trainer:
         step; ``stop_at`` ends the loop early (a crash, a partial run)
         without changing the LR schedule's horizon.  Saves every
         ``checkpoint_every`` steps without blocking, and at the end."""
+        with (sharding.activation_policy(self.rules) if self.rules
+              is not None else contextlib.nullcontext()):
+            return self._run(resume, stop_at)
+
+    def _run(self, resume: bool, stop_at: Optional[int]) -> dict:
         if resume:
             self.maybe_restore()
         rc = self.run_cfg

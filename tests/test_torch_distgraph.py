@@ -117,11 +117,47 @@ _RANK_PROGRAM = textwrap.dedent("""
     red, err = compressed_psum({"g": torch.from_numpy(g[rank])}, None,
                                {"g": torch.from_numpy(e[rank])})
     res["psum"], res["psum_err"] = red["g"].numpy(), err["g"].numpy()
-    # The auto route sees the group.
-    res["auto_4096"] = np.array([repro_torch.plan((4096, 4096), torch.float32,
-                                                  backend="cpu").config.method])
     res["solves_d4"] = np.array([metrics.counter_value(
         "distributed.solves", domains=4, mode="reduced")])
+    # The auto route counts the group's ranks only on an opt-in (C10).
+    plain = repro_torch.plan((4096, 4096), torch.float32,
+                             repro_torch.QRConfig(use_kernel=False),
+                             backend="cpu", explain=True)
+    res["auto_4096"] = np.array([plain.config.method])
+    res["auto_4096_why"] = np.array([
+        plain.explain.decision("sharded_past_ceiling").reason])
+    res["auto_4096_optin"] = np.array([repro_torch.plan(
+        (4096, 4096), torch.float32,
+        repro_torch.QRConfig(use_kernel=False, ndomains=world),
+        backend="cpu").config.method])
+    # C10: each rank's own seeded 256 x 128 fp64 matrix raises on every
+    # rank; identical copies keep the bits of a solve without the check.
+    mine = torch.from_numpy(np.random.default_rng(rank).standard_normal((256, 128)))
+    try:
+        distgraph.sharded_tiled_qr(mine, tile=32, device="cpu")
+        res["c10_raised"] = np.array([""])
+    except ValueError as e:
+        res["c10_raised"] = np.array([type(e).__name__])
+    # Copies of different shapes, one of them a single domain (16 x 16:
+    # one tile row): every rank raises, none returns a local result.
+    shaped = (16, 16) if rank == 0 else (256, 128)
+    try:
+        distgraph.sharded_tiled_qr(torch.from_numpy(mat(*shaped, 21)),
+                                   tile=32, device="cpu")
+        res["c10_shapes_raised"] = np.array([""])
+    except ValueError as e:
+        res["c10_shapes_raised"] = np.array([type(e).__name__])
+    same = torch.from_numpy(mat(256, 128, 21))
+    checked = distgraph.sharded_tiled_qr(same, tile=32, device="cpu")
+    from repro_torch.distributed import sharding
+    real = sharding.check_same_copies
+    sharding.check_same_copies = lambda *a, **k: None
+    try:
+        unchecked = distgraph.sharded_tiled_qr(same, tile=32, device="cpu")
+    finally:
+        sharding.check_same_copies = real
+    res["c10_same_bits"] = np.array([all(torch.equal(x, y) for x, y in
+                                         zip(checked, unchecked))])
     np.savez(out, **res)
     dist.barrier()
     dist.destroy_process_group()
@@ -339,16 +375,80 @@ def test_compressed_psum_four_ranks(runs):
 
 
 def test_auto_route_and_metrics_see_the_group(runs):
-    """With four ranks the auto route sends 4096^2 to ``sharded_tiled``
-    as the reference's 4-device plan does, and every sharded solve at
-    d = 4 counts ``distributed.solves``."""
+    """With four ranks and the opt-in ``QRConfig(ndomains=4)`` the auto
+    route sends 4096^2 to ``sharded_tiled`` as the reference's 4-device
+    plan does; without it a rank's own plan stays local (``geqrf_ht``,
+    the rule rejected naming the opt-in: ROADMAP C10); every sharded
+    solve at d = 4 counts ``distributed.solves``."""
     ranks, ref, _ = runs
     assert str(ref["auto_4096"][0]) == "sharded_tiled"
     for r in ranks:
-        assert str(r["auto_4096"][0]) == "sharded_tiled"
+        assert str(r["auto_4096_optin"][0]) == "sharded_tiled"
+        assert str(r["auto_4096"][0]) == "geqrf_ht"
+        assert "opt-in" in str(r["auto_4096_why"][0])
         # 256x64 and 160x96 at d = 4, plain and kernel, plus the planner's
         # sign_fix solve (256x64: 16 tile rows -> 4 domains).
         assert float(r["solves_d4"][0]) == 5.0
+
+
+@pytest.mark.parametrize("case", ["c10_raised", "c10_shapes_raised"],
+                         ids=["content", "shapes"])
+def test_divergent_copies_raise_on_every_rank(runs, case):
+    """ROADMAP C10: four ranks each holding their own 256 x 128 matrix,
+    or rank 0 a 16 x 16 one (a single domain, which alone would not
+    collect) and the others 256 x 128, all raise
+    ``DivergentCopiesError`` (a ``ValueError``) instead of returning a
+    factorization that mixes the copies or waiting on each other."""
+    ranks, _, _ = runs
+    assert all(str(r[case][0]) == "DivergentCopiesError" for r in ranks)
+
+
+def test_identical_copies_keep_their_bits(runs):
+    """The copies check changes no bit of a solve on identical copies."""
+    ranks, _, _ = runs
+    assert all(bool(r["c10_same_bits"][0]) for r in ranks)
+
+
+@pytest.mark.parametrize("ranks,opt_in,want", [
+    (4, None, "geqrf_ht"), (4, 4, "sharded_tiled"), (4, 2, "sharded_tiled"),
+    (2, 2, "sharded_tiled"), (1, 2, "geqrf_ht"), (4, 1, "geqrf_ht")])
+def test_auto_rule_counts_ranks_only_on_opt_in(ranks, opt_in, want,
+                                                monkeypatch):
+    """The auto rule on a group of ``ranks``: ``QRConfig(ndomains=k > 1)``
+    opts in; without it (or with k = 1) the rule is rejected and names
+    the opt-in when the group has more than one rank."""
+    monkeypatch.setattr(sharding, "world_size", lambda: ranks)
+    s = repro_torch.plan((4096, 4096), torch.float32, repro_torch.QRConfig(
+        use_kernel=False, ndomains=opt_in), backend="cpu", explain=True)
+    assert s.config.method == want
+    why = s.explain.decision("sharded_past_ceiling").reason
+    if want != "sharded_tiled":
+        assert ("opt-in" in why) == (ranks > 1), why
+
+
+def test_fingerprint_tells_copies_apart():
+    """Shape, dtype and content (a permuted copy, and a +e/-e/-e/+e
+    change on a rectangle's corners, which keeps every row and column
+    sum) change the fingerprint; the same tensor gives the same bits."""
+    a = torch.from_numpy(_mat(64, 32, 3))
+    f = sharding.fingerprint(a)
+    assert torch.equal(f, sharding.fingerprint(a.clone()))
+    for other in (a.double(), a[:, :16], a.flip(0), a.T.contiguous(),
+                  a + torch.finfo(torch.float32).eps):
+        assert not torch.equal(f.view(torch.int64),
+                               sharding.fingerprint(other).view(torch.int64))
+    # On a grid of sixteenths every sum is exact: the corners' change
+    # keeps each row and column sum bit for bit.
+    g = torch.round(a * 16) / 16
+    corners = g.clone()
+    corners[3, 5] += 0.25
+    corners[3, 20] -= 0.25
+    corners[40, 5] -= 0.25
+    corners[40, 20] += 0.25
+    assert torch.equal(corners.sum(0), g.sum(0))
+    assert torch.equal(corners.sum(1), g.sum(1))
+    assert not torch.equal(sharding.fingerprint(g).view(torch.int64),
+                           sharding.fingerprint(corners).view(torch.int64))
 
 
 # ------------------------------------------------------------ in process

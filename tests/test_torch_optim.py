@@ -371,9 +371,19 @@ def test_optimizers_reduce_loss(opt):
     assert l1 < l0 - 0.5, (opt, l0, l1)
 
 
-def test_muon_update_device_rules():
+def test_muon_update_device_rules(tmp_path):
     """The step runs on "cuda" unless asked; never on a device its
-    tensors are not on; ``qr_shard_leaves`` waits for A21."""
+    tensors are not on; ``qr_shard_leaves`` (ROADMAP A21) runs: without
+    a mesh and on a (1, 1) mesh of one gloo rank its update is the
+    leafwise one's bit for bit (on the CPU each stack takes the
+    reference's realization), the mesh run keeps every leaf's placement,
+    and on DTensor leaves it needs the mesh's rules."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.distributed import sharding
+
     params, grads = _lm_like()
     tp = {k: torch.from_numpy(v) for k, v in _flat(params).items()}
     tg = {k: torch.from_numpy(v) for k, v in _flat(grads).items()}
@@ -383,9 +393,30 @@ def test_muon_update_device_rules():
             T.muon_update(tg, state, tp, lr=0.02)
         with pytest.raises(RuntimeError, match="no CUDA device"):
             T.batched_orthogonalize([tp["layers.wq"]])
-    with pytest.raises(NotImplementedError, match="A21"):
-        T.muon_update(tg, state, tp, lr=0.02, qr_shard_leaves=True,
-                      device="cpu")
+    want, _ = T.muon_update(tg, state, tp, lr=0.02, device="cpu")
+    got, _ = T.muon_update(tg, state, tp, lr=0.02, qr_shard_leaves=True,
+                           device="cpu")
+    assert all(torch.equal(got[k], want[k]) for k in want)
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cpu", (1, 1), mesh_dim_names=("data", "model"))
+        rules = sharding.MeshRules(mesh)
+        specs = sharding.param_specs(tp, rules)
+        place = lambda tree: sharding.distribute_tree(tree, specs, mesh)  # noqa: E731
+        mstate = sharding.distribute_tree(
+            state, sharding.state_specs(tp, specs, state, rules), mesh)
+        new, _ = T.muon_update(place(tg), mstate, place(tp), lr=0.02,
+                               qr_shard_leaves=True, rules=rules,
+                               device="cpu")
+        with pytest.raises(ValueError, match="rules"):
+            T.muon_update(place(tg), mstate, place(tp), lr=0.02,
+                          qr_shard_leaves=True, device="cpu")
+        for k in want:
+            assert isinstance(new[k], DTensor)
+            assert torch.equal(sharding.full_tensor(new[k]), want[k]), k
+    finally:
+        dist.destroy_process_group()
 
 
 # ------------------------------------------------- routing and C5

@@ -245,7 +245,12 @@ def test_import_pulls_in_no_jax_and_no_reference():
             "import repro_torch.core.engine, repro_torch.core.tilegraph, "
             "repro_torch.core.tsqr, repro_torch.kernels.macro_ops, "
             "repro_torch.kernels._build, repro_torch.kernels.ops, "
-            "repro_torch.kernels.tile_ops, repro_torch.kernels.ref; "
+            "repro_torch.kernels.tile_ops, repro_torch.kernels.ref, "
+            "repro_torch.distributed.sharding, "
+            "repro_torch.distributed.fault_tolerance, "
+            "repro_torch.launch.mesh, repro_torch.launch.train, "
+            "repro_torch.training.trainer, repro_torch.checkpoint.manager, "
+            "repro_torch.optim.qr_muon; "
             "repro_torch.plan((4096, 4096), backend='cuda'); "
             "repro_torch.plan((2048, 2048), backend='cuda'); "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"

@@ -181,15 +181,44 @@ def test_other_optimizers_train(opt):
 
 def test_trainer_device_and_a14_rules(tmp_path):
     """The trainer runs on "cuda" unless asked; checkpoints and gradient
-    compression (ROADMAP A14) are ported; meshes raise for mesh training
-    (ROADMAP A21)."""
+    compression (ROADMAP A14) are ported; and so is mesh training
+    (ROADMAP A21): on a (1, 1) mesh of one gloo rank the state is placed
+    as DTensors and two steps give the mesh-free run's losses bit for
+    bit; a mesh of another device type is refused."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.distributed.sharding import MeshRules
+
     cfg = get_smoke_config("smollm-135m")
     args = (cfg, TrainConfig(), RunConfig(total_steps=1), _data(cfg))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             Trainer(*args)
-    with pytest.raises(NotImplementedError, match="A21"):
-        Trainer(*args, device="cpu", mesh=object())
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cpu", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        runs = []
+        for kw in ({}, {"mesh": mesh}, {"rules": MeshRules(mesh)}):
+            tr = Trainer(cfg, TrainConfig(qr_shard_leaves=True),
+                         RunConfig(total_steps=2, warmup_steps=1,
+                                   log_every=1),
+                         _data(cfg), device="cpu", log_fn=lambda s: None,
+                         params=init_params(torch.Generator().manual_seed(0),
+                                            cfg), **kw)
+            placed = [isinstance(p, DTensor)
+                      for _, p in tr.state.params.named_parameters()]
+            assert all(placed) if kw else not any(placed)
+            runs.append([m["loss"] for m in tr.run()["history"]])
+        assert runs[0] == runs[1] == runs[2] and len(runs[0]) == 2
+        if torch.cuda.is_available():
+            with pytest.raises(ValueError, match="mesh is on"):
+                Trainer(*args, mesh=mesh)
+    finally:
+        dist.destroy_process_group()
     tr = Trainer(cfg, TrainConfig(),
                  RunConfig(total_steps=1, checkpoint_dir=str(tmp_path)),
                  _data(cfg), device="cpu", log_fn=lambda s: None)
@@ -291,14 +320,14 @@ def test_launcher_smoke_on_cpu(extra, capsys):
                                   ["--checkpoint-dir", "CKPT"]])
 def test_launcher_a14_flags_raise(flag, tmp_path, capsys):
     """``--grad-compression`` and ``--checkpoint-dir`` (ROADMAP A14) run
-    (a second launch resumes from the checkpoint); ``--mesh`` raises for
-    mesh training (ROADMAP A21)."""
+    (a second launch resumes from the checkpoint); ``--mesh 2,1`` (ROADMAP
+    A21) runs on two gloo ranks, each a launcher process joined through a
+    ``file://`` store, and both print the same losses."""
     base = ["--arch", "smollm-135m", "--smoke", "--steps", "1", "--device",
             "cpu"]
     flag = [str(tmp_path) if f == "CKPT" else f for f in flag]
     if flag[0] == "--mesh":
-        with pytest.raises(NotImplementedError, match="A21"):
-            launcher.main(base + flag)
+        _two_launcher_ranks(base + flag + ["--steps", "2"], tmp_path)
         return
     assert launcher.main(base + flag)["final_step"] == 1
     if flag[0] == "--checkpoint-dir":
@@ -341,3 +370,34 @@ class TestWatchdogMedian:
                      watchdog=wd, log_fn=lambda s: None)
         res = tr.run()
         assert res["stragglers"] == seen == [5, 6]
+
+
+def _two_launcher_ranks(argv, tmp_path):
+    """``python -m repro_torch.launch.train argv`` as two gloo ranks: both
+    finish and report the same last step."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(root / "src"), OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.train"] + argv + [
+            "--init-method", f"file://{tmp_path}/store", "--rank", str(r),
+            "--world-size", "2"],
+        env=env, cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for p, log in zip(procs, logs):
+        assert p.returncode == 0, log[-3000:]
+    last = [json.loads([line for line in log.splitlines()
+                        if line.startswith('{"final_step"')][-1])
+            for log in logs]
+    assert last[0]["final_step"] == last[1]["final_step"] == 2
+    assert last[0]["last"]["loss"] == last[1]["last"]["loss"]

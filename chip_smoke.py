@@ -179,6 +179,28 @@ Phases, each of which exits non-zero when it fails:
      1e-3 of the uninterrupted run's; (d) C10 on the two ranks: each
      rank's own matrix raises ``DivergentCopiesError`` on both, and the
      copies check's ms at 4096^2.
+ 18. LM serving (``repro_torch.models`` / ``serving.ServeEngine``; none
+     of the QR kernels, checked by their launch counts): (a) ``python -m
+     repro_torch.launch.serve --arch xlstm-1.3b --batch 4 --prompt-len 256
+     --steps 32``, whole (48 layers, 1,943,646,544 parameters), through
+     its ``main`` in this process, its JSON line printed; (b) on
+     xlstm-1.3b and smollm-135m, whole, and jamba-v0.1-52b at its
+     published widths cut to one period (8 of 32 layers, 13.3e9
+     parameters: mamba, GQA attention and MoE), weights drawn on the card
+     from a generator seeded with 0, ``ServeEngine`` with batch 4, prompt
+     256 and 32 new tokens: two greedy ``generate`` calls equal, the same
+     tokens stepped by hand, request 0's tokens unchanged when request
+     2's prompt changes (xlstm, smollm; MoE capacity couples one prefill
+     batch's requests, as in the reference); prefill ms, decode ms a token
+     (median of the steps) beside the bytes bound, tokens/s, peak memory,
+     parameters; (c) the same weights in fp32 (jamba with capacity 8.0):
+     prefill of 48 tokens and 16 decode steps against ``forward_train``
+     over the 64 tokens, each step within 4x the model's own fp32 noise
+     (``forward_train`` of the same tokens at batch 1 against batch 3, at
+     most 1e-3; the gate at least 1e-5) relative to the largest |logit|,
+     and the run with every carried cache and state rounded to bf16
+     failing that; one ``torch.profiler`` trace of a decode step (device
+     ops, busy ms and share).
 
 Each correctness check is shown to reject a control whose answer is only
 TF32-grade: the kernels' written outputs rounded to TF32 (fp64: to fp32),
@@ -192,7 +214,8 @@ kernel (``service_launches``: its launches on phase 13's service paths;
 ``training_launches``: on phase 14's warm-up and timed steps;
 ``tuning_launches``: in phase 15's sweep; ``distributed_launches``: in
 phase 16, per rank for each sharded cell and in the restart run;
-``mesh_launches``: in phase 17, (a)'s timed step and each (b) rank's);
+``mesh_launches``: in phase 17, (a)'s timed step and each (b) rank's;
+``lm_serving_launches``: in phase 18, zero);
 the last is ``{"ok": true, "device": {...}}``.  Without a CUDA
 device the script exits with status 1 and prints no result.
 """
@@ -3957,6 +3980,228 @@ def phase_mesh(torch, macro_ops):
 
 
 
+# Phase 18: LM serving.  Batch, prompt and new tokens of (a) and (b).
+SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS = 4, 256, 32
+# (c): prompt and decode steps.  The gate on the largest logit gap,
+# relative to the largest |logit|: CONSIST_NOISE x the model's own fp32
+# rounding noise (``forward_train`` of the same tokens at batch 1 against
+# batch 3), at least CONSIST_FLOOR; that noise itself at most NOISE_MAX.
+# A bf16 rounding of the carried state moves the logits by ~1e-3.
+CONSIST_PREFILL, CONSIST_DECODE = 48, 16
+CONSIST_NOISE, CONSIST_FLOOR, NOISE_MAX = 4.0, 1e-5, 1e-3
+JAMBA_CUT = ("n_layers 32 -> 8: one period (7 mamba, 1 attention, 4 MoE, "
+             "4 dense); the whole model is 208 GB in fp32, one card has 80")
+HBM_BYTES_PER_S = 3.35e12
+
+
+def serve_configs(smoke=False):
+    """(label, config, cut) of phase 18's three models."""
+    from repro_torch.configs import get_config, get_smoke_config
+
+    get = get_smoke_config if smoke else get_config
+    jamba = get("jamba-v0.1-52b")
+    return [("xlstm-1.3b", get("xlstm-1.3b"), None),
+            ("smollm-135m", get("smollm-135m"), None),
+            ("jamba-v0.1-52b", jamba.scaled(n_layers=len(jamba.period)),
+             JAMBA_CUT)]
+
+
+def decode_bytes(cfg, n_params, batch, max_len):
+    """Bytes one decode step moves, (cast model, floor): every weight
+    the step uses read in fp32 and, as ``dense`` casts it, written and
+    read again in bf16 (8 B a parameter; 4 B for the floor, each weight
+    read once), plus the recurrent states read and written and the K/V
+    caches read.  An untied embedding table is only gathered."""
+    used = n_params - (0 if cfg.tie_embeddings else cfg.vocab_size * cfg.d_model)
+    per = cfg.n_periods
+    state = 0
+    for spec in cfg.period:
+        if spec.mixer == "mlstm":
+            di = int(cfg.mlstm_proj_factor * cfg.d_model)
+            state += per * 2 * batch * di * (di // cfg.n_heads) * 4
+        elif spec.mixer == "mamba":
+            di = cfg.d_inner or 2 * cfg.d_model
+            state += per * 2 * batch * di * cfg.d_state * 4
+        elif spec.mixer == "slstm":
+            state += per * 2 * batch * 4 * cfg.d_model * 4
+        else:
+            state += per * 2 * batch * max_len * cfg.d_kv * 2
+    return 8 * used + state, 4 * used + state
+
+
+def serve_consistency(torch, params, cfg, dev, control=False):
+    """``(gap, noise)``: the largest gap between prefill (48 tokens) + 16
+    decode steps and ``forward_train`` over all 64 tokens, at each
+    step's position, and the largest gap at those positions between
+    ``forward_train`` of the same tokens at batch 1 and at batch 3 (the
+    model's own fp32 rounding noise: other GEMM shapes, the same
+    function), each relative to the largest |logit|.  fp32
+    (``cfg.scaled(dtype="float32")``), MoE capacity 8.0.  ``control``
+    rounds every carried cache and state to bf16 between prefill and
+    decode."""
+    from repro_torch.models import (forward_decode, forward_prefill,
+                                    forward_train)
+
+    cfg = cfg.scaled(dtype="float32")
+    if cfg.moe is not None:
+        cfg = cfg.scaled(moe=dataclasses.replace(cfg.moe, capacity_factor=8.0))
+    s0, s = CONSIST_PREFILL, CONSIST_PREFILL + CONSIST_DECODE
+    toks = torch.randint(0, cfg.vocab_size, (1, s), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(2))
+    with torch.inference_mode():
+        full, _ = forward_train(params, {"tokens": toks}, cfg)
+        plog, caches = forward_prefill(params, {"tokens": toks[:, :s0]}, cfg)
+        if control:
+            caches = tuple({k: v.to(torch.bfloat16).to(v.dtype)
+                            for k, v in e.items()} for e in caches)
+        caches = tuple({k: torch.nn.functional.pad(v, (0, 0, 0, 0, 0, s - s0))
+                        for k, v in e.items()} if "k" in e else e
+                       for e in caches)
+        gaps = [(plog[:, 0] - full[:, s0 - 1]).abs().max()]
+        for t in range(s0, s):
+            dlog, caches = forward_decode(params, toks[:, t:t + 1], cfg,
+                                          caches, t)
+            gaps.append((dlog[:, 0] - full[:, t]).abs().max())
+        scale = full[:, s0 - 1:].abs().max()
+        three, _ = forward_train(params, {"tokens": toks.repeat(3, 1)}, cfg)
+        noise = (three[1:2, s0 - 1:] - full[:, s0 - 1:]).abs().max()
+        return (float(torch.stack(gaps).max() / scale),
+                float(noise / scale))
+
+
+def serve_model(torch, label, cfg, dev, independent):
+    """Phase 18(b) and (c) on one model: weights drawn on the device from
+    a generator seeded with 0; two greedy ``generate`` calls (the first
+    warms up, the second is timed for tokens/s and peak memory), then
+    prefill and each decode step timed alone; request 0's tokens with
+    request 2's prompt changed (``independent``); (c)'s consistency and
+    its bf16 control on the same weights."""
+    from repro_torch.models import init_params, param_count
+    from repro_torch.serving import ServeEngine
+
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    t0 = time.perf_counter()
+    params = init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    sync()
+    out = dict(params=param_count(params), init_s=time.perf_counter() - t0)
+    max_len = SERVE_PROMPT + SERVE_STEPS + 8
+    engine = ServeEngine(params, cfg, batch=SERVE_BATCH, max_len=max_len,
+                         device=dev)
+    prompts = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT),
+                            device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(1))
+    t0 = time.perf_counter()
+    first = engine.generate(prompts, SERVE_STEPS)
+    sync()
+    out["first_generate_s"] = time.perf_counter() - t0
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    again = engine.generate(prompts, SERVE_STEPS)
+    sync()
+    wall = time.perf_counter() - t0
+    out["generate_s"] = wall
+    out["tokens_per_s"] = SERVE_BATCH * SERVE_STEPS / wall
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9 if cuda else None
+    assert tuple(first.shape) == (SERVE_BATCH, SERVE_STEPS), first.shape
+    assert int(first.min()) >= 0 and int(first.max()) < cfg.vocab_size
+    assert torch.equal(first, again), (label, "greedy runs differ")
+
+    sync()
+    t0 = time.perf_counter()
+    logits, caches = engine.prefill(prompts)
+    sync()
+    out["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+    tok = engine.sample(logits)
+    toks, step_ms = [tok], []
+    for i in range(SERVE_STEPS - 1):
+        t0 = time.perf_counter()
+        logits, caches = engine.decode(tok, caches, SERVE_PROMPT + i)
+        tok = engine.sample(logits)
+        sync()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        toks.append(tok)
+    assert torch.equal(torch.cat(toks, dim=1), first), (label, "stepped run")
+    out["decode_ms_median"] = statistics.median(step_ms)
+    out["decode_ms_min"] = min(step_ms)
+    if cuda:
+        trace = profile_window(torch, lambda: engine.decode(
+            tok, caches, SERVE_PROMPT + SERVE_STEPS - 1))
+        out["decode_trace"] = {k: trace.get(k) for k in (
+            "device_ops", "busy_ms", "wall_ms_profiled", "busy_share_of_wall")}
+    model_b, floor_b = decode_bytes(cfg, out["params"], SERVE_BATCH, max_len)
+    out["decode_bytes_cast_model"] = model_b
+    out["decode_bound_ms_cast_model"] = model_b / HBM_BYTES_PER_S * 1e3
+    out["decode_bound_ms_fp32_floor"] = floor_b / HBM_BYTES_PER_S * 1e3
+    del caches, logits
+    if independent:
+        other = prompts.clone()
+        other[2] = (other[2] + 1) % cfg.vocab_size
+        changed = engine.generate(other, SERVE_STEPS)
+        assert torch.equal(changed[0], first[0]), (label, "request 0 moved")
+        out["independence"] = "request 0 unchanged"
+    else:
+        out["independence"] = ("not checked: MoE capacity couples the "
+                               "requests of one prefill batch, as in the "
+                               "reference")
+    out["consistency_rel"], out["fp32_noise_rel"] = serve_consistency(
+        torch, params, cfg, dev)
+    out["bf16_control_rel"], _ = serve_consistency(torch, params, cfg, dev,
+                                                   control=True)
+    out["consistency_tol"] = max(CONSIST_FLOOR,
+                                 CONSIST_NOISE * out["fp32_noise_rel"])
+    out["sample"] = first[0, :8].tolist()
+    return out
+
+
+def phase_lm_serving(torch, device="cuda", smoke=False):
+    """Phase 18: (a) ``python -m repro_torch.launch.serve`` on xlstm-1.3b,
+    whole (run in this process through its ``main``); (b) and (c) on
+    xlstm-1.3b and smollm-135m, whole, and jamba-v0.1-52b cut to one
+    period (:func:`serve_model`).  ``smoke``: the reduced configs, for a
+    rehearsal on the CPU."""
+    import gc
+    import io
+
+    from repro_torch.launch import serve
+
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    argv = ["--arch", "xlstm-1.3b", "--batch", str(SERVE_BATCH),
+            "--prompt-len", str(SERVE_PROMPT), "--steps", str(SERVE_STEPS),
+            "--device", str(dev)] + (["--smoke"] if smoke else [])
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        row = serve.main(argv)
+    line = buf.getvalue().strip().splitlines()[-1]
+    assert json.loads(line) == row, line
+    assert row["steps"] == SERVE_STEPS and len(row["sample"]) == min(
+        16, SERVE_STEPS), row
+    log("lm serving (a): python -m repro_torch.launch.serve", " ".join(argv))
+    log(line)
+    summary = {"launcher": row, "models": {}}
+    for label, cfg, cut in serve_configs(smoke):
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        res = serve_model(torch, label, cfg, dev,
+                          independent=cfg.moe is None)
+        res["seconds"] = time.perf_counter() - t0
+        res["reduced"] = cut
+        summary["models"][label] = res
+        log(f"lm serving {label}:", json.dumps(res))
+        assert res["fp32_noise_rel"] <= NOISE_MAX, (label, res)
+        assert res["consistency_rel"] <= res["consistency_tol"], (label, res)
+        assert res["bf16_control_rel"] > res["consistency_tol"], (
+            "the bf16 control passed", label, res)
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return summary
+
+
 def host_ms(fn, reps, warmup=1):
     for _ in range(warmup):
         fn()
@@ -4042,6 +4287,11 @@ def main() -> int:
     distributed, distributed_launches = phase(
         "distributed", phase_distributed, torch, macro_ops, repro_torch)
     mesh, mesh_launches = phase("mesh", phase_mesh, torch, macro_ops)
+    macro_ops.reset_launch_counts()
+    lm = phase("lm serving", phase_lm_serving, torch)
+    lm_launches = launch_counts(macro_ops)
+    assert not lm_launches, ("the LM serving path runs none of the QR "
+                             "kernels", lm_launches)
 
     def mesh_of(*kinds):
         """Phase 17's launches of ``kinds`` (summed): (a)'s timed step on
@@ -4082,6 +4332,7 @@ def main() -> int:
             tuning_launches=tuning_launches.get(kind, 0),
             distributed_launches=dist_launches(kind),
             mesh_launches=mesh_of(kind),
+            lm_serving_launches=lm_launches.get(kind, 0),
             **({"fp64_ms": r["fp64_ms"]} if "fp64_ms" in r else {}),
             **({"computes": Q_FORMATION} if kind.startswith("Q") else {})))
     for name, path_launches in (("MEGAKERNEL", mega_launches),
@@ -4102,6 +4353,7 @@ def main() -> int:
             tuning_launches=tuning_launches.get(name, 0),
             distributed_launches=dist_launches(name),
             mesh_launches=mesh_of(name),
+            lm_serving_launches=lm_launches.get(name, 0),
             **({"computes": Q_FORMATION} if "_Q" in name else {})))
     path_launches = {
         "MHT_PANEL": {k: p["launches"].get("MHT_PANEL", 0)
@@ -4126,6 +4378,7 @@ def main() -> int:
             tuning_launches=tuning_launches.get(kind, 0),
             distributed_launches=dist_launches(kind, kind + "_Q"),
             mesh_launches=mesh_of(kind, kind + "_Q"),
+            lm_serving_launches=lm_launches.get(kind, 0),
             **({"launches_by_path": path_launches[kind],
                 "summed_device_ms_by_path": summed[kind]}
                if kind in path_launches else {})))
@@ -4226,6 +4479,15 @@ def main() -> int:
         json.dumps([r["fingerprint_ms"] for r in mr]),
         "| elastic restore s", me["restore_s"], "step-4 loss diff",
         me["rel_diff"])
+    log("card:", card, "| lm serving: launcher", json.dumps(lm["launcher"]),
+        "| prefill ms / decode ms a token (median) / bound ms (cast model) / "
+        "tokens/s / peak GB / parameters / consistency / its gate / bf16 "
+        "control:",
+        json.dumps({k: [m["prefill_ms"], m["decode_ms_median"],
+                        m["decode_bound_ms_cast_model"], m["tokens_per_s"],
+                        m["peak_gb"], m["params"], m["consistency_rel"],
+                        m["consistency_tol"], m["bf16_control_rel"]]
+                    for k, m in lm["models"].items()}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,7 +11,8 @@ from repro_torch.distributed.fault_tolerance import (
 )
 from repro_torch.distributed.sharding import (
     QR_DOMAIN_AXIS, DivergentCopiesError, MeshRules, Spec, activation_policy,
-    batch_specs, cache_specs, constrain_hidden, constrain_logits,
+    batch_specs, cache_specs, constrain_decode_scores, constrain_expert_stack,
+    constrain_hidden, constrain_logits, constrain_token_stack,
     distribute_tree, largest_pow2, param_specs, placements, row_domain_mesh,
     state_specs, tree_placements, world_size,
 )
@@ -22,4 +23,6 @@ __all__ = ["StepWatchdog", "ElasticPlan", "plan_elastic_mesh", "quantize",
            "row_domain_mesh", "world_size", "DivergentCopiesError",
            "MeshRules", "Spec", "param_specs", "state_specs", "batch_specs",
            "cache_specs", "placements", "tree_placements", "distribute_tree",
-           "activation_policy", "constrain_hidden", "constrain_logits"]
+           "activation_policy", "constrain_hidden", "constrain_logits",
+           "constrain_expert_stack", "constrain_token_stack",
+           "constrain_decode_scores"]

@@ -44,13 +44,13 @@ splits it.  :func:`distribute_tree` places a tree by slicing each rank's
 shard out of its own copy: no collective, and no bit of a shard changes.
 
 **Activation constraints** (``activation_policy``, ``constrain_hidden``,
-``constrain_logits``): inside a policy, a DTensor activation is
-redistributed to the placements its spec asks for; a plain tensor, or
-any tensor outside a policy, passes through.  The port's train step runs
-the model on each rank's own batch shard as plain tensors (the layout
-``constrain_hidden`` asks for), so there they are no-ops; they act on a
-forward pass run on DTensors.  The expert and decode constraints come
-with ROADMAP A16.
+``constrain_logits``, ``constrain_expert_stack``,
+``constrain_token_stack``, ``constrain_decode_scores``): inside a
+policy, a DTensor activation is redistributed to the placements its spec
+asks for; a plain tensor, or any tensor outside a policy, passes
+through.  The port's train step runs the model on each rank's own batch
+shard as plain tensors (the layout ``constrain_hidden`` asks for), so
+there they are no-ops; they act on a forward pass run on DTensors.
 """
 
 from __future__ import annotations
@@ -78,7 +78,9 @@ __all__ = ["QR_DOMAIN_AXIS", "largest_pow2", "world_size", "group_size",
            "leaves_with_names",
            "shard_like", "map_local", "mesh_sum", "redistribute",
            "full_tensor",
-           "activation_policy", "constrain_hidden", "constrain_logits"]
+           "activation_policy", "constrain_hidden", "constrain_logits",
+           "constrain_expert_stack", "constrain_token_stack",
+           "constrain_decode_scores"]
 
 # The reference's mesh-axis name; here it labels metrics and spans.
 QR_DOMAIN_AXIS = "qr_domain"
@@ -759,3 +761,43 @@ def constrain_logits(x):
     vocab_s = (rules.model_axis if rules.tp_enabled
                and v % rules.model_size == 0 else None)
     return _constrain(x, Spec(batch_s, None, vocab_s), rules)
+
+
+def constrain_expert_stack(x):
+    """MoE dispatch and compute buffers (E, C, d|f): experts over the
+    model axis."""
+    rules, _ = _policy()
+    if rules is None or x.ndim != 3 or not isinstance(x, DTensor):
+        return x
+    m = (rules.model_axis if rules.tp_enabled
+         and x.shape[0] % rules.model_size == 0 else None)
+    return _constrain(x, Spec(m, None, None), rules)
+
+
+def constrain_token_stack(x):
+    """Flat token tensors ((T,), (T, d), (T, k, d)): tokens over the
+    batch axes when they divide."""
+    rules, _ = _policy()
+    if rules is None or x.ndim < 1 or not isinstance(x, DTensor):
+        return x
+    t_s = (rules.batch_spec() if x.shape[0] % rules.batch_size_eff == 0
+           else None)
+    return _constrain(x, Spec(t_s, *([None] * (x.ndim - 1))), rules)
+
+
+def constrain_decode_scores(s):
+    """Decode attention scores (B, n_kv, g, q, S): batch over the batch
+    axes, heads over the model axis (else the sequence, for a GQA head
+    count the axis does not divide)."""
+    rules, _ = _policy()
+    if rules is None or s.ndim != 5 or not isinstance(s, DTensor):
+        return s
+    b, h = s.shape[0], s.shape[1]
+    batch_s = rules.batch_spec() if b % rules.batch_size_eff == 0 else None
+    head_s = seq_s = None
+    if rules.tp_enabled:
+        if h % rules.model_size == 0:
+            head_s = rules.model_axis
+        elif s.shape[-1] % rules.model_size == 0:
+            seq_s = rules.model_axis
+    return _constrain(s, Spec(batch_s, head_s, None, None, seq_s), rules)

@@ -1,15 +1,22 @@
-"""GQA attention for training: chunked online softmax.
+"""GQA attention: chunked online softmax for training and prefill, and
+cached decode.
 
 Counterpart of the reference's ``repro.models.attention`` (``attn_init``,
-``attn_forward``, ``chunked_attention``), in plain torch ops that follow
-its chunked online softmax: a loop over query chunks and, inside it,
-over key/value chunks carries the running max, denominator and
-accumulator, so no (S x S) score matrix is formed.  Local (windowed)
-attention and gemma2 score soft-capping fold into the same masks.  GQA
-is computed grouped: q heads reshape to (n_kv, group), so k/v are never
-repeated in memory.  The reference recomputes each query chunk in the
-backward pass (``jax.checkpoint``); the port keeps autograd's saved
-tensors (ROADMAP C).  Cached decode waits for ROADMAP A16.
+``attn_forward``, ``attn_decode``, ``chunked_attention``), in plain
+torch ops that follow its chunked online softmax: a loop over query
+chunks and, inside it, over key/value chunks carries the running max,
+denominator and accumulator, so no (S x S) score matrix is formed.
+Local (windowed) attention and gemma2 score soft-capping fold into the
+same masks.  GQA is computed grouped: q heads reshape to (n_kv, group),
+so k/v are never repeated in memory.  The reference recomputes each
+query chunk in the backward pass (``jax.checkpoint``); the port keeps
+autograd's saved tensors (ROADMAP C).
+
+Decode attends one query against the whole (B, S_max, n_kv, D) cache
+with a length mask.  It writes the new K/V into the cache **in place**
+(the reference's ``lax.dynamic_update_slice`` returns a new array) and
+raises on a ``cur_len`` outside the cache, where the reference's update
+clamps the index and silently overwrites the last slot.
 """
 
 from __future__ import annotations
@@ -18,7 +25,9 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.models.layers import apply_norm, dense, dense_init, rope
+from repro_torch.distributed.sharding import constrain_decode_scores
+from repro_torch.models.layers import (apply_norm, chunk_size, dense,
+                                       dense_init, rope)
 
 Tensor = torch.Tensor
 
@@ -62,13 +71,6 @@ def _block_scores(q, k, *, scale, softcap):
     return s
 
 
-def _chunk(size: int, total: int) -> int:
-    size = min(size, total)
-    while total % size:
-        size //= 2
-    return size
-
-
 def chunked_attention(
     q: Tensor, k: Tensor, v: Tensor, *,
     q_pos: Tensor, k_pos0: int = 0,
@@ -87,7 +89,7 @@ def chunked_attention(
     sk, n_kv = k.shape[1], k.shape[2]
     g = h // n_kv
     scale = d ** -0.5
-    q_chunk, kv_chunk = _chunk(q_chunk, sq), _chunk(kv_chunk, sk)
+    q_chunk, kv_chunk = chunk_size(q_chunk, sq), chunk_size(kv_chunk, sk)
     qg = q.reshape(b, sq, n_kv, g, d)
     k_pos = k_pos0 + torch.arange(sk, device=q.device)
     outs = []
@@ -131,7 +133,8 @@ def attn_forward(
     p: dict, x: Tensor, cfg, *, local: bool, pos0: int = 0,
     return_kv: bool = False,
 ):
-    """Training attention over a full sequence."""
+    """Training / prefill attention over a full sequence; with
+    ``return_kv`` also the roped K and V, (B, S, n_kv, D) each."""
     b, s, _ = x.shape
     positions = pos0 + torch.arange(s, device=x.device)
     q, k, v = _project_qkv(p, x, cfg, positions)
@@ -150,5 +153,33 @@ def attn_forward(
 
 def attn_decode(p: dict, x: Tensor, cfg, *, local: bool, cache_k: Tensor,
                 cache_v: Tensor, cur_len) -> Tuple[Tensor, Tuple[Tensor, Tensor]]:
-    raise NotImplementedError(
-        "cached decode attention waits for the LM serving path (ROADMAP A16)")
+    """One decode step.  x: (B, 1, d); caches (B, S_max, n_kv, D);
+    ``cur_len`` (an int) is the number of valid cache entries, the new
+    token's position.  The new K/V are written into ``cache_k`` /
+    ``cache_v`` at ``cur_len``, which are returned."""
+    b = x.shape[0]
+    s_max = cache_k.shape[1]
+    cur_len = int(cur_len)
+    if not 0 <= cur_len < s_max:
+        raise IndexError(f"decode position {cur_len} is outside the cache "
+                         f"of {s_max} entries")
+    positions = torch.full((1,), cur_len, device=x.device)
+    q, k_new, v_new = _project_qkv(p, x, cfg, positions)
+    cache_k[:, cur_len] = k_new[:, 0].to(cache_k.dtype)
+    cache_v[:, cur_len] = v_new[:, 0].to(cache_v.dtype)
+
+    n_kv, d = cfg.n_kv_heads, cfg.d_head
+    g = cfg.n_heads // n_kv
+    qg = q.reshape(b, 1, n_kv, g, d)
+    s = _block_scores(qg, cache_k, scale=d ** -0.5, softcap=cfg.attn_softcap)
+    s = constrain_decode_scores(s)
+    kpos = torch.arange(s_max, device=x.device)
+    mask = kpos <= cur_len
+    if local and cfg.window is not None:
+        mask &= (cur_len - kpos) < cfg.window
+    s = s.masked_fill(~mask, _NEG)
+    w = constrain_decode_scores(torch.softmax(s, dim=-1))
+    out = torch.einsum("bhgqk,bkhd->bqhgd", w, cache_v.to(torch.float32))
+    out = out.reshape(b, 1, cfg.d_q).to(x.dtype)
+    y = dense(p["wo"], out)
+    return y, (cache_k, cache_v)

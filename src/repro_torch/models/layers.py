@@ -9,6 +9,7 @@ fp32 and are cast at use (mixed precision, fp32 master).
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -18,7 +19,8 @@ Tensor = torch.Tensor
 
 __all__ = [
     "dense_init", "dense", "norm_init", "apply_norm", "ffn_init", "ffn",
-    "embedding_init", "embed", "rope", "softcap", "model_dtype",
+    "embedding_init", "embed", "rope", "softcap", "model_dtype", "silu",
+    "gelu_tanh", "chunk_size",
 ]
 
 
@@ -30,6 +32,32 @@ def model_dtype(name: str) -> torch.dtype:
 def _normal(gen: torch.Generator, shape, scale: float) -> Tensor:
     return torch.randn(shape, generator=gen, device=gen.device,
                        dtype=torch.float32) * scale
+
+
+def chunk_size(size: int, total: int) -> int:
+    """The reference's sequence chunk: ``min(size, total)`` halved until
+    it divides ``total``."""
+    size = min(size, total)
+    while total % size:
+        size //= 2
+    return size
+
+
+def silu(x: Tensor) -> Tensor:
+    """``x * sigmoid(x)`` with the sigmoid spelled ``1 / (1 + exp(-x))``
+    op by op in x's dtype, as the reference's ``jax.nn.silu`` lowers:
+    in bf16 every op rounds (``F.silu`` rounds once).  ``-x`` is capped
+    at 88 so that exp stays finite and the gradient has no inf * 0."""
+    return x * (1.0 / (1.0 + torch.exp(torch.clamp(-x, max=88.0))))
+
+
+def gelu_tanh(x: Tensor) -> Tensor:
+    """The tanh approximation of GELU, op by op in x's dtype as the
+    reference's ``jax.nn.gelu(approximate=True)`` lowers: its constants
+    rounded to that dtype, every op rounding."""
+    c0, c1 = (torch.tensor(c, dtype=x.dtype).item()
+              for c in (0.044715, math.sqrt(2.0 / math.pi)))
+    return x * (0.5 * (1.0 + torch.tanh(c1 * (x + c0 * (x * x * x)))))
 
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, *,
@@ -87,14 +115,13 @@ def ffn_init(gen: torch.Generator, d_model: int, d_ff: int, act: str) -> dict:
 def ffn(p: dict, x: Tensor, act: str, *, dtype=None) -> Tensor:
     dtype = x.dtype if dtype is None else dtype
     if act == "swiglu":
-        g = dense(p["gate"], x, dtype=dtype)
-        # x * sigmoid(x) in the model dtype, as the reference's silu rounds
-        h = g * torch.sigmoid(g) * dense(p["up"], x, dtype=dtype)
+        h = silu(dense(p["gate"], x, dtype=dtype)) * dense(p["up"], x,
+                                                           dtype=dtype)
     elif act == "geglu":
-        h = F.gelu(dense(p["gate"], x, dtype=dtype),
-                   approximate="tanh") * dense(p["up"], x, dtype=dtype)
+        h = gelu_tanh(dense(p["gate"], x, dtype=dtype)) * dense(
+            p["up"], x, dtype=dtype)
     elif act == "gelu":
-        h = F.gelu(dense(p["up"], x, dtype=dtype), approximate="tanh")
+        h = gelu_tanh(dense(p["up"], x, dtype=dtype))
     else:
         raise ValueError(f"unknown ffn act {act!r}")
     return dense(p["down"], h, dtype=dtype)

@@ -275,6 +275,19 @@ _RANK_PROGRAM = textwrap.dedent("""
     res["hidden_local"] = h.to_local().numpy()
     res["logits_places"] = np.array([str(p) for p in lg.placements])
     res["logits_local"] = lg.to_local().numpy()
+    # The MoE and decode constraints on replicated DTensors.
+    rep = lambda t: DTensor.from_local(t, mesh, [Replicate(), Replicate()])
+    with sharding.activation_policy(rules):
+        placed = {
+            "expert": sharding.constrain_expert_stack(rep(torch.arange(
+                4 * 8 * 6, dtype=torch.float32).reshape(4, 8, 6))),
+            "token": sharding.constrain_token_stack(rep(torch.arange(
+                8 * 6, dtype=torch.float32).reshape(8, 6))),
+            "scores": sharding.constrain_decode_scores(rep(torch.arange(
+                8 * 2 * 2 * 6, dtype=torch.float32).reshape(8, 2, 2, 1, 6)))}
+    for name, t in placed.items():
+        res[name + "_places"] = np.array([str(p) for p in t.placements])
+        res[name + "_local"] = t.to_local().numpy()
     # Six steps of the drill configuration from the carried weights.
     data = DataConfig(vocab_size=cfg.vocab_size, seq_len=32, global_batch=8)
     for name, kw in (("adamw", dict(optimizer="adamw", lr=1e-3)),
@@ -587,6 +600,24 @@ def test_activation_constraints_place_dtensors(runs):
         assert list(r["logits_places"]) == ["S(0)", "S(2)"]
         assert np.array_equal(r["logits_local"],
                               x[2 * i:2 * i + 2, :, 3 * j:3 * j + 3])
+
+
+def test_moe_and_decode_constraints_place_dtensors(runs):
+    """MoE buffers (4, 8, 6): experts over "model"; flat tokens (8, 6):
+    over "data"; decode scores (8, 2, 2, 1, 6): batch over "data", heads
+    over "model" — the reference's specs."""
+    ranks, _, _ = runs
+    e = np.arange(4 * 8 * 6, dtype=np.float32).reshape(4, 8, 6)
+    t = np.arange(8 * 6, dtype=np.float32).reshape(8, 6)
+    sc = np.arange(8 * 2 * 2 * 6, dtype=np.float32).reshape(8, 2, 2, 1, 6)
+    for r in ranks:
+        i, j = (int(c) for c in r["coord"])
+        assert list(r["expert_places"]) == ["R", "S(0)"]
+        assert np.array_equal(r["expert_local"], e[2 * j:2 * j + 2])
+        assert list(r["token_places"]) == ["S(0)", "R"]
+        assert np.array_equal(r["token_local"], t[2 * i:2 * i + 2])
+        assert list(r["scores_places"]) == ["S(0)", "S(1)"]
+        assert np.array_equal(r["scores_local"], sc[2 * i:2 * i + 2, j:j + 1])
 
 
 def test_distributed_muon_twin(runs):

@@ -1,5 +1,5 @@
-"""The port's dense decoder (``repro_torch.models``) against the
-reference's (``repro.models``) on the CPU: the reference's weights
+"""The port's decoder (``repro_torch.models``) against the reference's
+(``repro.models``) on the CPU: the reference's weights
 carried into the port (``params_from_numpy``), the same numpy-seeded
 tokens through both.
 
@@ -23,6 +23,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from repro.configs import ARCHS
 from repro.configs import get_smoke_config as ref_smoke
 from repro.models import transformer as RT
 from repro.models.attention import chunked_attention as ref_attention
@@ -36,8 +37,7 @@ from repro_torch.training.train_step import fused_lm_loss
 
 DENSE = ["smollm-135m", "olmo-1b", "gemma2-9b", "chameleon-34b",
          "qwen2.5-32b", "musicgen-large"]
-NOT_PORTED = ["jamba-v0.1-52b", "xlstm-1.3b", "qwen2-moe-a2.7b",
-              "phi3.5-moe-42b-a6.6b"]
+ALL = list(ARCHS)
 BF16_EPS = float(torch.finfo(torch.bfloat16).eps)
 
 
@@ -128,10 +128,13 @@ def test_loss_and_every_gradient_match_reference_bf16(arch):
         assert _rel(grads[k], g) <= 0.05, (k, _rel(grads[k], g))
 
 
-@pytest.mark.parametrize("dtype", ["float32", None])
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch,dtype", [(a, "float32") for a in ALL]
+                         + [(a, None) for a in DENSE])
 def test_forward_train_logits_match_reference(arch, dtype):
-    """Logits: 1e-5 relative in fp32, 2 * eps_bf16 relative in bf16."""
+    """Logits: 1e-5 relative in fp32, 2 * eps_bf16 relative in bf16; the
+    MoE aux loss to the same relative tolerance (zero without MoE).  The
+    recurrent and MoE architectures' bf16 run is held layer by layer
+    (:func:`test_bf16_layers_match_reference_layer_by_layer`)."""
     rc, tc = _pair(arch, dtype)
     params, npp = _ref_params(rc, seed=1)
     batch = _batch(rc, seed=1)
@@ -144,7 +147,45 @@ def test_forward_train_logits_match_reference(arch, dtype):
     assert tlog.dtype == torch.float32 and tuple(tlog.shape) == rlog.shape
     tol = 1e-5 if dtype == "float32" else 2 * BF16_EPS
     assert _rel(tlog.numpy(), rlog) <= tol
-    assert float(taux) == float(raux) == 0.0
+    assert abs(float(taux) - float(raux)) <= tol * abs(float(raux))
+    assert (float(raux) == 0.0) == (rc.moe is None)
+
+
+@pytest.mark.parametrize("arch", [a for a in ALL if a not in DENSE])
+def test_bf16_layers_match_reference_layer_by_layer(arch):
+    """bf16, each layer of the stack fed the reference's own input: the
+    port's output within 2 * eps_bf16 of the reference's largest
+    magnitude (measured: at most 3.0e-3, an mLSTM layer), and the MoE aux
+    loss within 1e-5.  Over the whole stack the bf16 gaps compound
+    instead: the logits part by up to 2.4e-2 (xlstm-1.3b, eight layers of
+    one-ulp differences), and a one-ulp difference in a hidden state
+    flips a near-tied top-k choice of a router (qwen2-moe 0.12, jamba
+    0.60), so the whole-model bf16 logits are not compared."""
+    rc, tc = _pair(arch)
+    params, npp = _ref_params(rc, seed=1)
+    batch = _batch(rc, seed=1)
+    x = RT._embed_input(params, {k: jnp.asarray(v) for k, v in
+                                 batch.items()}, rc)
+    mine = params_from_numpy(npp, "cpu").tree()["layers"]
+    worst = 0.0
+    for i in range(rc.n_periods):
+        for pi, spec in enumerate(rc.period):
+            rp = jax.tree.map(lambda a: a[i], params["layers"][pi])
+            tp = TT.map_tree(lambda t: t[i], mine[pi])
+            want, _, raux = RT._apply_layer(rp, x, rc, spec, mode="train",
+                                            cache=None, pos=None)
+            with torch.no_grad():
+                got, _, taux = TT._apply_layer(
+                    tp, torch.from_numpy(np.array(x.astype(jnp.float32))
+                                         ).to(torch.bfloat16), tc, spec)
+            assert got.dtype == torch.bfloat16
+            err = _rel(got.float().numpy(), want.astype(jnp.float32))
+            assert err <= 2 * BF16_EPS, (i, pi, err)
+            worst = max(worst, err)
+            if spec.ffn == "moe":
+                assert abs(float(taux) - float(raux)) <= 1e-5 * float(raux)
+            x = want
+    assert worst > 0.0
 
 
 @pytest.mark.parametrize("window,softcap,skip", [
@@ -194,7 +235,7 @@ def test_fused_lm_loss_matches_reference(softcap):
     assert _rel(gx.numpy(), rgx) <= 1e-5 and _rel(gw.numpy(), rgw) <= 1e-5
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", ALL)
 def test_carry_keeps_the_reference_tree(arch):
     """The port's parameter names are the reference's paths, its values
     the reference's arrays bit for bit, and the counts agree."""
@@ -210,7 +251,7 @@ def test_carry_keeps_the_reference_tree(arch):
     assert param_count(model.tree()) == RT.param_count(params)
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", ALL)
 def test_init_params_shapes_and_scales(arch):
     """Fresh port weights have the reference's tree, shapes and dtypes
     (fp32 masters); dense weights draw at 1 / sqrt(d_in)."""
@@ -222,25 +263,11 @@ def test_init_params_shapes_and_scales(arch):
     assert {k: tuple(v.shape) for k, v in ref.items()} == \
         {k: tuple(p.shape) for k, p in mine.items()}
     assert all(p.dtype == torch.float32 for p in mine.values())
-    w = mine["layers.0.mixer.wq.w"]
+    first = {"attn": "wq", "attn_local": "wq", "mamba": "in_proj",
+             "mlstm": "up", "slstm": "w_if"}[tc.period[0].mixer]
+    w = mine[f"layers.0.mixer.{first}.w"]
     assert float(w.std()) == pytest.approx(tc.d_model ** -0.5, rel=0.15)
     assert isinstance(model, ParamTree)
-
-
-@pytest.mark.parametrize("arch", NOT_PORTED)
-def test_unported_mixers_raise_naming_a16(arch):
-    cfg = get_smoke_config(arch)
-    with pytest.raises(NotImplementedError, match="A16"):
-        init_params(torch.Generator().manual_seed(0), cfg)
-
-
-def test_prefill_and_decode_raise_naming_a16():
-    cfg = get_smoke_config("smollm-135m")
-    model = init_params(torch.Generator().manual_seed(0), cfg)
-    with pytest.raises(NotImplementedError, match="A16"):
-        TT.forward_prefill(model, {}, cfg)
-    with pytest.raises(NotImplementedError, match="A16"):
-        TT.forward_decode(model, None, cfg, None, 0)
 
 
 def test_stacked_gradient_is_one_leaf_per_period_position():

@@ -1,9 +1,9 @@
 """The port's roofline model (``repro_torch.launch.roofline``) against the
 reference's (``repro.launch.roofline``), on the CPU.
 
-``qr_flops`` and every field of ``analytic_cell_cost`` agree at fp64
-rounding (rel 1e-12) for the dense architectures over every shape of
-``SHAPES``, with one deliberate difference: a training cell's FLOPs
+``qr_flops``, ``_param_counts`` and every field of ``analytic_cell_cost``
+agree at fp64 rounding (rel 1e-12) for all ten architectures over every
+shape of ``SHAPES``, with one deliberate difference: a training cell's FLOPs
 include QR-Muon's orthogonalization, and the port does not send
 period-stacked vectors (norm gains, biases) to Muon (ROADMAP C5), so with
 8 or more periods the reference counts exactly ``8 m n^2`` more per such
@@ -22,9 +22,6 @@ from repro_torch.configs import ARCHS, SHAPES, get_config
 from repro_torch.launch import roofline
 from repro_torch.optim.qr_muon import STACKED
 
-_DENSE = ("olmo-1b", "qwen2.5-32b", "smollm-135m", "gemma2-9b",
-          "chameleon-34b", "musicgen-large")
-_A16 = tuple(a for a in ARCHS if a not in _DENSE)
 _REL = 1e-12
 
 
@@ -61,7 +58,7 @@ def _muon_vector_gap(cfg) -> float:
     return gap
 
 
-@pytest.mark.parametrize("arch", _DENSE)
+@pytest.mark.parametrize("arch", ARCHS)
 def test_analytic_cell_cost_equals_reference(arch):
     cfg, jcfg = get_config(arch), jget(arch)
     gap = _muon_vector_gap(cfg)
@@ -81,7 +78,7 @@ def test_analytic_cell_cost_equals_reference(arch):
         for n, leaf in roofline._meta_params(cfg).named_parameters()))
 
 
-@pytest.mark.parametrize("arch", _DENSE)
+@pytest.mark.parametrize("arch", ARCHS)
 def test_qr_optimizer_flops_gap_is_c5(arch):
     cfg, jcfg = get_config(arch), jget(arch)
     assert _close(roofline._qr_optimizer_flops(cfg) + _muon_vector_gap(cfg),
@@ -99,11 +96,12 @@ def test_smollm_param_count_and_gap():
                         2 * 8.0 * 576 * 30 ** 2)
 
 
-@pytest.mark.parametrize("arch", _A16)
-def test_unported_mixers_raise_naming_a16(arch):
-    with pytest.raises(NotImplementedError, match="A16"):
-        roofline.analytic_cell_cost(get_config(arch), SHAPES["train_4k"],
-                                    "train")
+@pytest.mark.parametrize("arch", ARCHS)
+def test_param_counts_equal_reference(arch):
+    """(total, active): MoE counts top_k of its routed experts."""
+    mine = roofline._param_counts(get_config(arch))
+    assert mine == jroof._param_counts(jget(arch))
+    assert (mine[1] < mine[0]) == (get_config(arch).moe is not None)
 
 
 def test_state_bytes_and_traffic_equal_reference():

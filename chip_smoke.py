@@ -201,6 +201,32 @@ Phases, each of which exits non-zero when it fails:
      and the run with every carried cache and state rounded to bf16
      failing that; one ``torch.profiler`` trace of a decode step (device
      ops, busy ms and share).
+ 19. LM training (``Trainer(optimizer="muon-qr", batched_ortho=True)`` on
+     ``SyntheticLM``, seed 0, batch 8 x 256, weights drawn on the card
+     from a generator seeded with 0) of qwen2-moe-a2.7b (published widths,
+     2 of 24 layers: 360 expert momenta of 2048 x 1408 a step on the
+     wavefront kernels slice by slice) and xlstm-1.3b (published widths,
+     one period of 8 of 48 layers, ``seq_chunk`` 64): the warm-up step
+     records every momentum and O the optimizer sees and returns — every
+     O inside 4 sqrt(N) eps in orthogonality and backward error (a
+     TF32-rounded copy failing the latter), the sign convention on the
+     columns below the numerical rank (a sign-flipped copy failing it);
+     8 slices of a class larger than that and every member of the others
+     through the kernels (the step's O bit for bit), the plain lowering
+     and a TF32 control, agreeing on the columns the momenta determine
+     (tol x the columns' condition estimate, and tol itself on the
+     best-conditioned columns, which the control fails), each class's
+     rank from fp64 singular values; two timed steps (step ms, tokens/s)
+     and an instrumented, traced step (fwd+bwd, optimizer and per-class
+     ms, device ops and busy share); peak memory; the launches of every
+     kernel; on xlstm, phase 14's checks against the plain lowering on
+     the first update's recorded inputs (the Muon leaves' update on their
+     determined columns within 1e-4, the update rounded to TF32 failing
+     that; step 3's loss at the plain update's parameters within 1e-3);
+     then the
+     five example twins (``python -m repro_torch.examples.<name>``,
+     small step counts, ``train_lm``'s fault-tolerance drill and its
+     sentinels), each exiting 0.
 
 Each correctness check is shown to reject a control whose answer is only
 TF32-grade: the kernels' written outputs rounded to TF32 (fp64: to fp32),
@@ -215,7 +241,8 @@ kernel (``service_launches``: its launches on phase 13's service paths;
 ``tuning_launches``: in phase 15's sweep; ``distributed_launches``: in
 phase 16, per rank for each sharded cell and in the restart run;
 ``mesh_launches``: in phase 17, (a)'s timed step and each (b) rank's;
-``lm_serving_launches``: in phase 18, zero);
+``lm_serving_launches``: in phase 18, zero; ``lm_training_launches``: in
+phase 19, both models' warm-up and timed steps);
 the last is ``{"ok": true, "device": {...}}``.  Without a CUDA
 device the script exits with status 1 and prints no result.
 """
@@ -4202,6 +4229,501 @@ def phase_lm_serving(torch, device="cuda", smoke=False):
     return summary
 
 
+# ---------------------------------------------------------------------------
+# phase 19: QR-Muon training of the recurrent and MoE models
+# ---------------------------------------------------------------------------
+
+LM_TRAIN_BATCH, LM_TRAIN_SEQ = 8, 256
+LM_TRAIN_TIMED = 2                  # timed steps after the warm-up step
+# The kernels' O against the plain lowering's on the columns the momentum
+# determines: the leading columns whose fp64 R diagonal stays within a
+# bound of its largest entry so far (QR's first k Q columns depend on the
+# first k columns of the momentum only).  Two gates: on the columns whose
+# condition estimate stays within DET_COND, max|dO| <= tol x that estimate
+# (first-order perturbation of Q, phase 14's reading made a gate: the
+# kernels read 0.002-0.15 of it on the card); on those within TIGHT_COND,
+# max|dO| <= tol, phase 14's own tolerance, which the TF32 control fails
+# (a control's dO grows with the condition as the kernels' does, so only
+# the unscaled gate can tell a TF32-grade O: the control is the kernels'
+# O of the momenta rounded to TF32, itself rounded to TF32).
+DET_COND = 1e3
+TIGHT_COND = 5.0
+# The first update's Muon leaves against the plain run's, on the leading
+# columns whose condition estimate stays within UPDATE_COND (the CPU
+# twin's bound, tests/test_torch_lm_grads.py).
+UPDATE_COND = 100.0
+DET_SLICES = 8                      # slices of a class of more than that
+QWEN_CUT = ("n_layers 24 -> 2 (1,763,452,928 of 14.3e9 parameters): fp32 "
+            "masters, gradients and momentum of the whole model do not fit "
+            "one 80 GB card")
+XLSTM_CUT = ("n_layers 48 -> 8: one period (7 mLSTM + 1 sLSTM); 48 "
+             "sequential layers of fwd, recompute and bwd over 256 tokens "
+             "take tens of seconds a step on the host; seq_chunk 512 -> 64 "
+             "(a memory setting: the same function at any chunk)")
+EXAMPLES = (("quickstart", []), ("eigen_qr", ["--iters", "200"]),
+            ("kalman_filter", ["--steps", "40"]),
+            ("serve_lm", ["--steps", "16"]),
+            ("train_lm", ["--smoke", "--steps", "12", "--seq", "16",
+                          "--batch", "2", "--optimizer", "adamw",
+                          "--fault-tolerance", "--checkpoint-every", "4",
+                          "--crash-at", "6", "--inject-straggler-at", "11",
+                          "--watchdog-threshold", "2.0"]))
+FT_SENTINELS = ("CRASH_SIMULATED step=6", "[trainer] restored step 6",
+                "[watchdog] straggler step 11", "STRAGGLERS=[11]", "FT_OK")
+
+
+def lm_train_configs(smoke=False):
+    """(label, config, cut, plain-lowering run) of phase 19's two models."""
+    from repro_torch.configs import get_config, get_smoke_config
+
+    get = get_smoke_config if smoke else get_config
+    qwen = get("qwen2-moe-a2.7b")
+    xlstm = get("xlstm-1.3b")
+    return [("qwen2-moe-a2.7b", qwen.scaled(n_layers=2), QWEN_CUT, False),
+            ("xlstm-1.3b", xlstm.scaled(n_layers=len(xlstm.period),
+                                        seq_chunk=64), XLSTM_CUT, True)]
+
+
+@contextlib.contextmanager
+def recorded_ortho(record):
+    """Inside the block, every ``batched_orthogonalize`` call of the
+    optimizer appends its leaves and outputs to ``record``."""
+    from repro_torch.optim import batched_ortho
+
+    real = batched_ortho.batched_orthogonalize
+
+    def run(leaves, *a, **kw):
+        outs = real(leaves, *a, **kw)
+        record.append((list(leaves), list(outs)))
+        return outs
+
+    batched_ortho.batched_orthogonalize = run
+    try:
+        yield
+    finally:
+        batched_ortho.batched_orthogonalize = real
+
+
+def tall_members(torch, xs):
+    """``{class label: [tall-oriented members]}`` of a list of stacks."""
+    return ortho_members(dict(enumerate(xs)))
+
+
+def r_diag(torch, a):
+    """``|r_kk|`` of the fp64 QR of each tall member of ``a`` (B, m, n)."""
+    return torch.diagonal(torch.linalg.qr(a.double(), mode="r")[1],
+                          dim1=-2, dim2=-1).abs()
+
+
+def determined(torch, d, bound=DET_COND):
+    """Per member, the leading columns the momentum determines: the
+    first k columns whose R diagonal stays within ``bound`` of its
+    largest entry so far (``d``: ``|r_kk|``, (B, n)), and that estimate
+    of their condition number."""
+    run_max = torch.cummax(d, dim=-1).values
+    ok = d * bound >= run_max
+    k = torch.where(ok.all(-1), d.shape[-1],
+                    (~ok).int().argmax(-1)).clamp(min=1)
+    est = torch.stack([run_max[i, k[i] - 1] / d[i, :k[i]].min()
+                       for i in range(d.shape[0])])
+    return k, est
+
+
+def every_o_gates(torch, leaves, outs):
+    """Phase 19's gates on every O the warm-up step's optimizer returned,
+    per class (fp64, in chunks; N = max(m, n), tol = 4 sqrt(N) eps):
+    ``max|O^T O - I|`` and the backward error (:func:`qr_backward_error`)
+    within tol, the same O rounded to TF32 failing the latter; the sign
+    convention ``diag(O^T A)_k >= -tol ||a_k||`` on the columns below the
+    numerical rank (``|r_kk| / ||a_k|| > tol``, r from O^T A), a copy with
+    its first column negated failing it."""
+    eps = float(torch.finfo(torch.float32).eps)
+    mats, qs = tall_members(torch, leaves), tall_members(torch, outs)
+    per = {}
+    for label, ms_ in mats.items():
+        m, n = ms_[0].shape
+        tol = 4 * max(m, n) ** 0.5 * eps
+        acc = dict(members=len(ms_), tol=tol, ortho_max=0.0,
+                   backward_error_max=0.0,
+                   tf32_control_backward_error_min=math.inf,
+                   sign_margin_min=math.inf,
+                   flip_control_sign_margin_max=-math.inf,
+                   rank_min=n, rank_max=0, finite=True)
+        for c0 in range(0, len(ms_), 16):
+            a = torch.stack(ms_[c0:c0 + 16]).double()
+            q = torch.stack(qs[label][c0:c0 + 16])
+            acc["finite"] &= bool(torch.isfinite(q).all())
+            q = q.double()
+            eye = torch.eye(n, dtype=torch.float64, device=a.device)
+            acc["ortho_max"] = max(acc["ortho_max"], float(
+                (q.mT @ q - eye).abs().max()))
+            acc["backward_error_max"] = max(acc["backward_error_max"], float(
+                qr_backward_error(torch, a, q).max()))
+            ctrl = round_low(torch, q.float()).double()
+            acc["tf32_control_backward_error_min"] = min(
+                acc["tf32_control_backward_error_min"],
+                float(qr_backward_error(torch, a, ctrl).min()))
+            cn = torch.linalg.vector_norm(a, dim=-2)
+            rel = torch.diagonal(q.mT @ a, dim1=-2, dim2=-1) / cn
+            below = (rel.abs() > tol)
+            rank = torch.where(below.all(-1), n,
+                               (~below).int().argmax(-1))
+            acc["rank_min"] = min(acc["rank_min"], int(rank.min()))
+            acc["rank_max"] = max(acc["rank_max"], int(rank.max()))
+            cols = torch.arange(n, device=a.device)[None] < rank[:, None]
+            acc["sign_margin_min"] = min(acc["sign_margin_min"], float(
+                torch.where(cols, rel, torch.inf).amin()))
+            acc["flip_control_sign_margin_max"] = max(
+                acc["flip_control_sign_margin_max"], float((-rel[:, 0]).max()))
+        per[label] = acc
+    return per
+
+
+def check_every_o(per):
+    for label, c in per.items():
+        assert c["finite"], (label, c)
+        assert c["ortho_max"] <= c["tol"], (label, c)
+        assert c["backward_error_max"] <= c["tol"], (label, c)
+        assert c["tf32_control_backward_error_min"] > c["tol"], (
+            "the TF32 control passed", label, c)
+        assert c["sign_margin_min"] >= -c["tol"], (label, c)
+        assert c["flip_control_sign_margin_max"] < -c["tol"], (
+            "the sign-flip control passed", label, c)
+
+
+def determined_check(torch, leaves, outs):
+    """The kernels' O against the plain lowering's on the determined
+    columns (:func:`determined`), for ``DET_SLICES`` slices of each class
+    larger than that and every member of the others: the class stacks
+    through ``batched_orthogonalize`` on the kernels (their O equal to
+    the step's own bit for bit) and the plain lowering, and the control
+    (the kernels on the stacks rounded to TF32, the O rounded to TF32:
+    an O of TF32 grade whatever the route's share of products); each
+    class's numerical rank from fp64 singular values (``sigma_k > tol
+    sigma_1``).  Classes of one member (leafwise on both routes) are left
+    out."""
+    eps = float(torch.finfo(torch.float32).eps)
+    mats, step_q = tall_members(torch, leaves), tall_members(torch, outs)
+    from repro_torch import QRConfig
+    from repro_torch.optim import batched_orthogonalize
+
+    # A class of one member runs leafwise in plain ops on either route:
+    # there is no kernel to compare.
+    labels = [k for k in mats if len(mats[k]) > 1]
+    stacks = [torch.stack(mats[k][:DET_SLICES] if len(mats[k]) > DET_SLICES
+                          else mats[k]) for k in labels]
+    kern = batched_orthogonalize(stacks)
+    plain = batched_orthogonalize(stacks, config=QRConfig(use_kernel=False))
+    ctrl = [round_low(torch, c) for c in batched_orthogonalize(
+        [round_low(torch, a) for a in stacks])]
+    per = {}
+    for label, a, q, q0, qc in zip(labels, stacks, kern, plain, ctrl):
+        m, n = a.shape[-2:]
+        tol = 4 * max(m, n) ** 0.5 * eps
+        rd = r_diag(torch, a)
+
+        def on(k, x):
+            cols = (torch.arange(n, device=a.device)[None, None]
+                    < k[:, None, None])
+            return torch.where(cols, (x.double() - q0.double()).abs(), 0
+                               ).amax(dim=(-2, -1))
+
+        k, est = determined(torch, rd)
+        dq, dc = on(k, q), on(k, qc)
+        kt, est_t = determined(torch, rd, TIGHT_COND)
+        dq_t, dc_t = on(kt, q), on(kt, qc)
+        # sigma^2 from the fp64 Gram matrix (exact enough for ratios far
+        # above fp64's eps, and far cheaper than an SVD of the tall stack)
+        sv = torch.linalg.eigvalsh(a.double().mT @ a.double()).clamp(
+            min=0).sqrt().flip(-1)
+        rank = (sv > tol * sv[:, :1]).sum(-1)
+        same = all(torch.equal(q[i], step_q[label][i])
+                   for i in range(q.shape[0]))
+        per[label] = dict(
+            members_checked=int(q.shape[0]), members=len(mats[label]),
+            tol=tol, determined_columns=[int(k.min()), int(k.max())],
+            of_columns=int(n), cond_estimate_max=float(est.max()),
+            svd_rank=[int(rank.min()), int(rank.max())],
+            sigma_gap_at_rank=min(
+                float(sv[i, rank[i] - 1] / sv[i, rank[i]]) if rank[i] < n
+                else math.inf for i in range(sv.shape[0])),
+            dq_over_tol_cond_max=float((dq / (tol * est)).max()),
+            tf32_control_dq_over_tol_cond_max=float((dc / (tol * est)).max()),
+            dq_max=float(dq.max()),
+            tight_columns=[int(kt.min()), int(kt.max())],
+            tight_cond_estimate_max=float(est_t.max()),
+            tight_dq_over_tol_max=float((dq_t / tol).max()),
+            tf32_control_tight_dq_over_tol_max=float((dc_t / tol).max()),
+            equal_to_step=same)
+    return per
+
+
+def check_determined(per):
+    for label, c in per.items():
+        assert c["equal_to_step"], (label, c)
+        assert c["dq_over_tol_cond_max"] <= 1.0, (label, c)
+        assert c["tight_dq_over_tol_max"] <= 1.0, (label, c)
+        assert c["tf32_control_tight_dq_over_tol_max"] > 1.0, (
+            "the TF32 control passed", label, c)
+
+
+def determined_update(torch, start, first, ref, dirs, keys):
+    """``||P - P_ref|| / ||P_ref - P_start||`` over the Muon leaves
+    ``keys``, each member in the tall orientation on its determined
+    columns (``UPDATE_COND``, from the first update's momenta ``dirs``)."""
+    num = den = 0.0
+    for key in keys:
+        d = dirs[key]
+        flat = d.reshape((-1,) + tuple(d.shape[-2:]))
+        tall = flat.shape[-2] < flat.shape[-1]
+
+        def members(x):
+            x = x.reshape(flat.shape).double()
+            return x.mT if tall else x
+
+        a = flat.mT if tall else flat
+        k, _ = determined(torch, r_diag(torch, a), UPDATE_COND)
+        cols = (torch.arange(a.shape[-1], device=a.device)[None, None]
+                < k[:, None, None])
+        p, r, s = members(first[key]), members(ref[key]), members(start[key])
+        num += float(torch.where(cols, p - r, 0).square().sum())
+        den += float(torch.where(cols, r - s, 0).square().sum())
+    return math.sqrt(num / den)
+
+
+def profile_step(torch, fn):
+    """One ``torch.profiler`` session over ``fn`` recording device
+    activity only: device ops, the union of their intervals (busy ms) and
+    its share of the traced wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type.name == "CUDA")
+    if not spans:
+        return dict(wall_ms_profiled=wall_ms, note="no device events traced")
+    busy, (cur_s, cur_e) = 0.0, spans[0]
+    for s_, e_ in spans[1:]:
+        if s_ > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s_, e_
+        else:
+            cur_e = max(cur_e, e_)
+    busy += cur_e - cur_s
+    return dict(device_ops=len(spans), busy_ms=busy / 1e3,
+                wall_ms_profiled=wall_ms,
+                busy_share_of_wall=busy / 1e3 / wall_ms)
+
+
+def check_lm_launches(label, warm, timed):
+    """The warm-up step launched the wavefront kernels (and Q formation's)
+    and the panel kernels, and each timed step launched the same."""
+    for kind in ("GEQRT", "LARFB", "TSQRT", "SSRFB", "QLARFB", "QSSRFB",
+                 "MHT_PANEL", "WY_TRAILING"):
+        assert warm.get(kind, 0) > 0, (label, kind, warm)
+    assert timed == {k: LM_TRAIN_TIMED * v for k, v in warm.items()}, (
+        label, timed, warm)
+
+
+def plain_update(torch, record):
+    """The optimizer step :func:`recorded_step` recorded, with the
+    orthogonalization on the plain lowering: the new parameters."""
+    from repro_torch import QRConfig
+    from repro_torch.optim import muon_update
+
+    new, _ = muon_update(record["grads"], record["state"], record["params"],
+                         **dict(record["kw"],
+                                qr_config=QRConfig(use_kernel=False)))
+    torch.cuda.synchronize()
+    return new
+
+
+def lm_train_model(torch, macro_ops, label, cfg, cut, plain_check):
+    """Phase 19 on one model: the warm-up step recorded (every O the
+    optimizer returns gated, :func:`every_o_gates`; the kernels against
+    the plain lowering on the determined columns,
+    :func:`determined_check`), ``LM_TRAIN_TIMED`` timed steps, and one
+    instrumented step (fwd+bwd, optimizer, per-class ms) under a
+    ``torch.profiler`` trace (device ops, busy share); with
+    ``plain_check`` phase 14's checks against the plain lowering, on the
+    first update's recorded inputs (:func:`plain_update`): the Muon
+    leaves' update on their determined columns within
+    ``TRAIN_UPDATE_RTOL`` (the update rounded to TF32 failing it), and
+    step 3's loss at the plain update's parameters within
+    ``TRAIN_LOSS_RTOL``."""
+    from repro_torch.data import DataConfig
+    from repro_torch.models import param_count
+    from repro_torch.optim import (is_muon_param, muon_directions,
+                                   plan_batched_ortho)
+    from repro_torch.training import RunConfig, TrainConfig, Trainer
+
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=LM_TRAIN_SEQ,
+                      global_batch=LM_TRAIN_BATCH, seed=0)
+    run = RunConfig(total_steps=2 + LM_TRAIN_TIMED, warmup_steps=1,
+                    log_every=1, seed=0)
+    tcfg = TrainConfig(optimizer="muon-qr", batched_ortho=True)
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(cfg, tcfg, run, data, device="cuda", log_fn=log)
+    shapes = {k: tuple(p.shape)
+              for k, p in trainer.state.params.named_parameters()}
+    muon = [k for k, shape in shapes.items()
+            if is_muon_param(k, torch.empty(shape, device="meta"))]
+    plan = plan_batched_ortho([(shapes[k], torch.float32) for k in muon],
+                              backend="cuda")
+    out = dict(params=param_count(trainer.state.params), reduced=cut,
+               batch=LM_TRAIN_BATCH, seq=LM_TRAIN_SEQ, classes={
+                   f"{c.key.m}x{c.key.n}": [len(c.members), c.route,
+                                            c.method, c.dispatch_mode]
+                   for c in plan.classes}, dispatches=plan.dispatches)
+    log(f"lm training {label} model:", json.dumps(out))
+
+    torch.cuda.synchronize()
+    macro_ops.reset_launch_counts()
+    record = []
+    with recorded_ortho(record):
+        step_ms = train_steps(torch, trainer, 1)
+    warm_launches = launch_counts(macro_ops)
+    (leaves, outs), = record
+    t0 = time.perf_counter()
+    out["every_o"] = every_o_gates(torch, leaves, outs)
+    out["determined"] = determined_check(torch, leaves, outs)
+    out["gate_s"] = time.perf_counter() - t0
+    log(f"lm training {label} warm-up gates:", json.dumps(
+        {k: out[k] for k in ("every_o", "determined")}))
+    del record, leaves, outs
+    torch.cuda.empty_cache()
+
+    torch.cuda.synchronize()
+    macro_ops.reset_launch_counts()
+    if plain_check:
+        ms, rec2 = recorded_step(torch, trainer)
+        step_ms += ms
+        _, dirs = muon_directions(rec2["grads"], rec2["state"],
+                                  rec2["params"],
+                                  momentum=rec2["kw"]["momentum"])
+        first = params_of(trainer)
+        start, plain_first = rec2["params"], plain_update(torch, rec2)
+        del rec2
+        plain_tree = copy.deepcopy(trainer.state.params)
+        with torch.no_grad():
+            for k, p in plain_tree.named_parameters():
+                p.copy_(plain_first[k])
+        batch3 = trainer._place_batch(trainer.pipeline.peek(2))
+        step_ms += train_steps(torch, trainer, LM_TRAIN_TIMED - 1)
+    else:
+        step_ms += train_steps(torch, trainer, LM_TRAIN_TIMED)
+    launches = launch_counts(macro_ops)
+    inst = []
+    out["trace"] = profile_step(torch, lambda: inst.append(
+        instrumented_step(torch, trainer)))
+    out["instrumented"], = inst
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["losses"] = [m["loss"] for m in trainer.metrics_history]
+    timed = statistics.median(step_ms[1:])
+    out.update(step_ms=step_ms, step_ms_median=timed,
+               tokens_per_s=LM_TRAIN_BATCH * LM_TRAIN_SEQ / (timed / 1e3),
+               warmup_launches=warm_launches, launches=launches)
+    big = max(out["instrumented"]["per_class"].items(), key=lambda kv: kv[1])
+    out["largest_class_share"] = [big[0], big[1] / out["instrumented"]["step"]]
+    del trainer
+    torch.cuda.empty_cache()
+    assert all(math.isfinite(x) for x in out["losses"]), out["losses"]
+    check_every_o(out["every_o"])
+    check_determined(out["determined"])
+    check_lm_launches(label, warm_launches, launches)
+    if plain_check:
+        from repro_torch.training import train_step
+
+        with torch.no_grad():
+            plain_loss = float(train_step._loss_fn(plain_tree, batch3, cfg,
+                                                   tcfg)[0])
+        kernel_loss = out["losses"][2]
+        ctrl = {k: start[k] + round_low(torch, first[k] - start[k])
+                for k in muon}
+        out["plain"] = dict(
+            step3_loss=kernel_loss, plain_step3_loss=plain_loss,
+            rel_diff=abs(kernel_loss - plain_loss) / abs(plain_loss),
+            first_update_determined=determined_update(
+                torch, start, first, plain_first, dirs, muon),
+            tf32_control_first_update_determined=determined_update(
+                torch, start, ctrl, plain_first, dirs, muon),
+            first_update_whole=relative_change(torch, first, plain_first,
+                                               start, muon))
+        log(f"lm training {label} plain lowering:", json.dumps(out["plain"]))
+        assert out["plain"]["rel_diff"] <= TRAIN_LOSS_RTOL, out["plain"]
+        assert out["plain"]["first_update_determined"] <= \
+            TRAIN_UPDATE_RTOL, out["plain"]
+        assert out["plain"]["tf32_control_first_update_determined"] > \
+            TRAIN_UPDATE_RTOL, ("the TF32 control passed", out["plain"])
+    return out
+
+
+def run_examples(torch):
+    """The five example twins, ``python -m repro_torch.examples.<name>``
+    on the card with small step counts, all at once (each its own
+    process): every one exits 0, and ``train_lm``'s drill prints its
+    sentinels."""
+    import tempfile
+
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = {}
+        for name, argv in EXAMPLES:
+            extra = (["--checkpoint-dir", os.path.join(tmp, "ckpt")]
+                     if name == "train_lm" else [])
+            procs[name] = (time.perf_counter(), subprocess.Popen(
+                [sys.executable, "-m", f"repro_torch.examples.{name}",
+                 *argv, *extra], cwd=ROOT, env=env, text=True,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE))
+        res = {}
+        for name, (t0, p) in procs.items():
+            so, se = p.communicate(timeout=600)
+            res[name] = dict(rc=p.returncode,
+                             done_by_s=time.perf_counter() - t0,
+                             tail=so.strip().splitlines()[-3:])
+            if p.returncode != 0:
+                log(f"example {name} failed:", se[-3000:])
+            if name == "train_lm":
+                res[name]["sentinels"] = [s in so for s in FT_SENTINELS]
+    log("lm training examples:", json.dumps(res))
+    for name, r in res.items():
+        assert r["rc"] == 0, (name, r)
+    assert all(res["train_lm"]["sentinels"]), res["train_lm"]
+    return res
+
+
+def phase_lm_training(torch, macro_ops):
+    """Phase 19: QR-Muon training (``Trainer(optimizer="muon-qr",
+    batched_ortho=True)``, ``SyntheticLM`` seed 0, batch 8 x 256) of
+    qwen2-moe-a2.7b and xlstm-1.3b at their published widths, cut in
+    depth (:func:`lm_train_model`), then the five example twins
+    (:func:`run_examples`).  Returns the results and the launches of the
+    training runs (each model's warm-up and timed steps, summed)."""
+    import gc
+
+    summary, launches = {"models": {}}, {}
+    for label, cfg, cut, plain_check in lm_train_configs():
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        res = lm_train_model(torch, macro_ops, label, cfg, cut, plain_check)
+        res["seconds"] = time.perf_counter() - t0
+        summary["models"][label] = res
+        log(f"lm training {label}:", json.dumps(res))
+        for k in set(res["warmup_launches"]) | set(res["launches"]):
+            launches[k] = (launches.get(k, 0) + res["warmup_launches"].get(k, 0)
+                           + res["launches"].get(k, 0))
+    gc.collect()
+    torch.cuda.empty_cache()
+    summary["examples"] = run_examples(torch)
+    return summary, launches
+
+
 def host_ms(fn, reps, warmup=1):
     for _ in range(warmup):
         fn()
@@ -4292,6 +4814,8 @@ def main() -> int:
     lm_launches = launch_counts(macro_ops)
     assert not lm_launches, ("the LM serving path runs none of the QR "
                              "kernels", lm_launches)
+    lm_train, lm_train_launches = phase("lm training", phase_lm_training,
+                                        torch, macro_ops)
 
     def mesh_of(*kinds):
         """Phase 17's launches of ``kinds`` (summed): (a)'s timed step on
@@ -4333,6 +4857,7 @@ def main() -> int:
             distributed_launches=dist_launches(kind),
             mesh_launches=mesh_of(kind),
             lm_serving_launches=lm_launches.get(kind, 0),
+            lm_training_launches=lm_train_launches.get(kind, 0),
             **({"fp64_ms": r["fp64_ms"]} if "fp64_ms" in r else {}),
             **({"computes": Q_FORMATION} if kind.startswith("Q") else {})))
     for name, path_launches in (("MEGAKERNEL", mega_launches),
@@ -4354,6 +4879,7 @@ def main() -> int:
             distributed_launches=dist_launches(name),
             mesh_launches=mesh_of(name),
             lm_serving_launches=lm_launches.get(name, 0),
+            lm_training_launches=lm_train_launches.get(name, 0),
             **({"computes": Q_FORMATION} if "_Q" in name else {})))
     path_launches = {
         "MHT_PANEL": {k: p["launches"].get("MHT_PANEL", 0)
@@ -4379,6 +4905,8 @@ def main() -> int:
             distributed_launches=dist_launches(kind, kind + "_Q"),
             mesh_launches=mesh_of(kind, kind + "_Q"),
             lm_serving_launches=lm_launches.get(kind, 0),
+            lm_training_launches=(lm_train_launches.get(kind, 0)
+                                  + lm_train_launches.get(kind + "_Q", 0)),
             **({"launches_by_path": path_launches[kind],
                 "summed_device_ms_by_path": summed[kind]}
                if kind in path_launches else {})))
@@ -4488,6 +5016,18 @@ def main() -> int:
                         m["peak_gb"], m["params"], m["consistency_rel"],
                         m["consistency_tol"], m["bf16_control_rel"]]
                     for k, m in lm["models"].items()}))
+    log("card:", card, "| lm training: step ms (median) / tokens/s / "
+        "fwd+bwd ms / optimizer ms / largest class and its share of a step "
+        "/ peak GB / traced step busy share / losses:",
+        json.dumps({k: [m["step_ms_median"], m["tokens_per_s"],
+                        m["instrumented"]["train.fwd_bwd"],
+                        m["instrumented"]["train.optimizer"],
+                        m["largest_class_share"], m["peak_gb"],
+                        m["trace"].get("busy_share_of_wall"), m["losses"]]
+                    for k, m in lm_train["models"].items()}),
+        "| examples done by s:", json.dumps({
+            k: round(v["done_by_s"], 2)
+            for k, v in lm_train["examples"].items()}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -20,15 +20,28 @@ the full masked S^2 blocks unless ``attn_causal_skip``; training FLOPs
 = 4 x forward + the QR-Muon optimizer's QR cost; MODEL_FLOPS = 6 N_active
 D.  Parameter counts come from the port's ``init_params`` on the
 ``meta`` device (no allocation); MoE's active count takes top_k of the
-routed experts.  The per-cell table reads the dry-run artifacts of
-A16's launchers, which the port does not have: :func:`roofline_row`,
-:func:`build_table` and the CLI raise until then.
+routed experts.
+
+The per-cell table (:func:`roofline_row`, :func:`build_table`,
+``python -m repro_torch.launch.roofline``) reads the artifacts of
+:mod:`repro_torch.launch.dryrun` as the reference's reads its own:
+
+    compute_s    = FLOPs / (chips * PEAK_FLOPS["bfloat16"])
+    memory_s     = HBM_bytes / (chips * HBM_BW)
+    collective_s = collective bytes per rank / LINK_BW
+
+FLOPs and HBM bytes are the analytic model above; the collective bytes
+are the artifact's (counted from the placements).
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
+import glob
+import json
 import math
+import os
 from typing import Optional
 
 import torch
@@ -39,10 +52,19 @@ from repro_torch.configs.base import ModelConfig, ShapeConfig
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12, "bfloat16": 989e12}
 #: Data-sheet HBM3 bandwidth of one H100 SXM, bytes/s.
 HBM_BW = 3.35e12
+#: Data-sheet NVLink 4 bandwidth of one H100 SXM, bytes/s (18 links, 900
+#: GB/s in all), in place of the reference's ICI link rate.  NVLink joins
+#: the 8 GPUs of one node; a 16-wide model axis spans two such nodes, and
+#: its collectives cross the network between them (400 Gb/s, 50 GB/s, a
+#: GPU on a DGX H100).  The roofline charges every collective byte at
+#: this rate all the same, so on such meshes ``collective_s`` is a lower
+#: bound.
+LINK_BW = 900e9
 
-__all__ = ["PEAK_FLOPS", "HBM_BW", "CellCost", "analytic_cell_cost",
-           "roofline_row", "build_table", "main", "modeled_seconds",
-           "qr_flops", "n_active_traffic"]
+__all__ = ["PEAK_FLOPS", "HBM_BW", "LINK_BW", "CellCost",
+           "analytic_cell_cost", "roofline_row", "build_table",
+           "format_markdown", "main", "modeled_seconds", "qr_flops",
+           "n_active_traffic"]
 
 
 # ----------------------------------------------------- generic roofline
@@ -270,24 +292,100 @@ def _state_bytes(cfg: ModelConfig, b: int) -> float:
 
 # ------------------------------------------------------------- table
 
-def _a16(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} reads the dry-run artifacts of the port's launchers, which "
-        f"are not ported yet (ROADMAP A16)")
-
-
 def roofline_row(artifact: dict, *, chips: Optional[int] = None) -> dict:
-    """One cell's roofline row from its dry-run artifact (ROADMAP A16)."""
-    raise _a16("roofline_row")
+    """One cell's roofline row from its dry-run artifact."""
+    from repro_torch.configs import SHAPES, get_config
+
+    arch, shape_name = artifact["arch"], artifact["shape"]
+    cfg = get_config(arch)
+    if artifact.get("variant") == "optimized":
+        cfg = cfg.scaled(attn_causal_skip=True)
+    shape = SHAPES[shape_name]
+    kind = artifact.get("kind", shape.kind)
+    chips = chips or artifact.get("devices", 256)
+    cost = analytic_cell_cost(cfg, shape, kind)
+
+    coll = artifact.get("collectives", {})
+    coll_per_shard = coll.get("total_weighted_bytes") or coll.get(
+        "total_bytes", 0)
+    peak = PEAK_FLOPS["bfloat16"]
+    compute_s = cost.flops / (chips * peak)
+    memory_s = cost.hbm_bytes / (chips * HBM_BW)
+    collective_s = coll_per_shard / LINK_BW
+    terms = {"compute_s": compute_s, "memory_s": memory_s,
+             "collective_s": collective_s}
+    dominant = max(terms, key=terms.get)
+    bound_s = max(terms.values())
+    # The useful-FLOP utilization the dominant term allows (perfect
+    # overlap): what MFU this cell could reach.
+    mfu_bound = (cost.model_flops / (chips * peak * bound_s)
+                 if bound_s > 0 else 0.0)
+    return dict(
+        arch=arch, shape=shape_name, mesh=artifact["mesh"], kind=kind,
+        status=artifact["status"], chips=chips,
+        flops=cost.flops, hbm_bytes=cost.hbm_bytes,
+        collective_bytes_per_shard=coll_per_shard,
+        **terms,
+        dominant=dominant.replace("_s", ""),
+        roofline_fraction=mfu_bound,
+        compute_share=compute_s / bound_s if bound_s > 0 else 0.0,
+        model_flops=cost.model_flops,
+        model_to_hlo=cost.model_flops / cost.flops if cost.flops else 0.0,
+        params_total=cost.params_total, params_active=cost.params_active,
+        hlo_flops_reported=artifact.get("cost_analysis", {}).get("flops"),
+        temp_bytes=artifact.get("memory_analysis", {}).get(
+            "temp_size_in_bytes"),
+    )
 
 
 def build_table(artifact_dir: str, mesh: str = "pod16x16") -> list:
-    """Rows of every dry-run artifact in ``artifact_dir`` (ROADMAP A16)."""
-    raise _a16("build_table")
+    """Rows of every dry-run artifact of ``mesh`` in ``artifact_dir``."""
+    rows = []
+    for path in sorted(glob.glob(os.path.join(artifact_dir,
+                                              f"*__{mesh}.json"))):
+        with open(path) as f:
+            art = json.load(f)
+        if art["status"] == "ok":
+            rows.append(roofline_row(art))
+        else:
+            rows.append(dict(arch=art["arch"], shape=art["shape"],
+                             mesh=art["mesh"], status=art["status"],
+                             reason=art.get("reason", art.get("error", ""))))
+    return rows
 
 
-def main() -> None:
-    raise _a16("python -m repro_torch.launch.roofline")
+def format_markdown(rows: list) -> str:
+    hdr = ("| arch | shape | status | compute_s | memory_s | collective_s | "
+           "dominant | roofline_frac | MODEL/HLO |")
+    lines = [hdr, "|" + "---|" * 9]
+    for r in rows:
+        if r.get("status") != "ok":
+            lines.append(f"| {r['arch']} | {r['shape']} | {r['status']}"
+                         f" | - | - | - | - | - | - |")
+            continue
+        lines.append(
+            f"| {r['arch']} | {r['shape']} | ok | {r['compute_s']:.3e} | "
+            f"{r['memory_s']:.3e} | {r['collective_s']:.3e} | "
+            f"{r['dominant']} | {r['roofline_fraction']:.3f} | "
+            f"{r['model_to_hlo']:.3f} |")
+    return "\n".join(lines)
+
+
+def main(argv=None) -> list:
+    from repro_torch.launch.dryrun import DEFAULT_OUT
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--artifacts", default=DEFAULT_OUT)
+    ap.add_argument("--mesh", default="pod16x16")
+    ap.add_argument("--out", default=os.path.join(DEFAULT_OUT,
+                                                  "roofline.json"))
+    args = ap.parse_args(argv)
+    rows = build_table(args.artifacts, args.mesh)
+    os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+    with open(args.out, "w") as f:
+        json.dump(rows, f, indent=1)
+    print(format_markdown(rows))
+    return rows
 
 
 if __name__ == "__main__":

@@ -20,7 +20,7 @@ Tensor = torch.Tensor
 __all__ = [
     "dense_init", "dense", "norm_init", "apply_norm", "ffn_init", "ffn",
     "embedding_init", "embed", "rope", "softcap", "model_dtype", "silu",
-    "gelu_tanh", "chunk_size",
+    "gelu_tanh", "chunk_size", "scan_chunks",
 ]
 
 
@@ -41,6 +41,29 @@ def chunk_size(size: int, total: int) -> int:
     while total % size:
         size //= 2
     return size
+
+
+def scan_chunks(body, carry, xs, chunk: int):
+    """The reference's chunked scan (``lax.scan`` over ``jax.checkpoint``
+    chunks): ``body(carry, *xs_chunk) -> (carry, y)`` over the chunks of
+    ``xs`` along axis 1 (:func:`chunk_size`), the ``y``s concatenated
+    along axis 1.  When autograd records, each chunk runs under
+    ``torch.utils.checkpoint`` and is recomputed in the backward pass, so
+    the saved activations are one chunk deep plus a carry a chunk; the
+    values are the same bits either way."""
+    from torch.utils.checkpoint import checkpoint
+
+    chunk = chunk_size(chunk, xs[0].shape[1])
+    remat = torch.is_grad_enabled()
+    ys = []
+    for c0 in range(0, xs[0].shape[1], chunk):
+        part = tuple(x[:, c0:c0 + chunk] for x in xs)
+        if remat:
+            carry, y = checkpoint(body, carry, *part, use_reentrant=False)
+        else:
+            carry, y = body(carry, *part)
+        ys.append(y)
+    return carry, torch.cat(ys, dim=1)
 
 
 def silu(x: Tensor) -> Tensor:

@@ -12,9 +12,10 @@ torch ops: log2(chunk) doubling steps, each a few elementwise ops over
 the whole chunk, so a 256-token chunk takes 8 steps of full-width work
 where a sequential loop would take 256 launch-bound ones.  The
 (B, chunk, d_inner, d_state) discretisation is built per chunk, never
-for the whole sequence.  The reference recomputes each chunk in the
-backward pass (``jax.checkpoint``); the port keeps autograd's saved
-tensors (ROADMAP C).
+for the whole sequence.  As the reference's ``jax.checkpoint`` chunks
+are, each chunk is recomputed in the backward pass when autograd records
+(:func:`repro_torch.models.layers.scan_chunks`), so training keeps one
+chunk's discretisation alive, not the sequence's.
 
 Decode is one state update a token.
 """
@@ -27,7 +28,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import chunk_size, dense, dense_init, silu
+from repro_torch.models.layers import dense, dense_init, scan_chunks, silu
 
 Tensor = torch.Tensor
 
@@ -108,21 +109,17 @@ def _scan_chunked(dt, a, xf, b_mat, c_mat, h0, chunk: int):
 
     dt, xf: (B, S, di); a: (di, ds); b_mat, c_mat: (B, S, ds);
     h0: (B, di, ds).  Returns y (B, S, di) and the last state."""
-    s = dt.shape[1]
-    chunk = chunk_size(chunk, s)
-    h, ys = h0, []
-    for c0 in range(0, s, chunk):
-        dt_i, xf_i = dt[:, c0:c0 + chunk], xf[:, c0:c0 + chunk]
-        bm_i, cm_i = b_mat[:, c0:c0 + chunk], c_mat[:, c0:c0 + chunk]
+    def body(h, dt_i, xf_i, bm_i, cm_i):
         da_i = torch.exp(dt_i[..., None] * a)           # (B, chunk, di, ds)
         dbx_i = (dt_i * xf_i)[..., None] * bm_i[:, :, None, :]
         # fold the carry into the first element
         dbx_i = torch.cat([dbx_i[:, :1] + da_i[:, :1] * h[:, None],
                            dbx_i[:, 1:]], dim=1)
         h_all = _scan_pairs(da_i, dbx_i)
-        ys.append(torch.einsum("bcds,bcs->bcd", h_all, cm_i))
-        h = h_all[:, -1]
-    return torch.cat(ys, dim=1), h
+        return h_all[:, -1], torch.einsum("bcds,bcs->bcd", h_all, cm_i)
+
+    h, y = scan_chunks(body, h0, (dt, xf, b_mat, c_mat), chunk)
+    return y, h
 
 
 def mamba_forward(p: dict, x: Tensor, cfg, *, return_state: bool = False):

@@ -11,10 +11,14 @@ equations and stabilized exponential gating (the m-state trick):
     block-diagonal recurrent matrices per head, then a gated FFN
     (factor 4/3).
 
-Both recurrences run as a sequential loop over the tokens (the
-reference's ``lax.scan`` over checkpointed chunks computes the same
-steps; the chunks only bound its backward pass's memory).  The
-stabilizer ``m`` starts at -1e30 and stays fp32.
+Both recurrences run as a sequential loop over the tokens, in the
+reference's chunks (``min(cfg.seq_chunk, S)``, halved until it divides
+S; :func:`repro_torch.models.layers.scan_chunks`): when autograd records,
+each chunk is recomputed in the backward pass, as the reference's
+``jax.checkpoint`` chunks are, so training keeps one chunk's per-token
+states (two (B, H, dh, dh) fp32 memories a token for the mLSTM) and a
+state a chunk, not every token's.  Prefill and decode run the same loop
+without it.  The stabilizer ``m`` starts at -1e30 and stays fp32.
 
 The sLSTM gate layout is the reference's, kept on purpose
 (``_slstm_step``): the (B, H, 4 dh) recurrent product is reshaped to
@@ -35,7 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import (apply_norm, dense, dense_init, ffn,
-                                       ffn_init, silu)
+                                       ffn_init, scan_chunks, silu)
 from repro_torch.models.ssm import causal_conv
 
 Tensor = torch.Tensor
@@ -119,6 +123,16 @@ def _mlstm_step(state, q, k, v, i_pre, f_pre):
     return (c, n, m_new), h_num / denom[..., None]
 
 
+def _mlstm_chunk(state, q, k, v, i_pre, f_pre):
+    """The steps of one chunk: ``(state, h (B, chunk, H, dh))``."""
+    hs = []
+    for t in range(q.shape[1]):
+        state, ht = _mlstm_step(state, q[:, t], k[:, t], v[:, t],
+                                i_pre[:, t], f_pre[:, t])
+        hs.append(ht)
+    return state, torch.stack(hs, dim=1)
+
+
 def mlstm_init_state(cfg, batch: int, device=None) -> dict:
     di, h, dh = _mlstm_dims(cfg)
     return {
@@ -146,12 +160,9 @@ def mlstm_forward(p: dict, x: Tensor, cfg, *, return_state: bool = False):
     state = (torch.zeros((b, h, dh, dh), device=dev),
              torch.zeros((b, h, dh), device=dev),
              torch.full((b, h), _M0, device=dev))
-    hs = []
-    for t in range(s):
-        state, ht = _mlstm_step(state, q[:, t], k[:, t], v[:, t],
-                                i_pre[:, t], f_pre[:, t])
-        hs.append(ht)
-    y = _mlstm_out(p, torch.stack(hs, dim=1).reshape(b, s, di), z, x)
+    state, hs = scan_chunks(_mlstm_chunk, state, (q, k, v, i_pre, f_pre),
+                            cfg.seq_chunk)
+    y = _mlstm_out(p, hs.reshape(b, s, di), z, x)
     if return_state:
         kk = cfg.conv_kernel
         return y, {"c": state[0], "n": state[1], "m": state[2],
@@ -234,6 +245,18 @@ def _slstm_step(state, wx_if, wx_zo, r, h_heads: int, dh: int):
     return (c, n, m_new, h), h
 
 
+def _slstm_chunk(r, h_heads: int, dh: int):
+    """The steps of one chunk as a :func:`scan_chunks` body."""
+    def body(state, wx_if, wx_zo):
+        hs = []
+        for t in range(wx_if.shape[1]):
+            state, ht = _slstm_step(state, wx_if[:, t], wx_zo[:, t], r,
+                                    h_heads, dh)
+            hs.append(ht)
+        return state, torch.stack(hs, dim=1)
+    return body
+
+
 def slstm_init_state(cfg, batch: int, device=None) -> dict:
     d = cfg.d_model
     return {
@@ -262,12 +285,9 @@ def slstm_forward(p: dict, x: Tensor, cfg, *, return_state: bool = False):
     state = (torch.zeros((b, d), device=dev), torch.zeros((b, d), device=dev),
              torch.full((b, d), _M0, device=dev),
              torch.zeros((b, d), device=dev))
-    hs = []
-    for t in range(s):
-        state, ht = _slstm_step(state, wx_if[:, t], wx_zo[:, t], p["r"],
-                                h_heads, dh)
-        hs.append(ht)
-    y = _slstm_out(p, torch.stack(hs, dim=1), x)
+    state, hs = scan_chunks(_slstm_chunk(p["r"], h_heads, dh), state,
+                            (wx_if, wx_zo), cfg.seq_chunk)
+    y = _slstm_out(p, hs, x)
     if return_state:
         kk = cfg.conv_kernel
         return y, {"c": state[0], "n": state[1], "m": state[2],

@@ -111,12 +111,3 @@ def test_state_bytes_and_traffic_equal_reference():
         assert roofline.n_active_traffic(cfg, 10) == \
             jroof.n_active_traffic(jcfg, 10)
 
-
-@pytest.mark.parametrize("fn,args", [
-    ("roofline_row", ({"arch": "smollm-135m", "shape": "train_4k"},)),
-    ("build_table", ("artifacts",)),
-    ("main", ()),
-])
-def test_table_raises_naming_a16(fn, args):
-    with pytest.raises(NotImplementedError, match="A16"):
-        getattr(roofline, fn)(*args)

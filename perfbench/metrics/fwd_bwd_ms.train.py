@@ -1,0 +1,8 @@
+"""Mean ms a step of the program's ``train.fwd_bwd`` span (it ends in a
+synchronize) over the traced run's window, after its profiled steps."""
+
+from perfbench.metrics_common import span_mean_ms
+
+
+def read(ctx):
+    return span_mean_ms(ctx, "train.fwd_bwd")

@@ -2641,8 +2641,11 @@ def train_steps(torch, trainer, n):
 
 
 def instrumented_step(torch, trainer):
-    """One more step with the trace on: fwd+bwd, optimizer and each
-    class's orthogonalization ms (spans that synchronize the card)."""
+    """One more step with the trace on: fwd+bwd and optimizer ms (spans
+    that synchronize the card) and each class's orthogonalization ms,
+    host time (its ``optim.ortho_class.<route>`` span does not
+    synchronize: the host's enqueue, or its wait where a launch
+    blocks)."""
     from repro_torch.observability import instrument, trace
 
     trace.clear()
@@ -2654,7 +2657,8 @@ def instrumented_step(torch, trainer):
     ms = {s.name: s.duration_us / 1e3 for s in spans
           if s.name in ("train.fwd_bwd", "train.optimizer")}
     ms["per_class"] = {s.labels["bucket"]: s.duration_us / 1e3
-                       for s in spans if s.name == "optim.ortho_class"}
+                       for s in spans
+                       if s.name.startswith("optim.ortho_class.")}
     ms["step"] = total
     trace.clear()
     return ms
@@ -3807,8 +3811,8 @@ def rank_mesh(torch, dist, rank, world):
     inputs recorded), step 2 (timed, its launches, the Muon leaves after
     it against (a)'s mesh-free run), the optimizer's checks
     (:func:`mesh_update_checks`, on the warm-up's inputs at step 2's
-    rate), step 3 traced (each class's ms, the step's parts and their
-    redistributions) and then saved, the whole state's sha256, step 4
+    rate), step 3 traced (each class's host ms, the step's parts and
+    their redistributions) and then saved, the whole state's sha256, step 4
     without a break (timed); then C10's divergent copies, and the
     fingerprint's cost at 4096^2."""
     from torch.distributed.device_mesh import init_device_mesh
@@ -3860,7 +3864,7 @@ def rank_mesh(torch, dist, rank, world):
     class_ms, parts = {}, {}
     for sp in spans:
         ms = sp.duration_us / 1e3
-        if sp.name == "optim.ortho_class":
+        if sp.name.startswith("optim.ortho_class."):
             b = sp.labels["bucket"]
             class_ms[b] = class_ms.get(b, 0.0) + ms
         elif sp.name in ("train.fwd_bwd", "train.optimizer"):

@@ -908,10 +908,11 @@ def _emit_factor_metrics(tiles: torch.Tensor, p: int, q: int, nb: int,
                          mode: str, use_kernel: bool, batch: int = 1,
                          filled: Optional[int] = None) -> None:
     """Record one factor call in the ``engine.*`` metric series: calls,
-    matrices, launches, tasks and the modeled and roofline tile traffic
-    of the lowering that runs, and the task table's bytes on the
-    megakernel path.  Launches of the slice-by-slice lowering count the
-    ``filled`` slices it factors.  The reference labels calls counted while tracing a
+    matrices, launches, tasks and the roofline tile traffic of the
+    lowering that runs, and the task table's bytes on the megakernel
+    path (not the reference's ``engine.modeled_dma_bytes``: a TPU tile
+    model, not the card's traffic).  Launches of the slice-by-slice
+    lowering count the ``filled`` slices it factors.  The reference labels calls counted while tracing a
     program ``phase="trace"``; the port runs no traced program, so every
     call counts as ``phase="execute"``."""
     phase = "execute"
@@ -919,18 +920,15 @@ def _emit_factor_metrics(tiles: torch.Tensor, p: int, q: int, nb: int,
     ndisp = 1 if (use_kernel and mode == "megakernel") else (
         sum(len(b) for b in wavefront_task_arrays(p, q))
         * (batch if filled is None else filled) if use_kernel else 0)
-    dma = modeled_dma_bytes(p, q, nb, tiles.element_size())
-    dma_mode = dma[mode] if use_kernel and mode in dma else dma["wavefront"]
+    roofline = modeled_dma_bytes(p, q, nb, tiles.element_size())["roofline"]
     _metrics.counter("engine.factor_calls", mode=mode, kernel=kernel,
                      phase=phase).inc()
     _metrics.counter("engine.matrices", mode=mode, phase=phase).inc(batch)
     _metrics.counter("engine.dispatches", mode=mode, phase=phase).inc(ndisp)
     _metrics.counter("engine.tasks", mode=mode, phase=phase).inc(
         task_count(p, q) * batch)
-    _metrics.counter("engine.modeled_dma_bytes", mode=mode,
-                     phase=phase).inc(dma_mode * batch)
     _metrics.counter("engine.roofline_dma_bytes", mode=mode,
-                     phase=phase).inc(dma["roofline"] * batch)
+                     phase=phase).inc(roofline * batch)
     if use_kernel and mode == "megakernel":
         _metrics.gauge("engine.table_bytes", grid=f"{p}x{q}").set(
             megakernel_task_table(p, q)[0].nbytes)
@@ -962,8 +960,8 @@ def factor_tiles(tiles: torch.Tensor, *, p: int, q: int, nb: int,
     mode = _check_dispatch(tiles.dtype, p, q, nb, use_kernel, dispatch_mode)
     _emit_factor_metrics(tiles, p, q, nb, mode, bool(use_kernel))
     with _trace.span("engine.factor_tiles", mode=mode, grid=f"{p}x{q}",
-                     nb=nb, kernel=bool(use_kernel)) as sp:
-        return sp.sync(_factor_single(tiles, p, q, nb, use_kernel, mode))
+                     nb=nb, kernel=bool(use_kernel)):
+        return _factor_single(tiles, p, q, nb, use_kernel, mode)
 
 
 def factor_tiles_batched(tiles: torch.Tensor, *, p: int, q: int, nb: int,
@@ -994,9 +992,8 @@ def factor_tiles_batched(tiles: torch.Tensor, *, p: int, q: int, nb: int,
                          filled)
     with _trace.span("engine.factor_tiles_batched", mode=mode,
                      grid=f"{p}x{q}", nb=nb, batch=batch,
-                     kernel=bool(use_kernel)) as sp:
-        return sp.sync(_factor_batched(tiles, p, q, nb, use_kernel, mode,
-                                       filled))
+                     kernel=bool(use_kernel)):
+        return _factor_batched(tiles, p, q, nb, use_kernel, mode, filled)
 
 
 def _factor_batched(tiles: torch.Tensor, p: int, q: int, nb: int,

@@ -15,6 +15,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.observability import trace as _trace
+
 Tensor = torch.Tensor
 
 __all__ = [
@@ -50,18 +52,25 @@ def scan_chunks(body, carry, xs, chunk: int):
     along axis 1.  When autograd records, each chunk runs under
     ``torch.utils.checkpoint`` and is recomputed in the backward pass, so
     the saved activations are one chunk deep plus a carry a chunk; the
-    values are the same bits either way."""
+    values are the same bits either way.  While tracing, each run of a
+    chunk's body is a ``models.scan_chunk`` span, the backward's
+    recompute too (on the autograd engine's thread)."""
     from torch.utils.checkpoint import checkpoint
 
     chunk = chunk_size(chunk, xs[0].shape[1])
+
+    def run(carry, *part):
+        with _trace.span("models.scan_chunk", chunk=chunk):
+            return body(carry, *part)
+
     remat = torch.is_grad_enabled()
     ys = []
     for c0 in range(0, xs[0].shape[1], chunk):
         part = tuple(x[:, c0:c0 + chunk] for x in xs)
         if remat:
-            carry, y = checkpoint(body, carry, *part, use_reentrant=False)
+            carry, y = checkpoint(run, carry, *part, use_reentrant=False)
         else:
-            carry, y = body(carry, *part)
+            carry, y = run(carry, *part)
         ys.append(y)
     return carry, torch.cat(ys, dim=1)
 

@@ -21,6 +21,15 @@ Design points:
     that holds a tensor of ``x`` (tensors, or tuples / lists / dicts of
     them), so the span measures device work, not the enqueue.  CPU
     tensors are ready when they exist.
+  * **No synchronize on the measured paths.**  On the trainer, the
+    optimizer, the QR engine and ``ServeEngine``, a span never calls
+    ``sync``, except the two step spans ``train.fwd_bwd`` and
+    ``train.optimizer``: so a traced step launches and waits as an
+    untraced one does, and an inner span times the host's work (its
+    enqueue), not the device's.
+  * **One clock.**  ``t_start`` / ``t_end`` are ``time.perf_counter()``
+    seconds; ``time.time_ns() - time.perf_counter_ns()`` maps them onto
+    a ``torch.profiler`` trace's clock.
   * **Correct nesting.**  A thread-local stack gives every span a
     parent; depths and parent ids survive into the export, and
     :func:`tree` renders the hierarchy as text.

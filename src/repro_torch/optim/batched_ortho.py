@@ -272,7 +272,7 @@ def batched_orthogonalize(leaves: Sequence[torch.Tensor], *,
                              route=cls.route).inc(len(cls.members))
             label = f"{cls.key.m}x{cls.key.n}"
             if cls.route == "leafwise":
-                with _trace.span("optim.ortho_class", bucket=label,
+                with _trace.span("optim.ortho_class.leafwise", bucket=label,
                                  route="leafwise", batch=len(cls.members)):
                     for j in cls.members:
                         # The member in its own orientation, and its Q
@@ -284,29 +284,31 @@ def batched_orthogonalize(leaves: Sequence[torch.Tensor], *,
             compute = as_torch_dtype(cls.key.dtype)
             solver = qr_plan((len(cls.members), cls.key.m, cls.key.n),
                              compute, base, backend=backend)
-            with _trace.span("optim.ortho_class", bucket=label,
+            with _trace.span("optim.ortho_class.batched", bucket=label,
                              route="batched", batch=len(cls.members),
-                             method=solver.config.method) as sp:
-                stacked = torch.zeros(
-                    (len(cls.members), cls.key.m, cls.key.n), dtype=compute,
-                    device=dev)
-                for slot, j in enumerate(cls.members):
-                    m, n, _ = geom[j]
-                    stacked[slot, :m, :n] = members[j]
+                             method=solver.config.method):
+                with _trace.span("optim.ortho_stack"):
+                    stacked = torch.zeros(
+                        (len(cls.members), cls.key.m, cls.key.n),
+                        dtype=compute, device=dev)
+                    for slot, j in enumerate(cls.members):
+                        m, n, _ = geom[j]
+                        stacked[slot, :m, :n] = members[j]
                 q_stack = solver.orthogonalize(stacked)
                 q_stack, bad = _post_dispatch(
                     q_stack, label, verify=base.verify,
                     kernel=bool(solver.config.use_kernel))
-                for slot, j in enumerate(cls.members):
-                    m, n, transpose = geom[j]
-                    if slot in bad:
-                        # The flagged slice alone re-solves leafwise; its
-                        # class-mates ship as they are.
-                        q = fallback(members[j].to(compute)).to(dtype_of(j))
-                    else:
-                        q = q_stack[slot, :m, :n].to(dtype_of(j))
-                    out[j] = q.mT if transpose else q
-                sp.sync(q_stack)
+                with _trace.span("optim.ortho_unstack"):
+                    for slot, j in enumerate(cls.members):
+                        m, n, transpose = geom[j]
+                        if slot in bad:
+                            # The flagged slice alone re-solves leafwise;
+                            # its class-mates ship as they are.
+                            q = fallback(members[j].to(compute)).to(
+                                dtype_of(j))
+                        else:
+                            q = q_stack[slot, :m, :n].to(dtype_of(j))
+                        out[j] = q.mT if transpose else q
 
     # Scatter members back into leaf-shaped stacks.
     results: List[torch.Tensor] = []

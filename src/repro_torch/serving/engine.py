@@ -27,6 +27,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.plan import resolve_device
 from repro_torch.models.transformer import (as_tree, forward_decode,
                                             forward_prefill, named_leaves)
+from repro_torch.observability import trace as _trace
 
 Tensor = torch.Tensor
 
@@ -91,12 +92,15 @@ class ServeEngine:
             return logits, self._pad_caches(caches)
 
     def decode(self, tok: Tensor, caches, pos: int):
-        with torch.inference_mode():
+        """One decode step (:func:`serve_step`); while tracing a
+        ``serve.decode`` span of the host's enqueue, no synchronize."""
+        with _trace.span("serve.decode"), torch.inference_mode():
             return serve_step(self.params, tok, self.cfg, caches, pos)
 
     def sample(self, logits: Tensor) -> Tensor:
-        """(B, 1) int32 ids from (B, 1, V) logits."""
-        with torch.inference_mode():
+        """(B, 1) int32 ids from (B, 1, V) logits (a ``serve.sample``
+        span while tracing)."""
+        with _trace.span("serve.sample"), torch.inference_mode():
             return self._sample(logits[:, 0])[:, None].to(torch.int32)
 
     def generate(self, prompt_tokens, steps: int,

@@ -326,8 +326,8 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig, *,
                          batched_ortho=train_cfg.batched_ortho) as sp:
             grads, gnorm = _clip_by_global_norm(grads, train_cfg.grad_clip)
             if train_cfg.grad_compression:
-                with _trace.span("train.grad_compression") as codec:
-                    grads, ef = codec.sync(_compress(grads, ef))
+                with _trace.span("train.grad_compression"):
+                    grads, ef = _compress(grads, ef)
             new, opt = sp.sync(_update(state, grads, lr))
         with torch.no_grad():
             for k, p in state.params.named_parameters():

@@ -33,6 +33,7 @@ from repro_torch.data import DataConfig, make_pipeline
 from repro_torch.distributed import StepWatchdog
 from repro_torch.distributed import sharding
 from repro_torch.models import ParamTree, init_params, params_from_numpy
+from repro_torch.observability import trace as _trace
 from repro_torch.optim import warmup_cosine
 from repro_torch.training.train_step import (TrainConfig, TrainState,
                                              init_train_state,
@@ -177,7 +178,8 @@ class Trainer:
         it = iter(self.pipeline)
         limit = rc.total_steps if stop_at is None else min(stop_at, rc.total_steps)
         while self.step_idx < limit:
-            batch = self._place_batch(next(it))
+            with _trace.span("train.data"):
+                batch = self._place_batch(next(it))
             lr = warmup_cosine(self.step_idx, peak_lr=self.train_cfg.lr,
                                warmup_steps=rc.warmup_steps,
                                total_steps=rc.total_steps)

@@ -13,8 +13,10 @@ Three lowerings run the schedule:
   * the **wavefront kernel lowering** (``use_kernel=True``,
     ``dispatch_mode="wavefront"``): every wavefront's same-kind task batch
     is one launch of a hand-written CUDA kernel
-    (:mod:`repro_torch.kernels.macro_ops`), one CTA per task, in the
-    canonical kind order GEQRT, LARFB, TSQRT, SSRFB on one stream;
+    (:mod:`repro_torch.kernels.macro_ops`), in the canonical kind order
+    GEQRT, LARFB, TSQRT, SSRFB on one stream; on a ``(B, p, q, nb, nb)``
+    stack one launch per (level, kind) runs that batch on every slice, so a
+    stack takes one schedule's launches whatever B;
   * the **megakernel lowering** (``use_kernel=True``,
     ``dispatch_mode="megakernel"``): one cooperative launch walks the
     whole task table (:func:`megakernel_task_table`), each CTA a
@@ -25,7 +27,7 @@ Three lowerings run the schedule:
     lowerings agree bit for bit;
   * the **plain lowering** (``use_kernel=False``): the wavefront batches
     through the kernels' plain PyTorch versions (on a stack, each batch
-    over all its slices at once).
+    over all its slices at once, as the wavefront kernels run it).
 
 Q formation (:func:`form_q_tiles`) runs the factorization's updates in
 reverse over a second tile workspace E (:func:`q_task_arrays`,
@@ -624,14 +626,15 @@ def dispatch_counts(p: int, q: int, dispatch_mode: str = "wavefront",
                     batch: int = 1) -> Dict[str, int]:
     """Kernel launches of one factor call on ``batch`` stacked ``(p, q)``
     grids, keyed as ``macro_ops.LAUNCHES``: per kind for the wavefront
-    lowering (``batch`` times one factorization's), one megakernel launch
-    for the megakernel lowering (the batched one when ``batch > 1``)."""
+    lowering (one factorization's, whatever ``batch``: each launch runs
+    its batch on every slice), one megakernel launch for the megakernel
+    lowering (the batched one when ``batch > 1``)."""
     if dispatch_mode == "megakernel":
         return {"MEGAKERNEL_BATCHED" if batch > 1 else "MEGAKERNEL": 1}
     counts = dict.fromkeys(_KIND_ORDER, 0)
     for by_kind in wavefront_task_arrays(p, q):
         for kind in by_kind:
-            counts[kind] += batch
+            counts[kind] += 1
     return counts
 
 
@@ -655,14 +658,14 @@ def q_dispatch_counts(p: int, q: int, qe: int,
                       batch: int = 1) -> Dict[str, int]:
     """Kernel launches of one Q formation on ``batch`` stacked grids,
     keyed as ``macro_ops.LAUNCHES``: per Q kind for the wavefront lowering
-    (at most two a level, ``batch`` times), one megakernel launch over the
-    Q table for the megakernel lowering."""
+    (at most two a level, whatever ``batch``), one megakernel launch over
+    the Q table for the megakernel lowering."""
     if dispatch_mode == "megakernel":
         return {"MEGAKERNEL_Q_BATCHED" if batch > 1 else "MEGAKERNEL_Q": 1}
     counts = dict.fromkeys(Q_KINDS, 0)
     for by_kind in q_task_arrays(p, q, qe):
         for kind in by_kind:
-            counts[kind] += batch
+            counts[kind] += 1
     return {k: v for k, v in counts.items() if v}
 
 
@@ -815,8 +818,8 @@ def run_levels(state: FactorState, levels: Optional[Iterable[int]] = None, *,
     ``state``, in place.  One launch per (level, kind) in the canonical
     order: within a level the only tile two kinds share is the diagonal,
     whose strictly-lower V1 LARFB reads before TSQRT rewrites the upper
-    triangle.  On the plain versions (``use_kernel=False``) a state with
-    leading dimensions (a stack) runs each batch over all its slices."""
+    triangle.  A stacked state (one leading dimension on the kernels, any
+    on the plain versions) runs each batch over all its slices."""
     tiles = state.tiles
     p, q = tiles.shape[-4:-2]
     per_level = level_indices(p, q, tiles.device)
@@ -905,21 +908,23 @@ def _check_workspace(tiles: torch.Tensor, shape: Tuple[int, ...]) -> None:
 
 
 def _emit_factor_metrics(tiles: torch.Tensor, p: int, q: int, nb: int,
-                         mode: str, use_kernel: bool, batch: int = 1,
-                         filled: Optional[int] = None) -> None:
+                         mode: str, use_kernel: bool, batch: int = 1) -> None:
     """Record one factor call in the ``engine.*`` metric series: calls,
     matrices, launches, tasks and the roofline tile traffic of the
     lowering that runs, and the task table's bytes on the megakernel
     path (not the reference's ``engine.modeled_dma_bytes``: a TPU tile
-    model, not the card's traffic).  Launches of the slice-by-slice
-    lowering count the ``filled`` slices it factors.  The reference labels calls counted while tracing a
-    program ``phase="trace"``; the port runs no traced program, so every
-    call counts as ``phase="execute"``."""
+    model, not the card's traffic).  A stack takes one schedule's
+    launches on either kernel lowering.  The reference labels calls
+    counted while tracing a program ``phase="trace"``; the port runs no
+    traced program, so every call counts as ``phase="execute"``."""
     phase = "execute"
     kernel = "cuda" if use_kernel else "plain"
-    ndisp = 1 if (use_kernel and mode == "megakernel") else (
-        sum(len(b) for b in wavefront_task_arrays(p, q))
-        * (batch if filled is None else filled) if use_kernel else 0)
+    if not use_kernel:
+        ndisp = 0
+    elif mode == "megakernel":
+        ndisp = 1
+    else:
+        ndisp = sum(len(b) for b in wavefront_task_arrays(p, q))
     roofline = modeled_dma_bytes(p, q, nb, tiles.element_size())["roofline"]
     _metrics.counter("engine.factor_calls", mode=mode, kernel=kernel,
                      phase=phase).inc()
@@ -971,15 +976,18 @@ def factor_tiles_batched(tiles: torch.Tensor, *, p: int, q: int, nb: int,
     """Run the schedule over every slice of a stacked ``(B, p, q, nb, nb)``
     workspace, in place; each slice's state equals :func:`factor_tiles`
     on that slice.  The megakernel lowering is one launch of the batched
-    megakernel for the whole stack; the wavefront lowering runs the
-    single path slice by slice; the plain lowering runs each level's
-    batches over the stack at once.  ``B == 1`` runs the single path, as
-    the reference does.
+    megakernel for the whole stack; the wavefront lowering, on the kernels
+    or their plain versions, runs each level's batches over the stack at
+    once: one launch per (level, kind) for all the slices.  ``B == 1``
+    runs the single path, as the reference does.
 
     ``filled`` says the slices from it on are zero matrices (a padded
-    batch): a zero matrix factors to the zero state, so the slice-by-slice
-    lowerings leave those slices as :func:`init_state` made them; the
-    megakernel runs the whole stack in its one launch either way."""
+    batch): a zero matrix factors to the zero state, so the wavefront
+    lowerings run only the first ``filled`` slices and leave the rest as
+    :func:`init_state` made them; the megakernel runs the whole stack in
+    its one launch either way.  Each stacked call of the wavefront kernel
+    lowering adds ``filled`` to ``engine.stacked_wavefront_slices
+    {stage="factor"}``."""
     if tiles.ndim != 5 or tiles.shape[0] < 1:
         raise ValueError(f"expected a (B >= 1, {p}, {q}, {nb}, {nb}) "
                          f"stacked workspace, got {tuple(tiles.shape)}")
@@ -988,8 +996,7 @@ def factor_tiles_batched(tiles: torch.Tensor, *, p: int, q: int, nb: int,
                            batched=True)
     batch = int(tiles.shape[0])
     filled = batch if filled is None else max(1, min(int(filled), batch))
-    _emit_factor_metrics(tiles, p, q, nb, mode, bool(use_kernel), batch,
-                         filled)
+    _emit_factor_metrics(tiles, p, q, nb, mode, bool(use_kernel), batch)
     with _trace.span("engine.factor_tiles_batched", mode=mode,
                      grid=f"{p}x{q}", nb=nb, batch=batch,
                      kernel=bool(use_kernel)):
@@ -997,8 +1004,7 @@ def factor_tiles_batched(tiles: torch.Tensor, *, p: int, q: int, nb: int,
 
 
 def _factor_batched(tiles: torch.Tensor, p: int, q: int, nb: int,
-                    use_kernel: bool, mode: str,
-                    filled: Optional[int] = None) -> FactorState:
+                    use_kernel: bool, mode: str, filled: int) -> FactorState:
     batch = tiles.shape[0]
     if batch == 1:
         single = _factor_single(tiles[0], p, q, nb, use_kernel, mode)
@@ -1008,13 +1014,14 @@ def _factor_batched(tiles: torch.Tensor, p: int, q: int, nb: int,
         with _profiler.annotate(_profiler.megakernel_label(p, q, batch)):
             macro_ops.megakernel_batched(
                 state, *megakernel_table(p, q, tiles.device))
-    elif not use_kernel:
-        # The plain lowering runs each level's batch over the whole stack.
-        run_levels(FactorState(*(x[:filled] for x in state)))
-    else:
-        for b in range(batch if filled is None else filled):
-            run_levels(FactorState(*(x[b] for x in state)),
-                       use_kernel=use_kernel)
+        return state
+    # Each level's batches over the filled slices at once (a leading slice
+    # of the stack, still contiguous).
+    if use_kernel:
+        _metrics.counter("engine.stacked_wavefront_slices",
+                         stage="factor").inc(filled)
+    run_levels(FactorState(*(x[:filled] for x in state)),
+               use_kernel=use_kernel)
     return state
 
 
@@ -1036,12 +1043,13 @@ def run_q_levels(state: FactorState, e: torch.Tensor,
                  levels: Optional[Iterable[int]] = None, *,
                  use_kernel: bool = True) -> torch.Tensor:
     """Run the given levels (default: all) of Q formation's schedule on
-    the ``(p, qe, nb, nb)`` Q workspace ``e``, in place, the factored
-    ``state`` read only: one launch per (level, kind) through the Q
-    kernels' wrappers (their plain versions on CPU tensors), or, with
-    ``use_kernel=False``, the plain versions everywhere."""
-    p, q = state.tiles.shape[:2]
-    per_level = q_level_indices(p, q, e.shape[1], e.device)
+    the ``(p, qe, nb, nb)`` Q workspace ``e`` — or every slice of a
+    ``(B, p, qe, nb, nb)`` stack of them beside a stacked ``state`` — in
+    place, the factored ``state`` read only: one launch per (level, kind)
+    through the Q kernels' wrappers (their plain versions on CPU tensors),
+    or, with ``use_kernel=False``, the plain versions everywhere."""
+    p, q = state.tiles.shape[-4:-2]
+    per_level = q_level_indices(p, q, e.shape[-3], e.device)
     for lv in range(len(per_level)) if levels is None else levels:
         for kind, idx in per_level[lv].items():
             with _profiler.annotate(_profiler.kernel_label(kind, lv)):
@@ -1059,11 +1067,13 @@ def form_q_tiles(state: FactorState, ncols: int, *,
     kernels, by the lowering the factorization ran (``dispatch_mode`` as
     given to it; :func:`resolve_q_dispatch_mode`): one megakernel launch
     over the Q table (one batched launch for a stack of more than one),
-    or per slice one launch per (level, kind), over the first ``filled``
-    slices (the rest are zero states, whose Q is the workspace's
-    identity, as :func:`factor_tiles_batched` says).  On a CPU state the
-    wrappers run their plain versions task by task; the plain lowering of
-    ``tilegraph._form_q_tiled`` is the reference they are held against."""
+    or one launch per (level, kind) for the first ``filled`` slices of
+    the stack at once (the rest are zero states, whose Q is the
+    workspace's identity, as :func:`factor_tiles_batched` says; each such
+    stacked call adds ``filled`` to ``engine.stacked_wavefront_slices
+    {stage="q"}``).  On a CPU state the wrappers run their plain versions;
+    the plain lowering of ``tilegraph._form_q_tiled`` is the reference
+    they are held against."""
     tiles = state.tiles
     *lead, p, q, nb, _ = tiles.shape
     if ncols % nb or len(lead) > 1:
@@ -1091,6 +1101,9 @@ def form_q_tiles(state: FactorState, ncols: int, *,
         return e
     if not lead:
         return run_q_levels(state, e)
-    for b in range(batch if filled is None else filled):
-        run_q_levels(FactorState(*(x[b] for x in state)), e[b])
+    filled = batch if filled is None else max(1, min(int(filled), batch))
+    if batch > 1:
+        _metrics.counter("engine.stacked_wavefront_slices",
+                         stage="q").inc(filled)
+    run_q_levels(FactorState(*(x[:filled] for x in state)), e[:filled])
     return e

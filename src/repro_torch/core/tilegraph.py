@@ -239,7 +239,7 @@ def _factor_stack_padded(a_pad: torch.Tensor, *, p: int, q: int, nb: int,
     (the Q kernels, by the factorization's lowering) on the kernel path,
     through :func:`_form_q_tiled` on the plain one.  ``filled``: the
     slices from it on are zero matrices (a padded batch), which the
-    slice-by-slice lowerings skip (:func:`engine.factor_tiles_batched`)."""
+    wavefront lowerings skip (:func:`engine.factor_tiles_batched`)."""
     if mode not in ("reduced", "r", "full"):
         raise ValueError(f"unknown mode {mode!r}")
     f = engine.factor_tiles_batched(_split_tiles(a_pad, p, q, nb), p=p, q=q,
@@ -267,8 +267,9 @@ def tiled_qr_batched(a: torch.Tensor, *, tile: int = 32,
     leading.
 
     ``use_kernel=True`` runs the engine's kernel lowering — one launch of
-    the batched megakernel for the whole stack, or the wavefront launches
-    slice by slice, as ``dispatch_mode`` (None: the auto rule) says;
+    the batched megakernel for the whole stack, or one wavefront launch
+    per (level, kind) for the whole stack, as ``dispatch_mode`` (None: the
+    auto rule) says;
     ``False`` runs the plain lowering of the same schedule.  Shapes that
     are not multiples of the tile are zero-padded: padded rows and columns
     factor to exact ``tau = 0`` reflectors, so the unpadded slices of Q

@@ -32,11 +32,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LINK_FLAGS = ("-shared", "-Xcompiler", "-fPIC")
 
-# (ws, aux0, aux1, idx, ntasks, p, q, nb, is_double, smem_bytes, stream)
-_MACRO_OP_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-# (kind, ws, aux, e, idx, ntasks, p, q, qe, nb, stages, is_double,
+# (ws, aux0, aux1, idx, ntasks, batch, p, q, nb, is_double, smem_bytes,
+#  stream)
+_MACRO_OP_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+# (kind, ws, aux, e, idx, ntasks, batch, p, q, qe, nb, stages, is_double,
 #  smem_bytes, stream, grid_out)
-_WALK_ARGS = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 \
+_WALK_ARGS = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 \
     + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
 # (ws, d_t, d_taus, t_t, t_taus, e, table, runs, nlevels, nslots, batch,
 #  p, q, qe, nb, stages, grid, is_double, smem_bytes, barrier, stream,

@@ -10,16 +10,19 @@
 // The workspace is the (p, q, nb, nb) tile array, row-major inside a tile;
 // d_t is (r, nb, nb), d_taus (r, nb), t_t (p, r, nb, nb), t_taus
 // (p, r, nb) with r = min(p, q); Q forms in a second tile workspace E,
-// (p, qe, nb, nb).  Every lowering calls the same bodies, so the same
-// machine code computes every task and the lowerings agree bitwise:
+// (p, qe, nb, nb).  A stack of `batch` such states lies contiguous, slice
+// after slice, so each field's slice stride follows from p, q, qe and nb
+// (make_walk).  Every lowering calls the same bodies, so the same machine
+// code computes every task and the lowerings agree bitwise:
 //
 //  * GEQRT and TSQRT wavefront kernels (geqrt_kernel, tsqrt_kernel): one
-//    launch per (level, kind), one CTA per task; task b reads its (k, i, j)
-//    from idx[3 b .. 3 b + 2], an int32 array the engine uploads once;
+//    launch per (level, kind) for the whole stack, one CTA per (slice,
+//    task); task x reads its (k, i, j) from idx[3 x .. 3 x + 2], an int32
+//    array the engine uploads once and every slice shares;
 //  * the update walk (walk_kernel): one launch per (level, kind) for the
-//    LARFB, SSRFB, QLARFB and QSSRFB batches, a persistent grid of the
-//    CTAs that fit the card at once, each walking a contiguous run of the
-//    level's task list (walk_run);
+//    LARFB, SSRFB, QLARFB and QSSRFB batches of the whole stack, a
+//    persistent grid of the CTAs that fit the card at once, each walking a
+//    contiguous run of the level's tasks, slice by slice (walk_run);
 //  * the megakernel (megakernel_kernel, megakernel_batched_kernel): one
 //    cooperative launch per factorization, per Q formation, or per stack
 //    of them, walks the engine's task table level by level, each CTA a
@@ -273,11 +276,20 @@ __device__ __noinline__ void geqrt_compute(int o_a, int o_s, T* ws, T* d_t,
 }
 
 // Shared memory of the wavefront kernels: the kind's operand tiles in
-// order from offset 0, its scratch after them (MacroOp.smem_elems).
+// order from offset 0, its scratch after them (MacroOp.smem_elems).  CTA
+// c of a launch over a stack runs task c % n of slice c / n; the slice's
+// fields start at 64-bit offsets (a large stack's fields pass 2^31
+// bytes).
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-geqrt_kernel(T* ws, T* d_t, T* d_taus, const int* idx, int q, int nb) {
-  const int nn = nb * nb, k = idx[3 * blockIdx.x];
+geqrt_kernel(T* ws, T* d_t, T* d_taus, const int* idx, int n, int p, int q,
+             int nb) {
+  const int nn = nb * nb, b = blockIdx.x / n;
+  const int k = idx[3 * (blockIdx.x - b * n)];
+  const size_t r = p < q ? p : q;
+  ws += b * ((size_t)p * q * nn);
+  d_t += b * (r * nn);
+  d_taus += b * (r * nb);
   copy_tile_async(smem_at<T>(0), ws + ((size_t)k * q + k) * nn, nn);
   cp_async_commit();
   cp_async_wait<0>();
@@ -651,8 +663,14 @@ __device__ __noinline__ void tsqrt_compute(int o_d, int o_a, int o_s, T* ws,
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-tsqrt_kernel(T* ws, T* t_t, T* t_taus, const int* idx, int p, int q, int nb) {
-  const int nn = nb * nb, k = idx[3 * blockIdx.x], i = idx[3 * blockIdx.x + 1];
+tsqrt_kernel(T* ws, T* t_t, T* t_taus, const int* idx, int n, int p, int q,
+             int nb) {
+  const int nn = nb * nb, b = blockIdx.x / n, x = blockIdx.x - b * n;
+  const int k = idx[3 * x], i = idx[3 * x + 1];
+  const size_t r = p < q ? p : q;
+  ws += b * ((size_t)p * q * nn);
+  t_t += b * ((size_t)p * r * nn);
+  t_taus += b * ((size_t)p * r * nb);
   copy_tile_async(smem_at<T>(0), ws + ((size_t)k * q + k) * nn, nn);
   copy_tile_async(smem_at<T>(nn), ws + ((size_t)i * q + k) * nn, nn);
   cp_async_commit();
@@ -950,8 +968,8 @@ __device__ __forceinline__ void issue_copies(const Walk<T>& st,
 }
 
 // The task sources of a walk: a level of the task table (kind from the
-// row, slice w / n) or a wavefront batch's (k, i, j) index rows (one kind,
-// one slice).
+// row) or a wavefront batch's (k, i, j) index rows (one kind), item w
+// being task w % n of slice w / n either way.
 struct TableTasks {
   const int* rows;
   int n;
@@ -964,11 +982,11 @@ struct TableTasks {
 
 struct IndexTasks {
   const int* idx;
-  int kind;
+  int kind, n;
   __device__ __forceinline__ int4 operator()(int w, int* b) const {
-    *b = 0;
-    return make_int4(kind, __ldg(idx + 3 * w), __ldg(idx + 3 * w + 1),
-                     __ldg(idx + 3 * w + 2));
+    *b = w / n;
+    const int* row = idx + 3 * (w - *b * n);
+    return make_int4(kind, __ldg(row), __ldg(row + 1), __ldg(row + 2));
   }
 };
 
@@ -1162,12 +1180,15 @@ template <typename T>
 constexpr int kWalkMinBlocks = sizeof(T) == 4 ? 3 : 2;
 
 // One wavefront batch of updates of kind kKind (LARFB, SSRFB, QLARFB or
-// QSSRFB; `aux` is d_t or t_t): a persistent grid, CTA c walking tasks
-// [c n / G, (c + 1) n / G) of the batch's index rows.
+// QSSRFB; `aux` is d_t or t_t) over every slice of a stack: a persistent
+// grid, CTA c walking items [c N / G, (c + 1) N / G) of the N = batch x n
+// items in slice-major order (item w: index row w % n of slice w / n), so
+// a run's same-k tasks stay together inside a slice and keep their V and T
+// (walk_run keeps nothing across a slice boundary).
 template <typename T, int kKind>
 __global__ void __launch_bounds__(kThreads, kWalkMinBlocks<T>)
-walk_kernel(T* ws, T* aux, T* e, const int* idx, int n, int p, int q, int qe,
-            int nb, int stages) {
+walk_kernel(T* ws, T* aux, T* e, const int* idx, int n, int batch, int p,
+            int q, int qe, int nb, int stages) {
   __shared__ unsigned long long bars[2];
   __shared__ Staged stage;
   __shared__ Walk<T> st;
@@ -1176,10 +1197,11 @@ walk_kernel(T* ws, T* aux, T* e, const int* idx, int n, int p, int q, int qe,
     st = make_walk<T>(ws, kLarfb ? aux : nullptr, nullptr,
                       kLarfb ? nullptr : aux, nullptr, e, p, q, qe, nb, stages);
   walk_barriers_init(bars);  // also publishes `st`
-  const int w0 = (int)((long long)blockIdx.x * n / gridDim.x);
-  const int w1 = (int)((long long)(blockIdx.x + 1) * n / gridDim.x);
+  const long long total = (long long)batch * n;
+  const int w0 = (int)(blockIdx.x * total / gridDim.x);
+  const int w1 = (int)((blockIdx.x + 1) * total / gridDim.x);
   unsigned count = 0, phase = 0;
-  walk_run<(1u << kKind)>(st, IndexTasks{idx, kKind}, w0, w1, bars, count,
+  walk_run<(1u << kKind)>(st, IndexTasks{idx, kKind, n}, w0, w1, bars, count,
                           phase, stage);
 }
 
@@ -1187,22 +1209,31 @@ walk_kernel(T* ws, T* aux, T* e, const int* idx, int n, int p, int q, int qe,
 // host side
 // ---------------------------------------------------------------------------
 
+// Work items of a launch over `batch` slices of `n` tasks: at most one
+// int's worth (the kernels index items, and a CTA's, in int).
+static bool items_fit(int n, int batch) {
+  return n >= 0 && batch >= 1 && (long long)n * batch <= 0x7fffffffLL;
+}
+
 template <typename T>
 static int launch(int kind, void* ws, void* aux0, void* aux1, const int* idx,
-                  int ntasks, int p, int q, int nb, size_t bytes,
+                  int ntasks, int batch, int p, int q, int nb, size_t bytes,
                   cudaStream_t stream) {
   T* w = static_cast<T*>(ws);
+  const int grid = ntasks * batch;
   cudaError_t err = cudaSuccess;
   if (kind == 0) {
     err = prepare(geqrt_kernel<T>, bytes);
     if (err == cudaSuccess)
-      geqrt_kernel<T><<<ntasks, kThreads, bytes, stream>>>(
-          w, static_cast<T*>(aux0), static_cast<T*>(aux1), idx, q, nb);
+      geqrt_kernel<T><<<grid, kThreads, bytes, stream>>>(
+          w, static_cast<T*>(aux0), static_cast<T*>(aux1), idx, ntasks, p, q,
+          nb);
   } else {
     err = prepare(tsqrt_kernel<T>, bytes);
     if (err == cudaSuccess)
-      tsqrt_kernel<T><<<ntasks, kThreads, bytes, stream>>>(
-          w, static_cast<T*>(aux0), static_cast<T*>(aux1), idx, p, q, nb);
+      tsqrt_kernel<T><<<grid, kThreads, bytes, stream>>>(
+          w, static_cast<T*>(aux0), static_cast<T*>(aux1), idx, ntasks, p, q,
+          nb);
   }
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
@@ -1210,11 +1241,12 @@ static int launch(int kind, void* ws, void* aux0, void* aux1, const int* idx,
 
 // The update walk's grid: the CTAs that fit the card at once at this
 // shared-memory size (the occupancy query of the kind's instantiation,
-// cached per kind, size and device), at most one per task.
+// cached per kind, size and device), at most one per work item.
 template <typename T>
 static int launch_walk(int kind, void* ws, void* aux, void* e, const int* idx,
-                       int n, int p, int q, int qe, int nb, int stages,
-                       size_t bytes, cudaStream_t stream, int* grid_out) {
+                       int n, int batch, int p, int q, int qe, int nb,
+                       int stages, size_t bytes, cudaStream_t stream,
+                       int* grid_out) {
   static size_t cached_bytes[8] = {};
   static int cached_dev[8] = {-1, -1, -1, -1, -1, -1, -1, -1};
   static long cached_resident[8] = {};
@@ -1241,11 +1273,12 @@ static int launch_walk(int kind, void* ws, void* aux, void* e, const int* idx,
   }
   if (err != cudaSuccess) return (int)err;
   const long resident = cached_resident[kind];
-  const int grid = (int)(n < resident ? n : resident);
+  const long items = (long)n * batch;
+  const int grid = (int)(items < resident ? items : resident);
   if (grid < 1) return (int)cudaErrorInvalidConfiguration;
   kernel<<<grid, kThreads, bytes, stream>>>(
       static_cast<T*>(ws), static_cast<T*>(aux), static_cast<T*>(e), idx, n,
-      p, q, qe, nb, stages);
+      batch, p, q, qe, nb, stages);
   *grid_out = grid;
   return (int)cudaGetLastError();
 }
@@ -1331,58 +1364,65 @@ static int dispatch_megakernel(bool batched, void* ws, void* d_t,
 }
 
 static int dispatch(int kind, void* ws, void* aux0, void* aux1, const void* idx,
-                    int ntasks, int p, int q, int nb, int is_double,
+                    int ntasks, int batch, int p, int q, int nb, int is_double,
                     int smem_bytes, void* stream) {
-  if (nb < 1 || nb > 32 * kSlots) return (int)cudaErrorInvalidValue;
+  if (nb < 1 || nb > 32 * kSlots || !items_fit(ntasks, batch))
+    return (int)cudaErrorInvalidValue;
   const int* ix = static_cast<const int*>(idx);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t bytes = (size_t)smem_bytes;
-  return is_double
-             ? launch<double>(kind, ws, aux0, aux1, ix, ntasks, p, q, nb, bytes, s)
-             : launch<float>(kind, ws, aux0, aux1, ix, ntasks, p, q, nb, bytes, s);
+  return is_double ? launch<double>(kind, ws, aux0, aux1, ix, ntasks, batch, p,
+                                    q, nb, bytes, s)
+                   : launch<float>(kind, ws, aux0, aux1, ix, ntasks, batch, p,
+                                   q, nb, bytes, s);
 }
 
 }  // namespace repro
 
 extern "C" {
 
-// GEQRT / TSQRT: (workspace, aux0, aux1, idx, ntasks, p, q, nb,
+// GEQRT / TSQRT: (workspace, aux0, aux1, idx, ntasks, batch, p, q, nb,
 // is_double, smem_bytes, stream).  aux0/aux1 are d_t/d_taus (GEQRT),
-// t_t/t_taus (TSQRT).  smem_bytes is the dynamic shared memory per CTA:
-// the caller computes it from the kernel's layout (MacroOp.smem_elems in
-// macro_ops.py), so the size the budget checks read and the size
-// launched are one number.
-int repro_geqrt(void* ws, void* a0, void* a1, const void* idx, int n, int p,
-                int q, int nb, int is_double, int smem_bytes, void* stream) {
-  return repro::dispatch(0, ws, a0, a1, idx, n, p, q, nb, is_double,
+// t_t/t_taus (TSQRT); the state is a stack of `batch` contiguous slices
+// (1: a single state), each running the ntasks index rows.  smem_bytes is
+// the dynamic shared memory per CTA: the caller computes it from the
+// kernel's layout (MacroOp.smem_elems in macro_ops.py), so the size the
+// budget checks read and the size launched are one number.
+int repro_geqrt(void* ws, void* a0, void* a1, const void* idx, int n,
+                int batch, int p, int q, int nb, int is_double, int smem_bytes,
+                void* stream) {
+  return repro::dispatch(0, ws, a0, a1, idx, n, batch, p, q, nb, is_double,
                          smem_bytes, stream);
 }
 
-int repro_tsqrt(void* ws, void* a0, void* a1, const void* idx, int n, int p,
-                int q, int nb, int is_double, int smem_bytes, void* stream) {
-  return repro::dispatch(2, ws, a0, a1, idx, n, p, q, nb, is_double,
+int repro_tsqrt(void* ws, void* a0, void* a1, const void* idx, int n,
+                int batch, int p, int q, int nb, int is_double, int smem_bytes,
+                void* stream) {
+  return repro::dispatch(2, ws, a0, a1, idx, n, batch, p, q, nb, is_double,
                          smem_bytes, stream);
 }
 
-// The update walk: (kind, ws, aux, e, idx, ntasks, p, q, qe, nb, stages,
-// is_double, smem_bytes, stream, grid_out) for kind 1 (LARFB, aux = d_t),
-// 3 (SSRFB, aux = t_t), 5 (QLARFB, d_t) or 6 (QSSRFB, t_t); e is the
-// (p, qe, nb, nb) Q workspace (unused by LARFB / SSRFB); stages the
-// operand buffers per slot (1 or 2); *grid_out receives the CTAs launched.
+// The update walk: (kind, ws, aux, e, idx, ntasks, batch, p, q, qe, nb,
+// stages, is_double, smem_bytes, stream, grid_out) for kind 1 (LARFB, aux
+// = d_t), 3 (SSRFB, aux = t_t), 5 (QLARFB, d_t) or 6 (QSSRFB, t_t); e is
+// the (p, qe, nb, nb) Q workspace (unused by LARFB / SSRFB); the state and
+// e are stacks of `batch` contiguous slices (1: a single state), each
+// running the ntasks index rows; stages the operand buffers per slot (1
+// or 2); *grid_out receives the CTAs launched.
 int repro_walk(int kind, void* ws, void* aux, void* e, const void* idx, int n,
-               int p, int q, int qe, int nb, int stages, int is_double,
-               int smem_bytes, void* stream, int* grid_out) {
+               int batch, int p, int q, int qe, int nb, int stages,
+               int is_double, int smem_bytes, void* stream, int* grid_out) {
   if (!repro::is_update(kind) || nb < 1 || nb > 32 * repro::kSlots ||
-      stages < 1 || stages > 2)
+      stages < 1 || stages > 2 || !repro::items_fit(n, batch))
     return (int)cudaErrorInvalidValue;
   const int* ix = static_cast<const int*>(idx);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t bytes = (size_t)smem_bytes;
   return is_double
-             ? repro::launch_walk<double>(kind, ws, aux, e, ix, n, p, q, qe,
-                                          nb, stages, bytes, s, grid_out)
-             : repro::launch_walk<float>(kind, ws, aux, e, ix, n, p, q, qe,
-                                         nb, stages, bytes, s, grid_out);
+             ? repro::launch_walk<double>(kind, ws, aux, e, ix, n, batch, p, q,
+                                          qe, nb, stages, bytes, s, grid_out)
+             : repro::launch_walk<float>(kind, ws, aux, e, ix, n, batch, p, q,
+                                         qe, nb, stages, bytes, s, grid_out);
 }
 
 // Megakernel entries: (ws, d_t, d_taus, t_t, t_taus, e, table, runs,

@@ -21,7 +21,9 @@ megakernels of its ``repro.core.engine``.  Three layers:
     one launch runs a batch of same-kind tasks against the
     ``(p, q, nb, nb)`` tile workspace **in place**, reading each task's
     ``(k, i, j)`` from an ``(n, 3)`` int32 index tensor on the workspace's
-    device.  On a CUDA tensor a wrapper launches its hand-written kernel
+    device — or against every slice of a ``(B, p, q, nb, nb)`` stack (with
+    ``(B, ...)`` state fields and E), each slice running the same tasks.
+    On a CUDA tensor a wrapper launches its hand-written kernel
     (``csrc/macro_ops.cu``, built on first use by :mod:`._build`) and adds
     one to :data:`LAUNCHES`; on a CPU tensor it runs the ``*_plain``
     gather -> body -> scatter version instead.  There is no fallback from
@@ -348,7 +350,7 @@ MEGAKERNEL_GRID: Dict[str, int] = {"MEGAKERNEL": 0, "MEGAKERNEL_BATCHED": 0,
                                    "MEGAKERNEL_Q": 0,
                                    "MEGAKERNEL_Q_BATCHED": 0}
 #: CTAs of the last launch of the update walk for each kind (the resident
-#: grid, at most one CTA per task).
+#: grid, at most one CTA per (slice, task)).
 WALK_GRID: Dict[str, int] = {"LARFB": 0, "SSRFB": 0, "QLARFB": 0,
                              "QSSRFB": 0}
 
@@ -360,23 +362,27 @@ def reset_launch_counts() -> None:
 
 def _check(kind: str, tiles: Tensor, aux: Tuple[Tensor, ...], idx: Tensor,
            e: Tensor = None) -> None:
-    """Device, dtype, shape and contiguity checks shared by the wrappers."""
-    if tiles.ndim != 4 or tiles.shape[2] != tiles.shape[3]:
-        raise ValueError(f"{kind}: expected a (p, q, nb, nb) workspace, "
-                         f"got {tuple(tiles.shape)}")
-    p, q, nb, _ = tiles.shape
+    """Device, dtype, shape and contiguity checks shared by the wrappers:
+    a ``(p, q, nb, nb)`` workspace, or a ``(B, p, q, nb, nb)`` stack whose
+    state fields and E lead with the same B."""
+    if tiles.ndim not in (4, 5) or tiles.shape[-1] != tiles.shape[-2]:
+        raise ValueError(f"{kind}: expected a (p, q, nb, nb) workspace or a "
+                         f"(B, p, q, nb, nb) stack, got {tuple(tiles.shape)}")
+    *lead, p, q, nb, _ = tiles.shape
+    lead = tuple(lead)
     r = min(p, q)
-    want = {"d_t": (r, nb, nb), "d_taus": (r, nb),
-            "t_t": (p, r, nb, nb), "t_taus": (p, r, nb)}
+    want = {"d_t": lead + (r, nb, nb), "d_taus": lead + (r, nb),
+            "t_t": lead + (p, r, nb, nb), "t_taus": lead + (p, r, nb)}
     state = (Q_OPS[kind][2],) if kind in Q_OPS else MACRO_OPS[kind].state
     for name, x in zip(state, aux):
         if tuple(x.shape) != want[name]:
             raise ValueError(f"{kind}: {name} must be {want[name]}, "
                              f"got {tuple(x.shape)}")
-    if e is not None and (e.ndim != 4 or e.shape[0] != p
-                          or tuple(e.shape[2:]) != (nb, nb)):
-        raise ValueError(f"{kind}: E must be a ({p}, qe, {nb}, {nb}) Q "
-                         f"workspace, got {tuple(e.shape)}")
+    if e is not None and (e.ndim != tiles.ndim
+                          or tuple(e.shape[:-3]) != lead + (p,)
+                          or tuple(e.shape[-2:]) != (nb, nb)):
+        raise ValueError(f"{kind}: E must be a {lead + (p,)} + (qe, {nb}, "
+                         f"{nb}) Q workspace, got {tuple(e.shape)}")
     for x in (tiles,) + aux + (() if e is None else (e,)):
         if x.device != tiles.device or x.dtype != tiles.dtype:
             raise ValueError(f"{kind}: state tensors must share the "
@@ -390,22 +396,24 @@ def _check(kind: str, tiles: Tensor, aux: Tuple[Tensor, ...], idx: Tensor,
 
 def _launch(kind: str, tiles: Tensor, aux: Tuple[Tensor, ...],
             idx: Tensor, tally: str = None, e: Tensor = None) -> None:
-    """Launch ``kind``'s kernel on a batch of tasks and add one to
+    """Launch ``kind``'s kernel on a batch of tasks — on every slice of a
+    ``(B, p, q, nb, nb)`` stack at once — and add one to
     ``LAUNCHES[tally]`` (default: the kind's own count).  GEQRT and TSQRT
-    launch a CTA per task; the updates launch the walk kernel's persistent
-    grid."""
+    launch a CTA per (slice, task); the updates launch the walk kernel's
+    persistent grid over the slices' tasks."""
     if tiles.dtype not in KERNEL_DTYPES:
         raise TypeError(f"{kind} kernel takes float32 or float64, "
                         f"got {tiles.dtype}")
     for x in (tiles, idx) + aux + (() if e is None else (e,)):
         if not x.is_contiguous():
             raise ValueError(f"{kind} kernel needs contiguous tensors")
-    if idx.shape[0] == 0:
+    batch = tiles.shape[0] if tiles.ndim == 5 else 1
+    if idx.shape[0] == 0 or batch == 0:
         return
     from repro_torch.kernels import _build
 
     lib = _build.library()
-    p, q, nb, _ = tiles.shape
+    p, q, nb = tiles.shape[-4], tiles.shape[-3], tiles.shape[-1]
     itemsize = tiles.element_size()
     is_double = int(tiles.dtype == torch.float64)
     with torch.cuda.device(tiles.device):
@@ -415,7 +423,8 @@ def _launch(kind: str, tiles: Tensor, aux: Tuple[Tensor, ...],
             rc = lib.repro_walk(
                 WALK_KINDS[kind], tiles.data_ptr(), aux[0].data_ptr(),
                 None if e is None else e.data_ptr(), idx.data_ptr(),
-                int(idx.shape[0]), p, q, 0 if e is None else e.shape[1], nb,
+                int(idx.shape[0]), batch, p, q,
+                0 if e is None else e.shape[-3], nb,
                 walk_stages(nb, itemsize), is_double,
                 walk_smem_bytes(nb, itemsize), stream, ctypes.byref(grid))
             WALK_GRID[kind] = grid.value
@@ -423,7 +432,7 @@ def _launch(kind: str, tiles: Tensor, aux: Tuple[Tensor, ...],
             ptrs = [x.data_ptr() for x in aux]
             rc = getattr(lib, f"repro_{kind.lower()}")(
                 tiles.data_ptr(), ptrs[0], ptrs[1], idx.data_ptr(),
-                int(idx.shape[0]), p, q, nb, is_double,
+                int(idx.shape[0]), batch, p, q, nb, is_double,
                 smem_bytes(kind, nb, itemsize), stream)
     if rc != 0:
         raise RuntimeError(f"{kind} kernel launch failed: CUDA error {rc} "

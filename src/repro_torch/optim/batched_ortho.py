@@ -9,8 +9,9 @@ tile-granularity optimizer policy ``DEFAULT_ORTHO_POLICY``), zero-pads
 and stacks each class, plans the stack once through
 :func:`repro_torch.core.plan.plan`, and orthogonalizes the whole class in
 one planned call: on ``"cuda"`` the tiled route runs one batched
-megakernel launch (or the wavefront kernels slice by slice, past the
-table budget) and the panel route one launch a panel step for the stack.
+megakernel launch (or, past the table budget, one wavefront launch per
+level and kind for the whole stack) and the panel route one launch a
+panel step for the stack.
 
 Zero padding is numerically free: trailing zero columns never touch the
 leading ``n`` columns of Q and zero rows factor to zero reflector

@@ -576,8 +576,7 @@ class QRService:
         event recorded after them (None on the CPU), and, with
         ``keep_input``, a copy of the padded stack for the health check
         (the engine may factor the stack in place).  The ``filled`` first
-        slots hold requests; the slice-by-slice lowerings skip the
-        rest."""
+        slots hold requests; the wavefront lowerings skip the rest."""
         stack, copied, on_device = staged
         compute = None
         if self.device.type == "cuda":

@@ -31,6 +31,7 @@ from repro_torch.optim import (DEFAULT_ORTHO_POLICY, muon_init, muon_update,
 from repro_torch.optim import batched_ortho as TB
 from repro_torch.robustness import escalate, inject, verify
 from repro_torch.serving.bucketing import BucketingPolicy, pad_dim
+from worker_threads import share_the_cores  # noqa: F401  (autouse)
 
 EPS32 = float(np.finfo(np.float32).eps)
 

@@ -26,6 +26,7 @@ from repro.core import blocked as jbl
 from repro.core import householder as jhh
 from repro_torch.core import blocked as tbl
 from repro_torch.core import householder as thh
+from worker_threads import share_the_cores  # noqa: F401  (autouse)
 
 DTYPES = ("float32", "float64")
 SHAPES = [(32, 32), (40, 24), (24, 40), (37, 23)]

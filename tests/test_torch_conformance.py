@@ -30,6 +30,7 @@ import pytest
 import torch
 
 import repro_torch
+from worker_threads import share_the_cores  # noqa: F401  (autouse)
 
 tplan = importlib.import_module("repro_torch.core.plan")
 

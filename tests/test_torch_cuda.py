@@ -28,6 +28,7 @@ from repro_torch.core import blocked, engine
 from repro_torch.core import tilegraph as ttg
 from repro_torch.kernels import macro_ops as tmo
 from repro_torch.kernels import ops, tile_ops
+from worker_threads import share_the_cores  # noqa: F401  (autouse)
 
 
 def _need_hopper():
@@ -500,6 +501,84 @@ def test_q_batched_slices_equal_single_runs_on_hopper(dtype):
         single = engine.form_q_tiles(engine.FactorState(*(x[b] for x in f)),
                                      p * nb, dispatch_mode="megakernel")
         assert torch.equal(stacked[b], single)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("p,q", [(5, 3), (4, 6)])
+def test_stacked_wavefront_equals_single_runs_on_hopper(p, q, dtype):
+    """The wavefront kernels on a ragged 7-slice stack filled to 5: one
+    launch per (level, kind) for the whole stack, to factor and to form Q
+    (one schedule's launches); every filled slice's factored state and Q
+    equal the single wavefront run of that slice bitwise, and slices 5-6
+    stay the zero state and the identity Q."""
+    _need_hopper()
+    nb, batch, filled = 32, 7, 5
+    dt = getattr(torch, dtype)
+    ws = _ragged(_workspace((batch, p, q, nb, nb), 97, dtype))
+    ws[filled:] = 0
+    base = torch.from_numpy(ws).cuda()
+    tmo.reset_launch_counts()
+    f = engine.factor_tiles_batched(base.clone(), p=p, q=q, nb=nb,
+                                    use_kernel=True,
+                                    dispatch_mode="wavefront", filled=filled)
+    e = engine.form_q_tiles(f, p * nb, dispatch_mode="wavefront",
+                            filled=filled)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in tmo.LAUNCHES.items() if v} == {
+        k: v for k, v in dict(engine.dispatch_counts(p, q, batch=batch),
+                              **engine.q_dispatch_counts(p, q, p,
+                                                         batch=batch)).items()
+        if v}
+    zero = engine.init_state(torch.zeros_like(base[0]))
+    eye = engine.q_workspace((), p, p, nb, dt, base.device)
+    for b in range(batch):
+        if b < filled:
+            single = engine.factor_tiles(base[b].clone(), p=p, q=q, nb=nb,
+                                         use_kernel=True,
+                                         dispatch_mode="wavefront")
+            e_single = engine.form_q_tiles(single, p * nb,
+                                           dispatch_mode="wavefront")
+        else:
+            single, e_single = zero, eye
+        torch.cuda.synchronize()
+        for x, y in zip(f, single):
+            assert torch.equal(x[b], y), b
+        assert torch.equal(e[b], e_single), b
+
+
+@pytest.mark.cuda
+def test_stacked_wavefront_at_the_expert_class_on_hopper():
+    """The qwen2-moe expert class's shape, 360 fp32 momenta of 2048 x
+    1408 (a 64 x 44 grid at nb = 32, past the table budget, so the auto
+    rule runs wavefront): one schedule's launches for the stack, and
+    slices 0, 179 and 359 equal their single runs bitwise, factored state
+    and thin Q.  Each field of the stack holds 4.15 GB, so slice 359's
+    fields start past 2^31 bytes from their bases."""
+    _need_hopper()
+    p, q, nb, batch = 64, 44, 32, 360
+    assert engine.resolve_dispatch_mode(p, q, nb) == "wavefront"
+    g = torch.Generator(device="cuda").manual_seed(98)
+    tiles = torch.randn((batch, p, q, nb, nb), generator=g, device="cuda")
+    picks = (0, 179, 359)
+    inputs = {b: tiles[b].clone() for b in picks}
+    assert 359 * tiles[0].numel() * 4 > 2 ** 31
+    tmo.reset_launch_counts()
+    f = engine.factor_tiles_batched(tiles, p=p, q=q, nb=nb, use_kernel=True)
+    e = engine.form_q_tiles(f, q * nb)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in tmo.LAUNCHES.items() if v} == dict(
+        engine.dispatch_counts(p, q, batch=batch),
+        **engine.q_dispatch_counts(p, q, q, batch=batch))
+    for b in picks:
+        single = engine.factor_tiles(inputs.pop(b), p=p, q=q, nb=nb,
+                                     use_kernel=True)
+        e_single = engine.form_q_tiles(single, q * nb)
+        torch.cuda.synchronize()
+        for x, y in zip(f, single):
+            assert torch.equal(x[b], y), b
+        assert torch.equal(e[b], e_single), b
+        del single, e_single
 
 
 @pytest.mark.cuda

@@ -15,6 +15,7 @@ import pytest
 from repro.core import dag as jdag
 from repro.core import tilegraph as jtg
 from repro_torch.core import dag, engine, tilegraph
+from worker_threads import share_the_cores  # noqa: F401  (autouse)
 
 _SIZES = (4, 8, 16, 32)
 _TILED = ((64, 16), (128, 16), (256, 16), (256, 32), (2048, 32), (640, 32))

@@ -39,6 +39,7 @@ import repro_torch
 from repro_torch.core import distgraph as tdist
 from repro_torch.core import tsqr as ttsqr
 from repro_torch.distributed import sharding
+from worker_threads import share_the_cores  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 WORLD = 4

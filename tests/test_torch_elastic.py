@@ -32,6 +32,7 @@ import numpy as np
 import pytest
 
 from repro_torch.distributed import plan_elastic_mesh
+from worker_threads import share_the_cores  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 RESTART_RTOL = 1e-3

@@ -21,6 +21,7 @@ from repro.core import engine as jeng
 from repro_torch.core import engine as teng
 from repro_torch.core import tilegraph as ttg
 from repro.core import tilegraph as jtg
+from worker_threads import share_the_cores  # noqa: F401  (autouse)
 
 GRIDS = [(1, 1), (1, 3), (3, 1), (2, 3), (3, 2), (4, 4), (5, 3), (3, 6), (6, 6)]
 

@@ -26,6 +26,7 @@ from repro.core import householder as jhh
 from repro.core import mht as jmht
 from repro_torch.core import householder as thh
 from repro_torch.core import mht as tmht
+from worker_threads import share_the_cores  # noqa: F401  (autouse)
 
 SHAPES = [(12, 12), (20, 7), (7, 15), (1, 5), (6, 1)]
 DTYPES = ("float32", "float64")

@@ -21,6 +21,7 @@ from repro_torch.core import engine as teng
 from repro_torch.kernels import macro_ops as tmo
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import wy_trailing as ttrail
+from worker_threads import share_the_cores  # noqa: F401  (autouse)
 
 tplan = importlib.import_module("repro_torch.core.plan")
 

@@ -24,6 +24,7 @@ from repro_torch.distributed import sharding
 from repro_torch.models import attention as TA, moe as TMOE, ssm as TS
 from repro_torch.models import xlstm as TX
 from repro_torch.models.transformer import map_tree
+from worker_threads import share_the_cores  # noqa: F401  (autouse)
 
 TOL = 1e-5
 

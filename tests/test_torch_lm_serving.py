@@ -33,6 +33,7 @@ from repro_torch.models import (active_param_count, forward_decode,
                                 init_params, param_count, params_from_numpy)
 from repro_torch.models.layers import embed
 from repro_torch.serving import ServeEngine
+from worker_threads import share_the_cores  # noqa: F401  (autouse)
 
 TOL = 1e-5
 

@@ -26,6 +26,7 @@ from repro.kernels import macro_ops as jmo
 from repro_torch.core import blocked as tblocked
 from repro_torch.core import engine
 from repro_torch.kernels import macro_ops as tmo
+from worker_threads import share_the_cores  # noqa: F401  (autouse)
 
 NBS = (4, 8, 16)
 DTYPES = ("float32", "float64")

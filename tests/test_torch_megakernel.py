@@ -25,6 +25,7 @@ from repro.core import tilegraph as jtg
 from repro_torch.core import engine as teng
 from repro_torch.core import tilegraph as ttg
 from repro_torch.kernels import macro_ops as tmo
+from worker_threads import share_the_cores  # noqa: F401  (autouse)
 
 tplan = importlib.import_module("repro_torch.core.plan")
 
@@ -185,14 +186,15 @@ def test_solve_batched_modes_match_single(q_method, sign_fix):
 
 
 def test_dispatch_counts_and_batched_guards():
-    """One launch per megakernel call, B times the per-kind wavefront
-    launches on a stack; the batched entry point's shape checks."""
+    """One launch per megakernel call, one schedule's per-kind wavefront
+    launches on a stack of any size; the batched entry point's shape
+    checks."""
     assert teng.dispatch_counts(20, 20, "megakernel") == {"MEGAKERNEL": 1}
     assert teng.dispatch_counts(18, 18, "megakernel", 60) == {
         "MEGAKERNEL_BATCHED": 1}
     assert sum(teng.dispatch_counts(20, 20).values()) == 147
-    assert teng.dispatch_counts(18, 18, batch=60) == {
-        k: 60 * v for k, v in teng.dispatch_counts(18, 18).items()}
+    assert teng.dispatch_counts(18, 18, batch=60) == \
+        teng.dispatch_counts(18, 18)
     assert teng.schedule_stats(20, 20)["megakernel"]["dispatches"] == 1
     with pytest.raises(ValueError, match="stacked workspace"):
         teng.factor_tiles_batched(torch.zeros(0, 2, 2, 4, 4), p=2, q=2, nb=4)
@@ -202,6 +204,113 @@ def test_dispatch_counts_and_batched_guards():
         teng.factor_tiles_batched(torch.zeros(2, 24, 24, 1, 1), p=24, q=24,
                                   nb=1, use_kernel=True,
                                   dispatch_mode="megakernel")
+
+
+@pytest.mark.parametrize("p,q,qe", [(18, 18, 18), (5, 3, 5), (3, 5, 3)])
+def test_stacked_dispatch_counts_are_one_schedules(p, q, qe):
+    """A stack of any size takes one schedule's wavefront launches, to
+    factor and to form Q: each launch runs its batch on every slice."""
+    for batch in (2, 7, 360):
+        assert teng.dispatch_counts(p, q, batch=batch) == \
+            teng.dispatch_counts(p, q)
+        assert teng.q_dispatch_counts(p, q, qe, batch=batch) == \
+            teng.q_dispatch_counts(p, q, qe)
+
+
+@pytest.mark.parametrize("kind", ["GEQRT", "LARFB", "TSQRT", "SSRFB",
+                                  "QLARFB", "QSSRFB"])
+def test_wrappers_take_a_stacked_state(kind):
+    """Each workspace wrapper takes a (B, p, q, nb, nb) stack with (B, ...)
+    state fields and E: on the CPU its plain version runs the batch on
+    every slice at once, each slice equal bit for bit to the wrapper on
+    that slice alone, and no launch is counted; a field without the
+    stack's leading B is refused."""
+    p, q, batch = 3, 2, 3
+    r = min(p, q)
+    rng = np.random.default_rng(70)
+    shapes = [(batch, p, q, NB, NB), (batch, r, NB, NB), (batch, r, NB),
+              (batch, p, r, NB, NB), (batch, p, r, NB)]
+    state = teng.FactorState(*(torch.from_numpy(
+        rng.standard_normal(s).astype(np.float32)) for s in shapes))
+    e = torch.from_numpy(rng.standard_normal(
+        (batch, p, q, NB, NB)).astype(np.float32))
+    levels = (teng.q_task_arrays(p, q, q) if kind in tmo.Q_OPS
+              else teng.wavefront_task_arrays(p, q))
+    idx = torch.from_numpy(max((lv[kind] for lv in levels if kind in lv),
+                               key=len))
+
+    def run(st, e_):
+        if kind in tmo.Q_OPS:
+            tmo.run_q_batch(kind, st, e_, idx, use_kernel=True)
+        else:
+            tmo.run_batch(kind, st, idx, use_kernel=True)
+
+    stacked = teng.FactorState(*(x.clone() for x in state))
+    e_stacked = e.clone()
+    tmo.reset_launch_counts()
+    run(stacked, e_stacked)
+    assert not any(tmo.LAUNCHES.values())
+    for b in range(batch):
+        alone = teng.FactorState(*(x[b].clone() for x in state))
+        e_alone = e[b].clone()
+        run(alone, e_alone)
+        for x, y in zip(stacked, alone):
+            assert torch.equal(x[b], y)
+        assert torch.equal(e_stacked[b], e_alone)
+    with pytest.raises(ValueError, match="must be"):
+        run(teng.FactorState(stacked.tiles, *(x[0] for x in stacked[1:])),
+            e_stacked)
+    if kind in tmo.Q_OPS:
+        with pytest.raises(ValueError, match="Q workspace"):
+            run(stacked, e_stacked[0])
+
+
+def test_stacked_wavefront_counts_its_filled_slices():
+    """The wavefront kernel lowering on a padded (5, 3, 2) stack filled to
+    3: one stacked call each to factor and to form Q, each adding 3 to
+    ``engine.stacked_wavefront_slices`` and one schedule to
+    ``engine.dispatches``; the filled slices equal their single runs bit
+    for bit, the rest stay the zero state and the identity Q.  The plain
+    lowering, the megakernel and a stack of one add nothing."""
+    from repro_torch.observability import metrics
+
+    p, q, batch, filled = 3, 2, 5, 3
+    ws = _workspace((batch, p, q, NB, NB), seed=71, dtype="float32")
+    ws[filled:] = 0
+    kw = dict(p=p, q=q, nb=NB, use_kernel=True, dispatch_mode="wavefront")
+
+    def slices(stage):
+        return metrics.counter_value("engine.stacked_wavefront_slices",
+                                     stage=stage)
+
+    metrics.reset()
+    f = teng.factor_tiles_batched(torch.from_numpy(ws.copy()), filled=filled,
+                                  **kw)
+    e = teng.form_q_tiles(f, p * NB, dispatch_mode="wavefront", filled=filled)
+    assert (slices("factor"), slices("q")) == (filled, filled)
+    assert metrics.counter_value("engine.dispatches", mode="wavefront",
+                                 phase="execute") == \
+        sum(teng.dispatch_counts(p, q).values())
+    zero = teng.init_state(torch.zeros(p, q, NB, NB))
+    eye = teng.q_workspace((), p, p, NB, torch.float32, torch.device("cpu"))
+    for b in range(batch):
+        if b < filled:
+            single = teng.factor_tiles(torch.from_numpy(ws[b].copy()), **kw)
+            e_single = teng.form_q_tiles(single, p * NB,
+                                         dispatch_mode="wavefront")
+        else:
+            single, e_single = zero, eye
+        for x, y in zip(f, single):
+            assert torch.equal(x[b], y)
+        assert torch.equal(e[b], e_single)
+    teng.factor_tiles_batched(torch.from_numpy(ws.copy()), **kw)
+    assert slices("factor") == filled + batch
+    metrics.reset()
+    teng.factor_tiles_batched(torch.from_numpy(ws.copy()), p=p, q=q, nb=NB)
+    teng.factor_tiles_batched(torch.from_numpy(ws[:1].copy()), **kw)
+    teng.factor_tiles_batched(torch.from_numpy(ws.copy()), p=p, q=q, nb=NB,
+                              use_kernel=True, dispatch_mode="megakernel")
+    assert (slices("factor"), slices("q")) == (0, 0)
 
 
 def test_megakernel_table_upload_and_wrapper_checks():

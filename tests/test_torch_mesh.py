@@ -57,6 +57,7 @@ from repro.optim import muon_init as ref_muon_init
 from repro_torch.distributed import sharding as T
 from repro_torch.launch import mesh as TM
 from repro_torch.optim import AdamWState, MuonState, is_muon_param
+from worker_threads import share_the_cores  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 WORLD, MESH = 8, (4, 2)

@@ -34,6 +34,7 @@ from repro_torch.models import (ParamTree, forward_train, init_params,
 from repro_torch.models import transformer as TT
 from repro_torch.models.attention import chunked_attention
 from repro_torch.training.train_step import fused_lm_loss
+from worker_threads import share_the_cores  # noqa: F401  (autouse)
 
 DENSE = ["smollm-135m", "olmo-1b", "gemma2-9b", "chameleon-34b",
          "qwen2.5-32b", "musicgen-large"]

@@ -32,6 +32,7 @@ from repro_torch.core import engine as teng
 from repro_torch.observability import (instrument, metrics, profiler, report,
                                        trace)
 from repro_torch.serving import BucketingPolicy, QRService
+from worker_threads import share_the_cores  # noqa: F401  (autouse)
 
 
 @pytest.fixture(autouse=True)

@@ -31,6 +31,7 @@ from repro.models import init_params as ref_init_params
 from repro_torch import optim as T
 from repro_torch.configs import get_smoke_config as t_smoke
 from repro_torch.models import forward_train, init_params
+from worker_threads import share_the_cores  # noqa: F401  (autouse)
 
 EPS32 = float(np.finfo(np.float32).eps)
 

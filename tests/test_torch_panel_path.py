@@ -36,6 +36,7 @@ from repro_torch.kernels import macro_ops as tmo
 from repro_torch.kernels import mht_panel as tpanel
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
+from worker_threads import share_the_cores  # noqa: F401  (autouse)
 
 jplan = importlib.import_module("repro.core.plan")
 tplan = importlib.import_module("repro_torch.core.plan")

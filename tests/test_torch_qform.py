@@ -29,6 +29,7 @@ from repro.core import tilegraph as jtg
 from repro_torch.core import engine as teng
 from repro_torch.core import tilegraph as ttg
 from repro_torch.kernels import macro_ops as tmo
+from worker_threads import share_the_cores  # noqa: F401  (autouse)
 
 # (label, (m, n), nb): square, tall, wide, at grids up to 6 x 6.
 CASES = [("square", (48, 48), 8), ("tall", (96, 32), 16),

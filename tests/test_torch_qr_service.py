@@ -26,6 +26,7 @@ from repro import serving as jserving
 from repro_torch.serving import (
     BucketKey, BucketingPolicy, QRService, bucket_key, bucketize, pad_batch,
     pad_dim, pow2ish_edges)
+from worker_threads import share_the_cores  # noqa: F401  (autouse)
 
 # ------------------------------------------------------------- bucketing
 
@@ -255,8 +256,9 @@ def test_device_tensors_stay_on_the_device():
 
 def test_padded_slots_skip_the_slice_by_slice_rungs():
     """On the wavefront rung a padded batch factors only its filled
-    slices (launches counted for them alone), with the answers of the
-    whole padded stack bit for bit."""
+    slices (``engine.stacked_wavefront_slices`` counts them; the stack
+    takes one schedule's launches), with the answers of the whole padded
+    stack bit for bit."""
     from repro_torch.core import engine, tilegraph
     from repro_torch.observability import metrics
 
@@ -271,10 +273,12 @@ def test_padded_slots_skip_the_slice_by_slice_rungs():
         stack.clone(), p=4, q=4, nb=8, mode="reduced", use_kernel=True,
         dispatch_mode="wavefront", filled=3)
     assert all(torch.equal(x, y) for x, y in zip(whole, part))
-    per_slice = engine.dispatch_counts(4, 4, "wavefront", 1)
+    per_call = sum(engine.dispatch_counts(4, 4, "wavefront", 3).values())
     assert metrics.counter_value("engine.dispatches", mode="wavefront",
-                                 phase="execute") == \
-        3 * sum(per_slice.values())
+                                 phase="execute") == per_call
+    for stage in ("factor", "q"):
+        assert metrics.counter_value("engine.stacked_wavefront_slices",
+                                     stage=stage) == 3
     svc = QRService(policy=BucketingPolicy(tile=8, max_batch=4),
                     use_kernel=True, dispatch_mode="wavefront", device="cpu")
     metrics.reset()
@@ -282,8 +286,9 @@ def test_padded_slots_skip_the_slice_by_slice_rungs():
     for a, res in zip(arrs, svc.submit_many(arrs)):
         _check_qr(a, res.q, res.r)
     assert metrics.counter_value("engine.dispatches", mode="wavefront",
-                                 phase="execute") == \
-        3 * sum(per_slice.values())
+                                 phase="execute") == per_call
+    assert metrics.counter_value("engine.stacked_wavefront_slices",
+                                 stage="factor") == 3
     assert svc.stats()["padded_slots"] == 1
 
 

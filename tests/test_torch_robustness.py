@@ -39,6 +39,7 @@ from repro_torch.kernels import _build
 from repro_torch.observability import metrics
 from repro_torch.robustness import escalate, guards, inject, verify
 from repro_torch.serving import BucketingPolicy, QRService
+from worker_threads import share_the_cores  # noqa: F401  (autouse)
 
 
 @pytest.fixture(autouse=True)

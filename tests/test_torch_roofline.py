@@ -21,6 +21,7 @@ from repro.launch import roofline as jroof
 from repro_torch.configs import ARCHS, SHAPES, get_config
 from repro_torch.launch import roofline
 from repro_torch.optim.qr_muon import STACKED
+from worker_threads import share_the_cores  # noqa: F401  (autouse)
 
 _REL = 1e-12
 

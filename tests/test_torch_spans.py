@@ -32,6 +32,7 @@ from repro_torch.optim.batched_ortho import (batched_orthogonalize,
 from repro_torch.serving import ServeEngine
 from repro_torch.training import RunConfig, TrainConfig, Trainer
 from repro_torch.training import train_step as ts
+from worker_threads import share_the_cores  # noqa: F401  (autouse)
 
 
 @pytest.fixture(autouse=True)

@@ -26,6 +26,7 @@ from repro_torch.checkpoint import CheckpointManager
 from repro_torch.distributed import (dequantize, ef_compress_tree,
                                      init_error_state, quantize)
 from repro_torch.models import params_from_numpy
+from worker_threads import share_the_cores  # noqa: F401  (autouse)
 
 
 def _tree(seed):

@@ -25,6 +25,7 @@ from repro.kernels import tile_ops as jtile
 from repro_torch.kernels import macro_ops as tmo
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import tile_ops as ttile
+from worker_threads import share_the_cores  # noqa: F401  (autouse)
 
 DTYPES = ("float32", "float64")
 

@@ -24,6 +24,7 @@ from repro.core import tilegraph as jtg
 import repro_torch
 from repro_torch.core import tilegraph as ttg
 from test_plan import _ROUTING_TABLE
+from worker_threads import share_the_cores  # noqa: F401  (autouse)
 
 # Both packages export a function named ``plan`` from ``core``.
 jplan = importlib.import_module("repro.core.plan")

@@ -36,6 +36,7 @@ from repro_torch.models import init_params
 from repro_torch.observability import metrics
 from repro_torch.training import (RunConfig, TrainConfig, Trainer,
                                   init_train_state, make_train_step)
+from worker_threads import share_the_cores  # noqa: F401  (autouse)
 
 
 def _data(cfg, batch=8, seq=64, cls=DataConfig):

@@ -24,6 +24,7 @@ from repro.core import tsqr as jtsqr
 import repro_torch
 from repro_torch.core import tsqr as ttsqr
 from repro_torch.core.plan import QRConfig
+from worker_threads import share_the_cores  # noqa: F401  (autouse)
 
 DTYPES = ("float32", "float64")
 

@@ -35,6 +35,7 @@ from repro_torch.tuning import cache as tcache
 from repro_torch.tuning import sweep
 from repro_torch.tuning.cache import (TunedConfig, TuningCache, TuningEntry,
                                       set_active_cache, shape_class)
+from worker_threads import share_the_cores  # noqa: F401  (autouse)
 
 
 @pytest.fixture(autouse=True)

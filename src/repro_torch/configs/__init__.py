@@ -1,7 +1,9 @@
 """Architecture registry: ``get_config(arch_id)`` / ``get_smoke_config``.
 
 One module per assigned architecture (exact published configs) plus the
-paper's own QR workload sizes.  ``ARCHS`` maps the CLI ``--arch`` ids.
+paper's own QR workload sizes.  ``ARCHS`` maps the CLI ``--arch`` ids
+that the reference's registry also has (the tests hold each against its
+twin); ``PORT_ARCHS`` the port's own, which have none.
 """
 
 from repro_torch.configs.base import SHAPES, LayerSpec, ModelConfig, MoEConfig, ShapeConfig
@@ -18,16 +20,22 @@ _MODULES = {
     "chameleon-34b": "chameleon_34b",
     "musicgen-large": "musicgen_large",
 }
+_PORT_MODULES = {
+    "jamba2-mini": "jamba2_mini",
+}
 
 ARCHS = tuple(_MODULES)
+PORT_ARCHS = tuple(_PORT_MODULES)
 
 
 def _load(arch: str):
     import importlib
 
-    if arch not in _MODULES:
-        raise KeyError(f"unknown arch {arch!r}; known: {sorted(_MODULES)}")
-    return importlib.import_module(f"repro_torch.configs.{_MODULES[arch]}")
+    module = _MODULES.get(arch, _PORT_MODULES.get(arch))
+    if module is None:
+        raise KeyError(f"unknown arch {arch!r}; known: "
+                       f"{sorted(ARCHS + PORT_ARCHS)}")
+    return importlib.import_module(f"repro_torch.configs.{module}")
 
 
 def get_config(arch: str) -> ModelConfig:
@@ -38,5 +46,5 @@ def get_smoke_config(arch: str) -> ModelConfig:
     return _load(arch).SMOKE
 
 
-__all__ = ["ARCHS", "get_config", "get_smoke_config", "SHAPES",
+__all__ = ["ARCHS", "PORT_ARCHS", "get_config", "get_smoke_config", "SHAPES",
            "LayerSpec", "ModelConfig", "MoEConfig", "ShapeConfig"]

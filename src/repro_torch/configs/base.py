@@ -6,7 +6,10 @@ dense/GQA attention, local attention, Mamba, mLSTM/sLSTM and dense/MoE
 FFNs into any of the assigned architectures.  Parameters are stacked
 over periods (one leaf per period position, leading axis ``n_periods``).
 A copy of the reference's ``repro.configs.base``: shapes only, no
-weights.
+weights.  Three switches are the port's own, for the published Jamba
+block (``jamba2-mini``): ``ModelConfig.mamba_inner_norm``,
+``rope_theta=None`` and ``MoEConfig(capacity_factor=None,
+normalize_topk=False)``; their defaults are the reference's behaviour.
 """
 
 from __future__ import annotations
@@ -31,8 +34,10 @@ class MoEConfig:
     top_k: int
     d_expert: int
     num_shared: int = 0          # always-on shared experts (qwen2-moe style)
-    capacity_factor: float = 1.25
+    # None: dropless, every routed (token, choice) pair computed (jamba)
+    capacity_factor: Optional[float] = 1.25
     router_aux_weight: float = 0.01
+    normalize_topk: bool = True  # False: top-k softmax weights as they are (jamba)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,7 +56,7 @@ class ModelConfig:
     ffn_act: str = "swiglu"            # "swiglu" | "geglu" | "gelu"
     qkv_bias: bool = False
     qk_norm: bool = False              # chameleon
-    rope_theta: float = 10_000.0
+    rope_theta: Optional[float] = 10_000.0   # None: no positional encoding (jamba)
     logit_softcap: Optional[float] = None   # gemma2
     attn_softcap: Optional[float] = None    # gemma2
     window: Optional[int] = None            # local-attention window
@@ -64,6 +69,7 @@ class ModelConfig:
     d_state: int = 16
     dt_rank: Optional[int] = None
     conv_kernel: int = 4
+    mamba_inner_norm: bool = False     # RMSNorms on dt, B and C (jamba)
     # xlstm
     mlstm_proj_factor: float = 2.0
     slstm_ffn_factor: float = 1.3334

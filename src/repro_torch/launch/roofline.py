@@ -111,10 +111,13 @@ def _ffn_flops(cfg: ModelConfig, t: int) -> float:
 
 def _moe_flops(cfg: ModelConfig, t: int) -> float:
     moe = cfg.moe
-    cap = max(8, min(t, math.ceil(t * moe.top_k / moe.num_experts
-                                  * moe.capacity_factor + 7) // 8 * 8))
+    if moe.capacity_factor is None:      # dropless: the routed pairs alone
+        slots = t * moe.top_k
+    else:
+        slots = moe.num_experts * max(8, min(t, math.ceil(
+            t * moe.top_k / moe.num_experts * moe.capacity_factor + 7) // 8 * 8))
     mats = 3 if cfg.ffn_act in ("swiglu", "geglu") else 2
-    routed = 2 * mats * (moe.num_experts * cap) * cfg.d_model * moe.d_expert
+    routed = 2 * mats * slots * cfg.d_model * moe.d_expert
     shared = 2 * mats * t * cfg.d_model * (moe.num_shared * moe.d_expert)
     router = 2 * t * cfg.d_model * moe.num_experts
     return routed + shared + router

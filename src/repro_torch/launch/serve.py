@@ -18,7 +18,7 @@ import time
 
 import torch
 
-from repro_torch.configs import ARCHS, get_config, get_smoke_config
+from repro_torch.configs import ARCHS, PORT_ARCHS, get_config, get_smoke_config
 from repro_torch.core.plan import resolve_device
 from repro_torch.models import init_params
 from repro_torch.models.layers import embed
@@ -27,7 +27,7 @@ from repro_torch.serving import ServeEngine
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", choices=list(ARCHS), required=True)
+    ap.add_argument("--arch", choices=list(ARCHS + PORT_ARCHS), required=True)
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)

@@ -17,6 +17,9 @@ with a length mask.  It writes the new K/V into the cache **in place**
 (the reference's ``lax.dynamic_update_slice`` returns a new array) and
 raises on a ``cur_len`` outside the cache, where the reference's update
 clamps the index and silently overwrites the last slot.
+
+``cfg.rope_theta=None`` (Jamba) leaves q and k without positional
+encoding, in training, prefill and decode alike.
 """
 
 from __future__ import annotations
@@ -57,8 +60,9 @@ def _project_qkv(p, x, cfg, positions):
     if cfg.qk_norm:
         q = apply_norm(p["qnorm"], q, "rmsnorm")
         k = apply_norm(p["knorm"], k, "rmsnorm")
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    if cfg.rope_theta is not None:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
@@ -134,7 +138,7 @@ def attn_forward(
     return_kv: bool = False,
 ):
     """Training / prefill attention over a full sequence; with
-    ``return_kv`` also the roped K and V, (B, S, n_kv, D) each."""
+    ``return_kv`` also the (roped) K and V, (B, S, n_kv, D) each."""
     b, s, _ = x.shape
     positions = pos0 + torch.arange(s, device=x.device)
     q, k, v = _project_qkv(p, x, cfg, positions)

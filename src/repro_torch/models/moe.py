@@ -1,5 +1,5 @@
-"""Mixture-of-Experts FFN: top-k routing, capacity dispatch, shared
-experts.
+"""Mixture-of-Experts FFN: top-k routing, capacity or dropless dispatch,
+shared experts.
 
 Counterpart of the reference's ``repro.models.moe``.  Dispatch is
 scatter-based (GShard-style capacity buffers, no (T, E, C) one-hot): the
@@ -12,6 +12,22 @@ in any order.  Expert compute runs over all E x C slots.
 
 qwen2-moe extras: ``num_shared`` always-on experts fused into one dense
 FFN of width num_shared * d_expert, sigmoid-gated.
+
+Dropless route (``capacity_factor=None``, Jamba): the (token, choice)
+pairs are sorted by expert (a stable sort, so token-major within an
+expert) and each expert's products run over exactly its own pairs, one
+grouped product a weight stack (``torch._grouped_mm`` with the experts'
+row ends as offsets, on the device), so no pair is dropped or padded and
+a token's output does not depend on the tokens batched with it.  Nothing
+is read back to the host: a decode step does not synchronize.  A call
+takes its tokens whole; the serving engine bounds prefill's transients
+by prefilling ``serving.engine.PREFILL_TOKENS`` tokens a pass.
+``normalize_topk=False`` weights the outputs by the top-k softmax
+probabilities as they are, on either route.
+
+While tracing, each call is a ``models.moe`` span labelled with its
+route; the counter ``models.moe_pairs{route}`` adds the call's T * k
+routed pairs (known from the shape, nothing read from the card).
 
 Returns (y, aux_loss) with the switch-style load-balance loss.
 """
@@ -28,6 +44,8 @@ from repro_torch.distributed.sharding import (constrain_expert_stack,
                                               constrain_token_stack)
 from repro_torch.models.layers import (dense, dense_init, ffn, ffn_init,
                                        gelu_tanh, silu)
+from repro_torch.observability import metrics as _metrics
+from repro_torch.observability import trace as _trace
 
 Tensor = torch.Tensor
 
@@ -66,9 +84,19 @@ def _capacity(tokens: int, moe) -> int:
 
 
 def moe_forward(p: dict, x: Tensor, cfg) -> Tuple[Tensor, Tensor]:
-    """x: (B, S, d) -> (y, aux_loss).
+    """x: (B, S, d) -> (y, aux_loss), by the dropless route when
+    ``cfg.moe.capacity_factor`` is None, else by capacity dispatch."""
+    route = "capacity" if cfg.moe.capacity_factor is not None else "dropless"
+    _metrics.counter("models.moe_pairs", route=route).inc(
+        x.shape[0] * x.shape[1] * cfg.moe.top_k)
+    with _trace.span("models.moe", route=route):
+        if route == "dropless":
+            return _moe_dropless(p, x, cfg)
+        return _moe_capacity(p, x, cfg)
 
-    More than ``_MOE_CHUNK_TOKENS`` tokens, in a whole number of such
+
+def _moe_capacity(p: dict, x: Tensor, cfg) -> Tuple[Tensor, Tensor]:
+    """More than ``_MOE_CHUNK_TOKENS`` tokens, in a whole number of such
     chunks, dispatch chunk by chunk, each with its own capacity (the
     reference's ``lax.scan``); the aux loss is the mean over chunks."""
     bb, ss, dd = x.shape
@@ -100,7 +128,8 @@ def _moe_tokens(p: dict, x: Tensor, cfg) -> Tuple[Tensor, Tensor]:
     logits = xt.to(torch.float32) @ p["router"]["w"]              # (T, E)
     probs = torch.softmax(logits, dim=-1)
     gate_vals, expert_idx = torch.topk(probs, k, dim=-1)          # (T, k)
-    gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True)
+    if moe.normalize_topk:
+        gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True)
 
     # slot of each (token, choice) in its expert's capacity buffer
     flat_idx = expert_idx.reshape(-1)                             # (T*k,)
@@ -144,3 +173,34 @@ def _moe_tokens(p: dict, x: Tensor, cfg) -> Tuple[Tensor, Tensor]:
     aux = moe.router_aux_weight * e * torch.sum(f_e * p_e)
 
     return y.reshape(b, s, d).to(x.dtype), aux
+
+
+def _moe_dropless(p: dict, x: Tensor, cfg) -> Tuple[Tensor, Tensor]:
+    """Every routed (token, choice) pair computed once, by expert."""
+    moe = cfg.moe
+    b, s, d = x.shape
+    t, e, k = b * s, moe.num_experts, moe.top_k
+    bw = x.dtype
+    xt = x.reshape(t, d)
+    probs = torch.softmax(xt.to(torch.float32) @ p["router"]["w"], dim=-1)
+    gate_vals, expert_idx = torch.topk(probs, k, dim=-1)          # (T, k)
+    if moe.normalize_topk:
+        gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True)
+    flat = expert_idx.reshape(-1)                                 # (T*k,)
+    order = torch.argsort(flat, stable=True)
+    ends = torch.searchsorted(flat[order], torch.arange(e, device=x.device), right=True)
+    offs = ends.to(torch.int32)
+    xs = xt[order // k]                                           # by expert
+    up = torch._grouped_mm(xs, p["up_w"].to(bw), offs=offs)
+    if cfg.ffn_act in ("swiglu", "geglu"):
+        act = silu if cfg.ffn_act == "swiglu" else gelu_tanh
+        h = act(torch._grouped_mm(xs, p["gate_w"].to(bw), offs=offs)) * up
+    else:
+        h = gelu_tanh(up)
+    out = torch._grouped_mm(h, p["down_w"].to(bw), offs=offs)
+    pairs = torch.empty_like(out).index_copy_(0, order, out)      # token-major
+    y = (pairs.to(torch.float32) * gate_vals.reshape(-1, 1)).reshape(t, k, d).sum(dim=1)
+    # switch-style load balance, as the capacity route: E * sum_e f_e * P_e
+    f_e = torch.diff(ends, prepend=ends.new_zeros(1)).to(torch.float32) / t
+    aux = moe.router_aux_weight * e * torch.sum(f_e * probs.mean(dim=0))
+    return y.to(bw).reshape(b, s, d), aux

@@ -18,6 +18,12 @@ are, each chunk is recomputed in the backward pass when autograd records
 chunk's discretisation alive, not the sequence's.
 
 Decode is one state update a token.
+
+With ``cfg.mamba_inner_norm`` (Jamba) the input-dependent dt, B and C
+pass RMSNorms (leaves ``dt_norm``, ``b_norm``, ``c_norm``) before dt's
+projection and the scan, in training, prefill and decode alike.  While
+tracing, each mixer call (forward or decode) is a ``models.mamba`` span
+(host time, no synchronize).
 """
 
 from __future__ import annotations
@@ -28,7 +34,9 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import dense, dense_init, scan_chunks, silu
+from repro_torch.models.layers import (apply_norm, dense, dense_init,
+                                       norm_init, scan_chunks, silu)
+from repro_torch.observability import trace as _trace
 
 Tensor = torch.Tensor
 
@@ -56,7 +64,7 @@ def mamba_init(gen: torch.Generator, cfg) -> dict:
     dt = torch.exp(u * (math.log(0.1) - math.log(1e-3)) + math.log(1e-3))
     dt_bias = dt + torch.log(-torch.expm1(-dt))  # inverse softplus
     a = torch.arange(1, ds + 1, dtype=torch.float32, device=dev)
-    return {
+    p = {
         "in_proj": in_proj,
         "conv_w": conv_w,
         "conv_b": torch.zeros((di,), device=dev),
@@ -67,6 +75,11 @@ def mamba_init(gen: torch.Generator, cfg) -> dict:
         "d_skip": torch.ones((di,), device=dev),
         "out_proj": dense_init(gen, di, cfg.d_model),
     }
+    if cfg.mamba_inner_norm:
+        p.update(dt_norm=norm_init(dtr, "rmsnorm", dev),
+                 b_norm=norm_init(ds, "rmsnorm", dev),
+                 c_norm=norm_init(ds, "rmsnorm", dev))
+    return p
 
 
 def causal_conv(x: Tensor, w: Tensor, b: Tensor) -> Tensor:
@@ -87,6 +100,10 @@ def _ssm_params(p, xc, cfg):
     ds, dtr = cfg.d_state, _dt_rank(cfg)
     xdb = dense(p["x_proj"], xc, dtype=torch.float32)
     dt_r, b_mat, c_mat = torch.split(xdb, [dtr, ds, ds], dim=-1)
+    if cfg.mamba_inner_norm:
+        dt_r = apply_norm(p["dt_norm"], dt_r, "rmsnorm")
+        b_mat = apply_norm(p["b_norm"], b_mat, "rmsnorm")
+        c_mat = apply_norm(p["c_norm"], c_mat, "rmsnorm")
     dt = F.softplus(dt_r @ p["dt_proj"]["w"] + p["dt_bias"])    # (B,S,di)
     a = -torch.exp(p["a_log"])                                  # (di,ds)
     return dt, a, b_mat, c_mat
@@ -122,6 +139,7 @@ def _scan_chunked(dt, a, xf, b_mat, c_mat, h0, chunk: int):
     return y, h
 
 
+@_trace.traced("models.mamba")
 def mamba_forward(p: dict, x: Tensor, cfg, *, return_state: bool = False):
     """x: (B, S, d_model) -> (B, S, d_model) [, final states for
     prefill]."""
@@ -155,6 +173,7 @@ def mamba_init_state(cfg, batch: int, device=None) -> dict:
     }
 
 
+@_trace.traced("models.mamba")
 def mamba_decode(p: dict, x: Tensor, cfg, state: dict) -> Tuple[Tensor, dict]:
     """One token.  x: (B, 1, d_model); state: {"ssm", "conv"}.  Returns
     the output and new state tensors (``state`` is not written)."""

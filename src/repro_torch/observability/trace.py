@@ -26,7 +26,10 @@ Design points:
     ``sync``, except the two step spans ``train.fwd_bwd`` and
     ``train.optimizer``: so a traced step launches and waits as an
     untraced one does, and an inner span times the host's work (its
-    enqueue), not the device's.
+    enqueue), not the device's.  The model layers' spans are such inner
+    spans: ``models.scan_chunk`` (a recurrent scan's chunk),
+    ``models.mamba`` (a Mamba mixer call) and ``models.moe`` (a MoE
+    layer call, labelled with its route).
   * **One clock.**  ``t_start`` / ``t_end`` are ``time.perf_counter()``
     seconds; ``time.time_ns() - time.perf_counter_ns()`` maps them onto
     a ``torch.profiler`` trace's clock.

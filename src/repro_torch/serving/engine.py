@@ -8,7 +8,14 @@ Counterpart of the reference's ``repro.serving.engine``:
 
 ``serve_step`` is one new token against the caches.  The engine prefills
 the prompts (one length for the batch), pads the attention caches to
-``max_len``, then decodes the batch in lock-step.  It runs under
+``max_len``, then decodes the batch in lock-step.  Prefill takes a
+group of rows at a time, each group at most ``PREFILL_TOKENS`` tokens
+(at least one row), and joins the groups' caches: prefill's transients
+(a hybrid model's full-sequence Mamba tensors, the experts' activations)
+then scale with the group, not the batch.  Every layer but
+capacity-dispatch MoE computes a row alone, so the groups' results are
+the whole batch's; a config whose MoE drops tokens by capacity couples
+the rows and is prefilled whole.  It runs under
 ``torch.inference_mode()`` on ``device`` ("cuda" unless the caller asks
 for the CPU) and raises when the parameters are elsewhere: it never
 moves them.  Temperature sampling draws from a ``torch.Generator`` on
@@ -32,6 +39,8 @@ from repro_torch.observability import trace as _trace
 Tensor = torch.Tensor
 
 __all__ = ["ServeEngine", "serve_step"]
+
+PREFILL_TOKENS = 16_384
 
 
 def serve_step(params, tokens: Tensor, cfg: ModelConfig, caches, pos):
@@ -80,7 +89,8 @@ class ServeEngine:
 
     def prefill(self, prompt_tokens, prompt_embeds=None):
         """The prompts' last-position logits (B, 1, V) and the caches,
-        padded to ``max_len``."""
+        padded to ``max_len`` (the batch a group of rows at a time, but
+        whole under capacity dispatch)."""
         with torch.inference_mode():
             if self.cfg.embedding_input and prompt_embeds is not None:
                 batch = {"embeds": torch.as_tensor(prompt_embeds,
@@ -88,7 +98,20 @@ class ServeEngine:
             else:
                 batch = {"tokens": torch.as_tensor(prompt_tokens,
                                                    device=self.device)}
-            logits, caches = forward_prefill(self.params, batch, self.cfg)
+            (key, full), = batch.items()
+            b, s = full.shape[:2]
+            coupled = self.cfg.moe is not None and self.cfg.moe.capacity_factor is not None
+            rows = b if coupled else max(1, PREFILL_TOKENS // s)
+            parts = [forward_prefill(self.params, {key: full[r:r + rows]}, self.cfg)
+                     for r in range(0, b, rows)]
+            if len(parts) == 1:
+                logits, caches = parts[0]
+            else:
+                logits = torch.cat([lg for lg, _ in parts])
+                caches = tuple(
+                    {k: torch.cat([c[i][k] for _, c in parts], dim=1) for k in entry}
+                    for i, entry in enumerate(parts[0][1]))
+            del parts
             return logits, self._pad_caches(caches)
 
     def decode(self, tok: Tensor, caches, pos: int):

@@ -25,7 +25,7 @@ import jax.numpy as jnp
 from repro.configs import get_smoke_config as ref_smoke
 from repro.models import transformer as RT
 from repro.serving import ServeEngine as RefEngine
-from repro_torch.configs import ARCHS, get_config, get_smoke_config
+from repro_torch.configs import ARCHS, PORT_ARCHS, get_config, get_smoke_config
 from repro_torch.launch import roofline
 from repro_torch.launch import serve as launch_serve
 from repro_torch.models import (active_param_count, forward_decode,
@@ -33,6 +33,7 @@ from repro_torch.models import (active_param_count, forward_decode,
                                 init_params, param_count, params_from_numpy)
 from repro_torch.models.layers import embed
 from repro_torch.serving import ServeEngine
+from repro_torch.serving import engine as engine_mod
 from worker_threads import share_the_cores  # noqa: F401  (autouse)
 
 TOL = 1e-5
@@ -258,6 +259,35 @@ def test_serve_engine_generates_for_every_arch(arch):
         prompts, 4, prompt_embeds=embeds)
     assert out.dtype == torch.int32 and tuple(out.shape) == (2, 4)
     assert int(out.min()) >= 0 and int(out.max()) < cfg.vocab_size
+
+
+@pytest.mark.parametrize("arch", ARCHS + PORT_ARCHS)
+def test_prefill_in_row_groups_serves_the_same_tokens(arch, monkeypatch):
+    """With ``PREFILL_TOKENS`` at two prompts' worth, 4 prompts prefill in
+    two passes whose joined caches serve the whole batch's greedy tokens;
+    a capacity-dispatch MoE config couples its rows and prefills in one."""
+    cfg = get_smoke_config(arch)
+    params = init_params(_gen(1), cfg)
+    prompts = _tokens(cfg, 4, 8, seed=1)
+    embeds = (_inputs(cfg, params, prompts)["embeds"] if cfg.embedding_input
+              else None)
+
+    def serve():
+        return ServeEngine(params, cfg, batch=4, max_len=16, device="cpu").generate(
+            prompts, 4, prompt_embeds=embeds)
+
+    whole = serve()
+    passes, inner = [], engine_mod.forward_prefill
+
+    def counted(p, batch, c):
+        passes.append(next(iter(batch.values())).shape[0])
+        return inner(p, batch, c)
+
+    monkeypatch.setattr(engine_mod, "forward_prefill", counted)
+    monkeypatch.setattr(engine_mod, "PREFILL_TOKENS", 16)
+    assert torch.equal(serve(), whole)
+    coupled = cfg.moe is not None and cfg.moe.capacity_factor is not None
+    assert passes == ([4] if coupled else [2, 2])
 
 
 def test_serving_greedy_reproducible_and_batched():

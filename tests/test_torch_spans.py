@@ -5,6 +5,9 @@
   gradients bit for bit as they were.
 * ``serve.decode`` / ``serve.sample`` around a ``ServeEngine`` step, and
   no span with tracing off.
+* ``models.moe`` (labelled with its route) and ``models.mamba`` around
+  each MoE layer and Mamba mixer call of a jamba2-mini prefill and decode
+  step, none of them synchronizing.
 * ``optim.ortho_class.<route>``: one span a class of the plan, the
   batched one holding ``optim.ortho_stack`` and ``optim.ortho_unstack``.
 * Inside a traced training step only ``train.fwd_bwd`` and
@@ -26,6 +29,8 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.core.plan import QRConfig
 from repro_torch.data import DataConfig
 from repro_torch.models import init_params
+from repro_torch.models.moe import moe_forward
+from repro_torch.models.transformer import map_tree
 from repro_torch.observability import instrument, trace
 from repro_torch.optim.batched_ortho import (batched_orthogonalize,
                                              plan_batched_ortho)
@@ -103,6 +108,45 @@ def test_serve_engine_decode_and_sample_spans():
     dec, smp = sorted(trace.spans(), key=lambda s: s.t_start)
     assert dec.name == "serve.decode" and dec.t_end <= smp.t_start
     assert tuple(tok.shape) == (2, 1) and tok.dtype == torch.int32
+
+
+def test_moe_and_mamba_spans_record_each_layer_and_never_synchronize(monkeypatch):
+    """A traced jamba2-mini prefill and decode step (7 Mamba mixers and 4
+    dropless MoE layers a pass) records one ``models.mamba`` span a
+    mixer call and one ``models.moe`` span a MoE layer call, labelled
+    ``dropless``; qwen2-moe's MoE layer is labelled ``capacity``; no span
+    calls ``Span.sync``, and the step's logits are the untraced ones."""
+    cfg = get_smoke_config("jamba2-mini")
+    eng = ServeEngine(init_params(torch.Generator().manual_seed(3), cfg), cfg,
+                      batch=2, max_len=16, device="cpu")
+    prompt = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 6)))
+    logits, caches = eng.prefill(prompt)
+    tok = eng.sample(logits)
+    want, _ = eng.decode(tok, caches, 6)
+    synced = []
+    real = trace.Span.sync
+
+    def recording(self, value):
+        synced.append(self.name)
+        return real(self, value)
+
+    monkeypatch.setattr(trace.Span, "sync", recording)
+    with instrument.enabled_scope(tracing=True, annotations=False):
+        logits, caches = eng.prefill(prompt)
+        got, _ = eng.decode(eng.sample(logits), caches, 6)
+        qcfg = get_smoke_config("qwen2-moe-a2.7b")
+        qp = init_params(torch.Generator().manual_seed(4), qcfg).tree()["layers"][0]["moe"]
+        moe_forward(map_tree(lambda t: t[0], qp), torch.randn(1, 8, qcfg.d_model), qcfg)
+    assert synced == []
+    assert torch.equal(want, got)
+    names = _names()
+    mamba = sum(s.mixer == "mamba" for s in cfg.period) * cfg.n_periods
+    moe = sum(s.ffn == "moe" for s in cfg.period) * cfg.n_periods
+    assert (mamba, moe) == (7, 4)
+    assert names["models.mamba"] == 2 * mamba and names["models.moe"] == 2 * moe + 1
+    routes = collections.Counter(s.labels["route"] for s in trace.spans()
+                                 if s.name == "models.moe")
+    assert routes == {"dropless": 2 * moe, "capacity": 1}
 
 
 def test_ortho_class_spans_name_their_route():
